@@ -2,9 +2,10 @@
 
 The JAX package beside it stays the reference. This package serves the
 flagship ``GeometryAwareNetwork`` through :class:`~cadepth_tpu_torch.
-inference.Predictor` on an NVIDIA H100; the Perspective Correction
-Layer's two-pass affine warp is a CUDA kernel for ``sm_90a``
-(``csrc/two_pass_warp.cu``), built with ``nvcc`` at first use.
+inference.Predictor` on an NVIDIA H100 and trains it through
+``training.train_state.make_train_step``; the Perspective Correction
+Layer's two-pass affine warp, forward and backward, is CUDA for
+``sm_90a`` (``csrc/two_pass_warp.cu``), built with ``nvcc`` at first use.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain PyTorch version instead.

@@ -1,4 +1,5 @@
-// Two-pass affine warp, forward, for Hopper (sm_90a).
+// Two-pass affine warp, forward and backward, for Hopper (sm_90a). The
+// backward's own notes stand above bwd_pass_kernel.
 //
 // Replaces the TPU kernels `_pass_v_kernel` and `_pass_h_kernel` of
 // cadepth_tpu/ops/pallas/two_pass_warp.py (launched by
@@ -43,6 +44,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -215,6 +217,250 @@ pass_h_kernel(const T* __restrict__ v, T* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (replaces `_bwd_h_kernel` and `_bwd_v_kernel` of the TPU
+// module, launched by `_trainable_bwd`). Given the cotangent G of `out`:
+//
+//   d_v[b,i,x,c]   = sum_j tent(h'(j,i) - x) * G[b,i,j,c]        (bwd H)
+//   d_img[b,y,x,c] = sum_i tent(g'(x,i) - y) * d_v[b,i,x,c]      (bwd V)
+//
+// with h', g' the positions after the border clamp, and the six partials
+// of the loss with respect to the line coefficients,
+//
+//   (s_a, s_b, s_c) = sum_{i,j,x} <G[i,j], V[i,x]>  * dt(h'-x) * dc(h) * (j, i, 1)
+//   (s_p, s_q, s_r) = sum_{i,x,y} <d_v[i,x], img[y,x]> * dt(g'-y) * dc(g) * (x, i, 1)
+//
+// where dt is the tent's derivative with JAX's kink conventions
+// (abs'(0) = +1, a max tie of weight 0.5: -1 at 0, -/+0.5 at +/-1) and
+// dc the clamp's (1 inside, 0.5 on a bound, 0 outside; 1 for zeros
+// padding). The host chains them to d_theta through warp_coeffs.
+//
+// Gather form, no scatter and no atomics: a thread owns one 16-byte
+// channel vector of one pixel of the transposed pass's OUTPUT (d_v in bwd
+// H, d_img in bwd V) and loops over the outputs j (or i) of the forward
+// pass that reach it. Those form one interval, since a position is linear
+// in j (in i) and the clamp is monotone; the interval is solved in double,
+// widened for the f32 rounding of the positions, and each candidate is
+// then tested with the forward's own f32 position arithmetic, so a tap
+// counts exactly when the reference's tent (and its derivative, which is
+// non-zero on the closed interval |pos - x| <= 1: three taps at an
+// integer position) says so. Where the slope is tiny (|A| or |q| near 0)
+// the interval covers the whole row. The same visit gives the partials:
+// the thread's own vector (V in bwd H, img in bwd V) dotted with the
+// visited cotangent vector is its share of the channel dot product.
+// Per-thread partials are summed over the block in a fixed order and
+// written per (row, block); the host sums those (a deterministic
+// reduction), so two runs give the same bits.
+//
+// What bounds it: memory, as for the forward. The least traffic is G, V
+// and img read once and d_img written once; the two launches also write
+// and read d_v, 1.5 times that. Shared-memory staging and one fused pass
+// are later work.
+
+// Indices k in [lo, hi] (within [0, n-1]) whose position s*k + u can come
+// within 1 of `target` after the padding's clamp to [0, size-1]: a
+// superset, widened by `mag` (the sum of the magnitudes of the terms the
+// f32 position adds), which bounds its rounding error.
+struct Range {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Range candidates(float s, double u, double mag,
+                                            int target, int size, int n,
+                                            bool border) {
+  double lo = target - 1.0, hi = target + 1.0;
+  if (border) {
+    if (target <= 1) lo = -INFINITY;         // clamped up to 0
+    if (target >= size - 2) hi = INFINITY;   // clamped down to size-1
+  }
+  Range r;
+  const double as = fabs((double)s);
+  if (!(as > 0.0)) {  // a flat (or NaN) line: test every index
+    r.lo = 0;
+    r.hi = n - 1;
+    return r;
+  }
+  const double k1 = (lo - u) / s, k2 = (hi - u) / s;
+  const double slack = 2.0 + 1e-5 * (mag + 2.0) / as;
+  const double kmin = fmax(fmin(k1, k2) - slack, 0.0);
+  const double kmax = fmin(fmax(k1, k2) + slack, n - 1.0);
+  if (!(kmin <= kmax)) {
+    r.lo = 0;
+    r.hi = -1;
+    return r;
+  }
+  r.lo = (int)floor(kmin);
+  r.hi = (int)ceil(kmax);
+  return r;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum s[0..2] over the block in a fixed order; thread 0 writes them.
+__device__ __forceinline__ void block_sum3(float s0, float s1, float s2,
+                                           float* __restrict__ out) {
+  __shared__ float sh[3][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s0 = warp_sum(s0);
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    sh[0][warp] = s0;
+    sh[1][warp] = s1;
+    sh[2][warp] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      float t = 0.0f;
+      for (int w = 0; w < kThreads / 32; ++w) t += sh[m][w];
+      out[m] = t;
+    }
+  }
+  __syncthreads();
+}
+
+// One transposed pass. H_PASS: rows (b, i), thread pixel x, loop over j;
+// cot = G, own = V, d_own = d_v, partials (s_a, s_b, s_c). Otherwise:
+// rows (b, y), thread pixel x, loop over i; cot = d_v, own = img,
+// d_own = d_img, partials (s_p, s_q, s_r). `partials` holds, for each
+// row, `stride` triples; block x writes triple x, block 0 zeroes the
+// tail.
+template <typename T, int VEC, bool H_PASS>
+__global__ void __launch_bounds__(kThreads)
+bwd_pass_kernel(const T* __restrict__ cot, const T* __restrict__ own,
+                T* __restrict__ d_own, float* __restrict__ partials,
+                int stride, const float* __restrict__ theta, Consts k, int B,
+                int H, int W, int C, int border) {
+  using P = Pack<T, VEC>;
+  const int cv_count = C / VEC;
+  const int row_items = W * cv_count;
+  const int size = H_PASS ? W : H;
+  const float hi = (float)(size - 1);
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int row = blockIdx.y; row < B * H; row += gridDim.y) {
+    const int b = row / H;
+    const int r = row - b * H;  // i in bwd H, y in bwd V
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+    if (item < row_items) {
+      const Lines l = lines(theta + 6 * b, k);
+      const int x = item / cv_count;
+      const int c0 = (item - x * cv_count) * VEC;
+      const int64_t at = ((int64_t)row * W + x) * C + c0;
+      const P mine = *reinterpret_cast<const P*>(own + at);
+      float mine_f[VEC], acc[VEC];
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        mine_f[q] = to_f32(mine.v[q]);
+        acc[q] = 0.0f;
+      }
+      // the forward's position of loop index m is
+      //   bwd H: ((A*m) + (B*i)) + C         bwd V: ((p*x) + (q*m)) + r
+      float fixed, slope, tail;
+      if (H_PASS) {
+        fixed = __fmul_rn(l.b, (float)r);
+        slope = l.a;
+        tail = l.c;
+      } else {
+        fixed = __fmul_rn(l.p, (float)x);
+        slope = l.q;
+        tail = l.r;
+      }
+      const int target = H_PASS ? x : r;
+      const int n = H_PASS ? W : H;
+      const double mag = fabs((double)slope) * n + fabs((double)fixed) +
+                         fabs((double)tail);
+      const Range rg = candidates(slope, (double)fixed + (double)tail, mag,
+                                  target, size, n, border != 0);
+      for (int m = rg.lo; m <= rg.hi; ++m) {
+        const float sm = __fmul_rn(slope, (float)m);
+        const float pos = H_PASS ? __fadd_rn(__fadd_rn(sm, fixed), tail)
+                                 : __fadd_rn(__fadd_rn(fixed, sm), tail);
+        const float pp = border ? fminf(fmaxf(pos, 0.0f), hi) : pos;
+        const float diff = __fsub_rn(pp, (float)target);
+        const float ad = fabsf(diff);
+        if (!(ad <= 1.0f)) continue;
+        const int64_t src = H_PASS ? ((int64_t)row * W + m) * C + c0
+                                   : (((int64_t)b * H + m) * W + x) * C + c0;
+        const P cv = *reinterpret_cast<const P*>(cot + src);
+        const float wgt = fmaxf(__fsub_rn(1.0f, ad), 0.0f);
+        float dot = 0.0f;
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) {
+          const float gv = to_f32(cv.v[q]);
+          acc[q] = __fadd_rn(acc[q], __fmul_rn(wgt, gv));
+          dot = __fadd_rn(dot, __fmul_rn(gv, mine_f[q]));
+        }
+        float dt = ad < 1.0f ? 1.0f : 0.5f;
+        if (diff >= 0.0f) dt = -dt;
+        if (border) dt *= (pos > 0.0f && pos < hi) ? 1.0f
+                          : (pos == 0.0f || pos == hi) ? 0.5f : 0.0f;
+        const float t = dot * dt;
+        s0 += t * (float)(H_PASS ? m : x);
+        s1 += t * (float)(H_PASS ? r : m);
+        s2 += t;
+      }
+      P out;
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) out.v[q] = from_f32<T>(acc[q]);
+      *reinterpret_cast<P*>(d_own + at) = out;
+    }
+    float* dst = partials + ((int64_t)row * stride) * 3;
+    block_sum3(s0, s1, s2, dst + blockIdx.x * 3);
+    if (blockIdx.x == 0) {
+      for (int t = gridDim.x * 3 + threadIdx.x; t < stride * 3; t += blockDim.x)
+        dst[t] = 0.0f;
+    }
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd(const void* grad, const void* v, const void* img,
+                       void* d_v, void* d_img, float* part_h, float* part_v,
+                       int stride, const float* theta, const Consts& k, int B,
+                       int H, int W, int C, int border, cudaStream_t stream) {
+  const int64_t row_items = (int64_t)W * (C / VEC);
+  const int64_t rows = (int64_t)B * H;
+  if (row_items == 0 || rows == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((row_items + kThreads - 1) / kThreads),
+                  (unsigned)(rows < kMaxRowBlocks ? rows : kMaxRowBlocks));
+  bwd_pass_kernel<T, VEC, true><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(grad), static_cast<const T*>(v),
+      static_cast<T*>(d_v), part_h, stride, theta, k, B, H, W, C, border);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_pass_kernel<T, VEC, false><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(d_v), static_cast<const T*>(img),
+      static_cast<T*>(d_img), part_v, stride, theta, k, B, H, W, C, border);
+  return cudaGetLastError();
+}
+
+Consts make_consts(int H, int W, int align_corners) {
+  Consts k;
+  k.align_corners = align_corners;
+  if (align_corners) {
+    k.w = (float)((double)W - 1.0);
+    k.h = (float)((double)H - 1.0);
+    k.hw = (float)(((double)W - 1.0) / 2.0);
+    k.hh = (float)(((double)H - 1.0) / 2.0);
+    k.kx = 0.0f;
+    k.ky = 0.0f;
+  } else {
+    k.w = (float)W;
+    k.h = (float)H;
+    k.hw = (float)((double)W / 2.0);
+    k.hh = (float)((double)H / 2.0);
+    k.kx = (float)(1.0 / (double)W - 1.0);
+    k.ky = (float)(1.0 / (double)H - 1.0);
+  }
+  return k;
+}
+
 template <typename T, int VEC>
 cudaError_t launch(const void* img, void* v, void* out, const float* theta,
                    const Consts& k, int B, int H, int W, int C, int border,
@@ -249,23 +495,7 @@ int cadepth_two_pass_warp_fwd(const void* img, void* v, void* out,
                               const void* theta, int B, int H, int W, int C,
                               int dtype, int border, int align_corners,
                               void* stream) {
-  Consts k;
-  k.align_corners = align_corners;
-  if (align_corners) {
-    k.w = (float)((double)W - 1.0);
-    k.h = (float)((double)H - 1.0);
-    k.hw = (float)(((double)W - 1.0) / 2.0);
-    k.hh = (float)(((double)H - 1.0) / 2.0);
-    k.kx = 0.0f;
-    k.ky = 0.0f;
-  } else {
-    k.w = (float)W;
-    k.h = (float)H;
-    k.hw = (float)((double)W / 2.0);
-    k.hh = (float)((double)H / 2.0);
-    k.kx = (float)(1.0 / (double)W - 1.0);
-    k.ky = (float)(1.0 / (double)H - 1.0);
-  }
+  const Consts k = make_consts(H, W, align_corners);
   const float* th = static_cast<const float*>(theta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec_ok = aligned16(img) && aligned16(v) && aligned16(out);
@@ -278,6 +508,51 @@ int cadepth_two_pass_warp_fwd(const void* img, void* v, void* out,
     if (vec_ok && C % 8 == 0)
       return (int)launch<__nv_bfloat16, 8>(img, v, out, th, k, B, H, W, C, border, s);
     return (int)launch<__nv_bfloat16, 1>(img, v, out, th, k, B, H, W, C, border, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Triples of theta partials per row that cadepth_two_pass_warp_bwd's
+// `part_h` and `part_v` hold: the most blocks a row can take.
+int cadepth_two_pass_warp_bwd_stride(int W, int C) {
+  return (int)(((int64_t)W * C + kThreads - 1) / kThreads);
+}
+
+// The backward of cadepth_two_pass_warp_fwd. grad (the cotangent of
+// out), v (the forward's V), img, d_v (scratch) and d_img are contiguous
+// NHWC (B, H, W, C) device buffers of one dtype; theta is (B, 2, 3)
+// float32; part_h and part_v are float32 buffers of B * H * stride * 3
+// values (stride = cadepth_two_pass_warp_bwd_stride(W, C)). Launches bwd
+// H (grad, v -> d_v, part_h) and bwd V (d_v, img -> d_img, part_v) on
+// `stream` and returns cudaGetLastError(). Summed over rows and the
+// stride, part_h of batch b gives (s_a, s_b, s_c) and part_v
+// (s_p, s_q, s_r).
+int cadepth_two_pass_warp_bwd(const void* grad, const void* v, const void* img,
+                              const void* theta, void* d_v, void* d_img,
+                              void* part_h, void* part_v, int B, int H, int W,
+                              int C, int dtype, int border, int align_corners,
+                              void* stream) {
+  const Consts k = make_consts(H, W, align_corners);
+  const float* th = static_cast<const float*>(theta);
+  float* ph = static_cast<float*>(part_h);
+  float* pv = static_cast<float*>(part_v);
+  const int stride = cadepth_two_pass_warp_bwd_stride(W, C);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec_ok = aligned16(grad) && aligned16(v) && aligned16(img) &&
+                      aligned16(d_v) && aligned16(d_img);
+  if (dtype == 0) {
+    if (vec_ok && C % 4 == 0)
+      return (int)launch_bwd<float, 4>(grad, v, img, d_v, d_img, ph, pv, stride,
+                                       th, k, B, H, W, C, border, s);
+    return (int)launch_bwd<float, 1>(grad, v, img, d_v, d_img, ph, pv, stride,
+                                     th, k, B, H, W, C, border, s);
+  }
+  if (dtype == 1) {
+    if (vec_ok && C % 8 == 0)
+      return (int)launch_bwd<__nv_bfloat16, 8>(grad, v, img, d_v, d_img, ph, pv,
+                                               stride, th, k, B, H, W, C, border, s);
+    return (int)launch_bwd<__nv_bfloat16, 1>(grad, v, img, d_v, d_img, ph, pv,
+                                             stride, th, k, B, H, W, C, border, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,193 @@
+"""Depth losses (port of ``cadepth_tpu.losses.depth_loss``), NHWC, float32.
+
+Shapes: pred/gt depth (B, H, W, 1); image (B, H, W, 3); intrinsics
+(B, 3, 3) or (3, 3); masks are boolean, the shape of the depth. Masked
+reductions are fixed-shape ``where``-sums, and the combined loss returns
+its components from one evaluation, as in the JAX package.
+
+Gradients follow JAX's conventions at the kinks, where torch's own
+differ: ``abs`` has derivative +1 at 0 (torch: 0), and a clip passes half
+the gradient on a bound (torch's ``clamp``: all of it). Depth
+differences can be exactly 0 (equal neighbours, gt zeros clamped to the
+same floor), so :func:`_abs` and :func:`_clip` carry JAX's rules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from cadepth_tpu_torch.ops.resize import avg_pool2d
+
+_CLAMP_MAX = 1000.0
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with derivative +1 at 0, as ``jnp.abs``."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: max then min, each passing half the gradient on a tie."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``values`` over ``mask``; 0 if the mask is empty."""
+    mask = mask.to(values.dtype)
+    n = mask.sum()
+    total = (values * mask).sum()
+    return torch.where(n > 0, total / n.clamp_min(1.0), 0.0)
+
+
+def scale_invariant_loss(pred: torch.Tensor, gt: torch.Tensor,
+                         valid_mask: Optional[torch.Tensor] = None,
+                         lam: float = 0.5, eps: float = 1e-6) -> torch.Tensor:
+    """Eigen'14 SILog loss: mean(d^2) - lam * (sum d)^2 / n^2,
+    d = log p - log g over the mask (default gt > eps), depths clipped to
+    [eps, 1000]; 0 on an empty mask."""
+    pred = pred.float()
+    gt = gt.float()
+    mask = (gt > eps) if valid_mask is None else valid_mask
+    maskf = mask.float()
+    d = torch.log(_clip(pred, eps, _CLAMP_MAX)) - \
+        torch.log(_clip(gt, eps, _CLAMP_MAX))
+    d = d * maskf
+    n = maskf.sum()
+    n_safe = n.clamp_min(1.0)
+    term1 = (d * d).sum() / n_safe
+    term2 = lam * d.sum().square() / (n_safe * n_safe)
+    return torch.where(n > 0, term1 - term2, 0.0)
+
+
+def _gradient_loss_single_scale(pred_log: torch.Tensor,
+                                gt_log: torch.Tensor) -> torch.Tensor:
+    """L1 between forward-difference gradients, averaged over all pixels
+    (no mask: the reference declares one and never applies it)."""
+    pgx = pred_log[..., :, 1:, :] - pred_log[..., :, :-1, :]
+    ggx = gt_log[..., :, 1:, :] - gt_log[..., :, :-1, :]
+    pgy = pred_log[..., 1:, :, :] - pred_log[..., :-1, :, :]
+    ggy = gt_log[..., 1:, :, :] - gt_log[..., :-1, :, :]
+    return _abs(pgx - ggx).mean() + _abs(pgy - ggy).mean()
+
+
+def gradient_matching_loss(pred: torch.Tensor, gt: torch.Tensor,
+                           valid_mask: Optional[torch.Tensor] = None,
+                           num_scales: int = 4,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """MiDaS multi-scale gradient matching in log-depth space: scale s
+    average-pooled by 2^s, log-clipped to [eps, 1000], averaged over
+    scales. ``valid_mask`` is accepted and unused, as in the reference."""
+    del valid_mask
+    pred = pred.float()
+    gt = gt.float()
+    total = 0.0
+    for scale in range(num_scales):
+        if scale == 0:
+            p, g = pred, gt
+        else:
+            p = avg_pool2d(pred, 2 ** scale)
+            g = avg_pool2d(gt, 2 ** scale)
+        p = torch.log(_clip(p, eps, _CLAMP_MAX))
+        g = torch.log(_clip(g, eps, _CLAMP_MAX))
+        total = total + _gradient_loss_single_scale(p, g)
+    return total / num_scales
+
+
+def smoothness_loss(pred: torch.Tensor, image: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Edge-aware smoothness: mean |d dn| * exp(-|d I|), dn the depth
+    divided by its per-sample mean, image gradients averaged over RGB."""
+    pred = pred.float()
+    image = image.float()
+    dn = pred / (pred.mean(dim=(-3, -2), keepdim=True) + eps)
+    dgx = _abs(dn[..., :, 1:, :] - dn[..., :, :-1, :])
+    dgy = _abs(dn[..., 1:, :, :] - dn[..., :-1, :, :])
+    igx = _abs(image[..., :, 1:, :] - image[..., :, :-1, :]).mean(
+        -1, keepdim=True)
+    igy = _abs(image[..., 1:, :, :] - image[..., :-1, :, :]).mean(
+        -1, keepdim=True)
+    return (dgx * torch.exp(-igx)).mean() + (dgy * torch.exp(-igy)).mean()
+
+
+def reprojection_loss(pred: torch.Tensor, gt: torch.Tensor,
+                      intrinsics: torch.Tensor,
+                      valid_mask: Optional[torch.Tensor] = None,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Mean L2 distance between the point clouds of pred and gt, both
+    back-projected through K (per sample, or one K for the batch), with
+    sqrt(diff^2 + eps), over the mask (default gt > eps); 0 on an empty
+    mask."""
+    pred = pred.float()
+    gt = gt.float()
+    b, h, w, _ = pred.shape
+    if intrinsics.dim() == 2:
+        intrinsics = intrinsics.expand(b, 3, 3)
+    k = intrinsics.float()
+    fx = k[:, 0, 0][:, None, None, None]
+    fy = k[:, 1, 1][:, None, None, None]
+    cx = k[:, 0, 2][:, None, None, None]
+    cy = k[:, 1, 2][:, None, None, None]
+    grid_x = torch.arange(w, dtype=torch.float32,
+                          device=pred.device)[None, None, :, None]
+    grid_y = torch.arange(h, dtype=torch.float32,
+                          device=pred.device)[None, :, None, None]
+    xs = (grid_x - cx) / (fx + eps)
+    ys = (grid_y - cy) / (fy + eps)
+    diff_x = xs * (pred - gt)
+    diff_y = ys * (pred - gt)
+    diff_z = pred - gt
+    point_error = torch.sqrt(diff_x * diff_x + diff_y * diff_y
+                             + diff_z * diff_z + eps)
+    mask = (gt > eps) if valid_mask is None else valid_mask
+    return _masked_mean(point_error, mask)
+
+
+def reprojection_loss_photometric(pred: torch.Tensor, gt: torch.Tensor,
+                                  intrinsics: torch.Tensor,
+                                  source_image: torch.Tensor,
+                                  target_image: torch.Tensor) -> torch.Tensor:
+    """Photometric reprojection stub: 0, as the reference's
+    ``forwardPhotometric``."""
+    del gt, intrinsics, source_image, target_image
+    return torch.zeros((), dtype=torch.float32, device=pred.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class CombinedDepthLoss:
+    """Weighted sum of the four depth loss terms, with every component
+    from the same evaluation (defaults 1.0 / 0.1 / 0.001 / 0.01)."""
+
+    si_weight: float = 1.0
+    grad_weight: float = 0.1
+    smooth_weight: float = 0.001
+    reproj_weight: float = 0.01
+    si_lambda: float = 0.5
+    grad_num_scales: int = 4
+    eps: float = 1e-6
+
+    def __call__(self, pred: torch.Tensor, gt: torch.Tensor,
+                 image: torch.Tensor,
+                 intrinsics: Optional[torch.Tensor] = None,
+                 valid_mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total_loss, components). Without ``intrinsics`` there is no
+        reprojection term."""
+        si = scale_invariant_loss(pred, gt, valid_mask, self.si_lambda,
+                                  self.eps)
+        grad = gradient_matching_loss(pred, gt, valid_mask,
+                                      self.grad_num_scales, self.eps)
+        smooth = smoothness_loss(pred, image, self.eps)
+        components = {"si_loss": si, "grad_loss": grad,
+                      "smooth_loss": smooth}
+        total = (self.si_weight * si + self.grad_weight * grad
+                 + self.smooth_weight * smooth)
+        if intrinsics is not None:
+            reproj = reprojection_loss(pred, gt, intrinsics, valid_mask,
+                                       self.eps)
+            components["reproj_loss"] = reproj
+            total = total + self.reproj_weight * reproj
+        components["total_loss"] = total
+        return total, components

@@ -1,0 +1,76 @@
+"""Monocular depth metrics (port of ``compute_depth_metrics`` from
+``cadepth_tpu.metrics.depth_metrics``).
+
+The nine metrics and three auxiliary values come from one fixed-shape
+masked reduction. The mask is gt in (min_depth, max_depth), strict, and
+an optional user mask; predictions are clamped to [min_depth, max_depth]
+and gt is used as it is. The per-sample metrics, the accumulator and the
+formatting come with ROADMAP.md Queue 1, item 4.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+METRIC_NAMES = (
+    "abs_rel",
+    "sq_rel",
+    "rmse",
+    "rmse_log",
+    "mae",
+    "log10",
+    "delta_1.25",
+    "delta_1.25^2",
+    "delta_1.25^3",
+    "num_valid_pixels",
+    "mean_pred_depth",
+    "mean_gt_depth",
+)
+
+
+def compute_depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
+                          valid_mask: Optional[torch.Tensor] = None,
+                          min_depth: float = 0.1,
+                          max_depth: float = 10.0) -> Dict[str, torch.Tensor]:
+    """Every metric over the valid pixels of a map of any leading shape,
+    as float32 scalars; all zero when no pixel is valid."""
+    pred = pred.float()
+    gt = gt.float()
+    mask = (gt > min_depth) & (gt < max_depth)
+    if valid_mask is not None:
+        mask = mask & valid_mask.bool()
+    maskf = mask.float()
+    n = maskf.sum()
+    n_safe = n.clamp_min(1.0)
+
+    def mmean(x: torch.Tensor) -> torch.Tensor:
+        return (x * maskf).sum() / n_safe
+
+    one = torch.ones((), dtype=torch.float32, device=pred.device)
+    # logs and ratios of pixels outside the mask are zeroed by maskf, but
+    # NaN * 0 is NaN, so those pixels take a safe value first
+    g = torch.where(mask, gt, one)
+    p = torch.where(mask, pred.clamp(min_depth, max_depth), one)
+    diff = p - g
+    abs_diff = diff.abs()
+    log_diff = torch.log(p) - torch.log(g)
+    ratio = torch.maximum(p / g, g / p)
+    metrics = {
+        "abs_rel": mmean(abs_diff / g),
+        "sq_rel": mmean(diff * diff / g),
+        "rmse": torch.sqrt(mmean(diff * diff)),
+        "rmse_log": torch.sqrt(mmean(log_diff * log_diff)),
+        "mae": mmean(abs_diff),
+        "log10": mmean(log_diff.abs() / math.log(10.0)),
+        "delta_1.25": mmean((ratio < 1.25).float()),
+        "delta_1.25^2": mmean((ratio < 1.25 ** 2).float()),
+        "delta_1.25^3": mmean((ratio < 1.25 ** 3).float()),
+        "num_valid_pixels": n,
+        "mean_pred_depth": mmean(p),
+        "mean_gt_depth": mmean(g),
+    }
+    zero = torch.zeros((), dtype=torch.float32, device=pred.device)
+    return {k: torch.where(n > 0, v, zero) for k, v in metrics.items()}

@@ -4,7 +4,8 @@ FiLM(F; gamma, beta) = gamma * F + beta, with gamma and beta from an MLP
 over the normalized [fx, fy, cx, cy] vector, in float32. The reference
 applies its BatchNorm1d only when the batch holds more than one sample,
 so one image alone gets a different answer than in a batch; the port
-keeps that.
+keeps that. In training, a batch of one leaves the statistics as they
+are, as in the reference.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cadepth_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, Linear
+from cadepth_tpu_torch.models.layers import BatchNorm1d, Linear
 
 
 class FiLMLayer(nn.Module):
@@ -24,8 +25,8 @@ class FiLMLayer(nn.Module):
         super().__init__()
         self.fc1 = Linear(camera_dim, 128)
         self.fc2 = Linear(128, hidden_dim)
-        self.bn1 = nn.BatchNorm1d(128, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.bn2 = nn.BatchNorm1d(hidden_dim, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn1 = BatchNorm1d(128)
+        self.bn2 = BatchNorm1d(hidden_dim)
         self.fc_gamma = Linear(hidden_dim, feature_channels)
         self.fc_beta = Linear(hidden_dim, feature_channels)
 

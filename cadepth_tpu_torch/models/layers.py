@@ -4,7 +4,8 @@ Inside the models, feature maps are NCHW tensors in ``channels_last``
 memory. Parameters are float32; each layer casts its input and its
 parameters to its compute dtype per call, as flax's ``dtype=`` does, so
 a bf16 model keeps fp32 master weights. BatchNorm computes in float32
-and casts its output to the compute dtype.
+and casts its output to the compute dtype; in training mode it keeps
+flax's running statistics, not torch's.
 """
 
 from __future__ import annotations
@@ -63,10 +64,52 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class _FlaxTrainingNorm:
+    """Batch norm whose training mode computes as ``flax.linen.BatchNorm``
+    does; eval mode is torch's own, with the same ``state_dict`` names.
+
+    In training: float32 statistics over every axis but the channel one
+    (axis 1), the variance biased and taken as E[x^2] - E[x]^2 (flax's
+    ``use_fast_variance``), and the running statistics moved as
+    ``0.99 * old + 0.01 * batch``, with the biased variance. torch's own
+    training mode keeps the unbiased variance in ``running_var``.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            keep = 1.0 - BN_MOMENTUM
+            self.running_mean.copy_(keep * self.running_mean
+                                    + BN_MOMENTUM * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + BN_MOMENTUM * var)
+            self.num_batches_tracked.add_(1)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + \
+            self.bias.view(shape)
+
+
+class BatchNorm2d(_FlaxTrainingNorm, nn.BatchNorm2d):
+    """BatchNorm over NCHW maps, flax's in training."""
+
+
+class BatchNorm1d(_FlaxTrainingNorm, nn.BatchNorm1d):
+    """BatchNorm over (B, C) vectors, flax's in training."""
+
+
 def make_norm(kind: str, channels: int) -> nn.Module:
     """The per-block normalization module (``apply_norm``'s ``kind``)."""
     if kind == "batch":
-        return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+        return BatchNorm2d(channels)
     if kind == "group":
         raise NotImplementedError(
             "norm='group' is not ported yet (ROADMAP.md Queue 1, item 2)")

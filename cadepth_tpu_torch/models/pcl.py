@@ -2,7 +2,8 @@
 
 A 6-parameter head over [mean-pooled features; normalized K] predicts an
 affine theta per sample, and the feature map is warped by it with the
-two-pass warp (``ops/two_pass_warp.py``). The head starts at the
+two-pass warp (``ops/two_pass_warp.py``), differentiable in both the
+features and theta while grad mode is on. The head starts at the
 identity (zero kernel, bias [1, 1, 0, 0, 0, 0]). As in the reference's
 decoder, the layer takes no ray directions.
 """

@@ -125,28 +125,168 @@ def two_pass_affine_warp_plain(img: torch.Tensor, theta: torch.Tensor,
     Same function as the CUDA kernel and as the reference's
     ``two_pass_affine_warp``; returns (B, H, W, C) in ``img.dtype``.
     """
+    return two_pass_affine_warp_plain_fwd(img, theta, padding_mode,
+                                          align_corners)[0]
+
+
+def _positions(theta: torch.Tensor, h: int, w: int, align_corners: bool,
+               dev: torch.device):
+    """(g, hpos), each (B, H, W) f32: the pass-V position g(x, i) at
+    [b, i, x] and the pass-H position h(j, i) at [b, i, j], with the
+    kernel's operation order."""
+    co = warp_coeffs(theta, h, w, align_corners)
+    a, b, c, p, q, r = (co[:, k, None, None] for k in range(6))
+    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    return p * xs + q * ii + r, a * xs + b * ii + c
+
+
+def two_pass_affine_warp_plain_fwd(img: torch.Tensor, theta: torch.Tensor,
+                                   padding_mode: str = "zeros",
+                                   align_corners: bool = False
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`two_pass_affine_warp_plain` that also returns V, the
+    (B, H, W, C) result of pass V in ``img.dtype`` (the backward's
+    residual)."""
     check_warp_args(img, theta, padding_mode)
     bsz, h, w, _ = img.shape
     border = padding_mode == "border"
     bf16 = img.dtype == torch.bfloat16
     dev = img.device
-    co = warp_coeffs(theta, h, w, align_corners)
-    a, b, c, p, q, r = (co[:, k, None, None] for k in range(6))
-    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    g, hpos = _positions(theta, h, w, align_corners, dev)
     bi = torch.arange(bsz, device=dev)[:, None, None]
     xi = torch.arange(w, device=dev)[None, None, :]
 
     # pass V: for each (b, i, x), two source rows y of column x
-    g = p * xs + q * ii + r                                   # (B, H, W)
     y0, y1, w0, w1 = _taps(g, h, border, bf16)
     v = (w0[..., None] * img[bi, y0, xi].float()
          + w1[..., None] * img[bi, y1, xi].float()).to(img.dtype)
 
     # pass H: for each (b, i, j), two source columns x of row i of V
-    hpos = a * xs + b * ii + c                                # (B, H, W)
     x0, x1, u0, u1 = _taps(hpos, w, border, bf16)
     ri = torch.arange(h, device=dev)[None, :, None]
     out = (u0[..., None] * v[bi, ri, x0].float()
            + u1[..., None] * v[bi, ri, x1].float())
-    return out.to(img.dtype)
+    return out.to(img.dtype), v
+
+
+def _dtent(diff: torch.Tensor) -> torch.Tensor:
+    """d/dpos of max(1 - |pos - grid|, 0) with JAX's kink conventions:
+    abs'(0) = +1, so -1 at diff == 0, and a max tie of weight 0.5, so
+    -0.5 / +0.5 at diff == +1 / -1 (the reference's ``_dtent``)."""
+    ad = diff.abs()
+    mag = torch.where(ad < 1.0, 1.0, torch.where(ad == 1.0, 0.5, 0.0))
+    return torch.where(diff >= 0.0, -mag, mag)
+
+
+def _dclip(pos: torch.Tensor, size: int) -> torch.Tensor:
+    """d/dpos of clip(pos, 0, size - 1) with JAX's convention: 1 inside,
+    0 outside, 0.5 at the exact bounds (the reference's ``_dclip``)."""
+    hi = size - 1.0
+    return torch.where((pos > 0.0) & (pos < hi), 1.0,
+                       torch.where((pos == 0.0) | (pos == hi), 0.5, 0.0))
+
+
+def _transpose_pass(pos: torch.Tensor, size: int, border: bool,
+                    cot: torch.Tensor, src: torch.Tensor, rows: bool):
+    """One pass of the backward, for the pass whose (B, H, W) positions
+    are ``pos`` and whose taps index an axis of length ``size``.
+
+    ``cot`` (B, H, W, C) f32 is the cotangent of the pass's output and
+    ``src`` (B, H, W, C) f32 its input. The taps index ``src``'s rows
+    (axis 1, pass V) when ``rows``, else its columns (axis 2, pass H).
+    Returns the cotangent of ``src`` (the transposed pass, f32 tent
+    weights) and ``contrib`` (B, H, W): for each output position, the sum
+    of ``<cot, src at the tap> * dtent * dclip`` over its taps inside
+    [0, size - 1].
+
+    The taps visited are ``floor(pos) - 1 .. floor(pos) + 2``: the tent's
+    derivative is non-zero on the closed interval |pos - y| <= 1, three
+    taps at an integer position, and for |pos| < 1 the f32 difference
+    ``pos - (floor(pos) + 2)`` can round to exactly -1 (pos = -3e-8 gives
+    a tie at y = 1), where the reference's dense difference matrix counts
+    it with weight 0.5.
+    """
+    bsz, h, w, ch = cot.shape
+    dev = cot.device
+    pp = pos.clamp(0.0, size - 1.0) if border else pos
+    base = torch.floor(pp)
+    dclip = _dclip(pos, size) if border else None
+    b_idx = torch.arange(bsz, device=dev)[:, None, None]
+    i_idx = torch.arange(h, device=dev)[None, :, None]
+    x_idx = torch.arange(w, device=dev)[None, None, :]
+    d_src = torch.zeros(bsz * h * w, ch, dtype=torch.float32, device=dev)
+    contrib = torch.zeros_like(pos)
+    for k in (-1.0, 0.0, 1.0, 2.0):
+        tap = base + k
+        inside = (tap >= 0.0) & (tap <= size - 1.0)
+        diff = pp - tap
+        t_idx = tap.clamp(0.0, size - 1.0).to(torch.long)
+        if rows:
+            flat = (b_idx * h + t_idx) * w + x_idx
+        else:
+            flat = (b_idx * h + i_idx) * w + t_idx
+        at_tap = src.reshape(-1, ch)[flat]                    # (B, H, W, C)
+        wgt = torch.where(inside, (1.0 - diff.abs()).clamp_min(0.0), 0.0)
+        d_src.index_add_(0, flat.reshape(-1),
+                         (wgt[..., None] * cot).reshape(-1, ch))
+        slope = torch.where(inside, _dtent(diff), 0.0)
+        if border:
+            slope = slope * dclip
+        contrib = contrib + (cot * at_tap).sum(-1) * slope
+    return d_src.reshape(bsz, h, w, ch), contrib
+
+
+def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
+                                   theta: torch.Tensor,
+                                   grad_out: torch.Tensor,
+                                   padding_mode: str = "zeros",
+                                   align_corners: bool = False
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of the two-pass warp: (d_img, d_theta).
+
+    ``img`` (B, H, W, C), ``v`` the forward's pass-V result and
+    ``grad_out`` the cotangent of its output, all in ``img.dtype``;
+    ``theta`` (B, 2, 3). Computes what the reference's ``_trainable_bwd``
+    (Pallas) computes, in the same order: ``d_v`` by the transposed
+    pass H, stored in ``img.dtype``; ``d_img`` by the transposed pass V
+    from that stored ``d_v``; both with f32 tent weights and f32 sums.
+    ``d_theta`` (f32) chains six per-batch partials through
+    :func:`warp_coeffs`: ``(sum c*j, i*sum c, sum c)`` of the pass-H
+    line and ``(x*sum c, sum c*i, sum c)`` of the pass-V line, where
+    ``c`` is the channel dot product times the tent's derivative at each
+    tap, with JAX's kink conventions (:func:`_dtent`,
+    :func:`_dclip`). It does not differentiate the forward with torch's
+    autograd, whose abs'(0) = 0 and full clamp gradient at the bounds
+    differ from JAX's at the identity theta the PCL starts from.
+    """
+    check_warp_args(img, theta, padding_mode)
+    bsz, h, w, _ = img.shape
+    border = padding_mode == "border"
+    dev = img.device
+    g, hpos = _positions(theta, h, w, align_corners, dev)
+    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+
+    d_v, c_h = _transpose_pass(hpos, w, border, grad_out.float(), v.float(),
+                               rows=False)
+    d_v = d_v.to(img.dtype)
+    d_img, c_g = _transpose_pass(g, h, border, d_v.float(), img.float(),
+                                 rows=True)
+    partials = torch.stack([
+        (c_h * xs).sum((1, 2)), (c_h * ii).sum((1, 2)), c_h.sum((1, 2)),
+        (c_g * xs).sum((1, 2)), (c_g * ii).sum((1, 2)), c_g.sum((1, 2)),
+    ], dim=-1)                                                # (B, 6)
+    return d_img.to(img.dtype), chain_theta(theta, partials, h, w,
+                                             align_corners)
+
+
+def chain_theta(theta: torch.Tensor, partials: torch.Tensor, height: int,
+                width: int, align_corners: bool) -> torch.Tensor:
+    """d_theta (B, 2, 3) f32 from the (B, 6) partials of the loss with
+    respect to the six line coefficients [A, B, C, p, q, r]."""
+    with torch.enable_grad():
+        th = theta.detach().to(torch.float32).requires_grad_(True)
+        co = warp_coeffs(th, height, width, align_corners)
+        (d_theta,) = torch.autograd.grad(co, th, partials)
+    return d_theta

@@ -1,1 +1,2 @@
-"""The serving part of the training module: the inference forward."""
+"""Training: the train, gradient, eval and inference steps, the optimizer
+and the learning-rate schedule."""

@@ -1,24 +1,40 @@
-"""Inference forward over a batch dict (port of the serving part of
+"""Train, gradient, eval and inference steps (port of
 ``cadepth_tpu.training.train_state``).
 
-The train step, the eval step and the optimizer come with the training
-slice (ROADMAP.md Queue 1, item 1).
+    model, loss_fn = build_model_and_loss(cfg)                # on "cuda"
+    optimizer = build_optimizer(cfg.optimization, model.parameters())
+    step = make_train_step(cfg, model, loss_fn, optimizer, schedule)
+    logs = step(batch)                                        # one update
+
+A batch is a dict of tensors on the model's device: 'rgb' (B, H, W, 3),
+'depth' (B, H, W, 1), 'intrinsics' (B, 3, 3), 'k4' (B, 4), and 'rays'
+(B, H, W, 3) where ``data.compute_rays`` is off.
+
+The JAX step is one jitted program over an immutable state; here the
+model's parameters and BN statistics and the optimizer's moments are
+updated in place, and the step counts its updates itself. Logs are
+0-dim tensors on the device, so a step does not wait for the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
 
-from cadepth_tpu_torch.config import Config
+from cadepth_tpu_torch.config import Config, OptimizationConfig
 from cadepth_tpu_torch.geometry.rays import ray_grid_batch
-from cadepth_tpu_torch.models.factory import model_inputs
+from cadepth_tpu_torch.losses.depth_loss import CombinedDepthLoss
+from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
+from cadepth_tpu_torch.models.factory import create_model, model_inputs
+
+Batch = Dict[str, torch.Tensor]
 
 
-def _batch_with_rays(batch: Dict[str, torch.Tensor], needs_rays: bool,
-                     derive_rays: bool) -> Dict[str, torch.Tensor]:
+def _batch_with_rays(batch: Batch, needs_rays: bool,
+                     derive_rays: bool) -> Batch:
     """Ensure geometry batches carry a ray grid: with ``derive_rays``
     (= data.compute_rays), or when the batch has none, derive it from K
     on the batch's device."""
@@ -29,19 +45,222 @@ def _batch_with_rays(batch: Dict[str, torch.Tensor], needs_rays: bool,
     return batch
 
 
+def _inputs(cfg: Config, batch: Batch):
+    arch = cfg.model.architecture
+    b = _batch_with_rays(batch, arch.startswith("geometry_aware"),
+                         cfg.data.compute_rays)
+    return model_inputs(arch, b)
+
+
+def build_model_and_loss(cfg: Config, device="cuda",
+                         generator: Optional[torch.Generator] = None):
+    """(model, loss_fn) as the config says: bf16 compute over fp32
+    parameters when ``training.use_amp`` is set, else float32."""
+    m = cfg.model
+    if m.remat not in (False, "none"):
+        raise NotImplementedError(
+            f"model.remat={m.remat!r} is not ported yet "
+            "(ROADMAP.md Queue 1, item 2)")
+    model = create_model(
+        m.architecture, in_channels=m.in_channels,
+        init_features=m.init_features, camera_dim=m.camera_dim,
+        max_depth=m.max_depth, use_pcl=m.use_pcl,
+        use_attention=m.use_attention, variant=m.variant,
+        pcl_warp=m.pcl_warp, norm=m.norm,
+        decoder_upsample=m.decoder_upsample, sa_lowering=m.sa_lowering,
+        dtype=torch.bfloat16 if cfg.training.use_amp else torch.float32,
+        device=device, generator=generator)
+    lc = cfg.loss
+    loss_fn = CombinedDepthLoss(
+        si_weight=lc.si_weight, grad_weight=lc.grad_weight,
+        smooth_weight=lc.smooth_weight, reproj_weight=lc.reproj_weight,
+        si_lambda=lc.si_lambda, grad_num_scales=lc.grad_num_scales)
+    return model, loss_fn
+
+
+# -- optimizer ---------------------------------------------------------------
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> None:
+    """optax.clip_by_global_norm, in place: ``g`` when the norm is below
+    ``max_norm``, else ``g / norm * max_norm``. (torch's
+    ``clip_grad_norm_`` adds 1e-6 to the norm and scales below the
+    threshold too.) Decided on the device, so the host does not wait."""
+    if norm is None:
+        norm = global_norm(grads)
+    under = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(under, one, norm))
+    torch._foreach_mul_(grads, torch.where(under, one, one * max_norm))
+
+
+@dataclasses.dataclass
+class Optimizer:
+    """optax's ``chain(clip_by_global_norm, adam | adamw | sgd)`` over a
+    torch optimizer: :meth:`step` clips the gradients in place (when
+    ``clip_value`` is set), sets the learning rate and updates."""
+
+    base: torch.optim.Optimizer
+    clip_value: Optional[float] = None
+
+    def params(self) -> List[nn.Parameter]:
+        return [p for g in self.base.param_groups for p in g["params"]]
+
+    def step(self, lr: float, norm: Optional[torch.Tensor] = None) -> None:
+        if self.clip_value is not None:
+            clip_by_global_norm_([p.grad for p in self.params()],
+                                 self.clip_value, norm)
+        for group in self.base.param_groups:
+            group["lr"] = lr
+        self.base.step()
+
+    def zero_grad(self) -> None:
+        self.base.zero_grad(set_to_none=True)
+
+
+def build_optimizer(opt: OptimizationConfig,
+                    params: Iterable[nn.Parameter]) -> Optimizer:
+    """adam, adamw (decaying every parameter, as ``optax.adamw`` with no
+    mask) or sgd with Nesterov momentum, and optional global-norm
+    clipping. The learning rate is given to each :meth:`Optimizer.step`
+    by the schedule."""
+    if opt.grad_accum_steps > 1:
+        raise NotImplementedError(
+            "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet "
+            "(ROADMAP.md Queue 1, item 1)")
+    params = list(params)
+    betas = tuple(opt.adam_betas)
+    if opt.optimizer == "adam":
+        base = torch.optim.Adam(params, lr=0.0, betas=betas, eps=opt.adam_eps)
+    elif opt.optimizer == "adamw":
+        base = torch.optim.AdamW(params, lr=0.0, betas=betas,
+                                 eps=opt.adam_eps,
+                                 weight_decay=opt.weight_decay)
+    elif opt.optimizer == "sgd":
+        base = torch.optim.SGD(params, lr=0.0, momentum=opt.sgd_momentum,
+                               nesterov=opt.sgd_nesterov)
+    else:
+        raise ValueError(f"Unknown optimizer: {opt.optimizer}")
+    return Optimizer(base, opt.gradient_clip_value if opt.gradient_clip
+                     else None)
+
+
+# -- steps -------------------------------------------------------------------
+
+class TrainStep:
+    """One optimizer update per call: forward in training mode (batch
+    statistics, running statistics moved), the combined loss over
+    ``gt > loss.min_depth``, backward, the pre-clip gradient norm, max
+    and min, clipping, the learning rate ``schedule(updates)`` and the
+    update. ``updates`` counts the calls, as the JAX state's ``step``."""
+
+    def __init__(self, cfg: Config, model: nn.Module,
+                 loss_fn: CombinedDepthLoss, optimizer: Optimizer,
+                 schedule: Callable[[int], float]):
+        self.cfg = cfg
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.updates = 0
+
+    def __call__(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        self.model.train()
+        gt = batch["depth"]
+        valid = gt > self.cfg.loss.min_depth
+        self.optimizer.zero_grad()
+        pred = self.model(*_inputs(self.cfg, batch))
+        total, comps = self.loss_fn(pred, gt, batch["rgb"],
+                                    batch["intrinsics"], valid)
+        total.backward()
+        params = self.optimizer.params()
+        for p in params:  # JAX gives an unused parameter a zero gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        logs = {k: v.detach() for k, v in comps.items()}
+        logs["grad_norm"] = global_norm(grads)
+        logs["grad_max"] = torch.stack(torch._foreach_max(grads)).max()
+        logs["grad_min"] = torch.stack([g.min() for g in grads]).min()
+        self.optimizer.step(self.schedule(self.updates), logs["grad_norm"])
+        self.updates += 1
+        return logs
+
+
+def make_train_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss,
+                    optimizer: Optimizer,
+                    schedule: Callable[[int], float]) -> TrainStep:
+    """The training step: ``step(batch) -> logs`` with total_loss,
+    si_loss, grad_loss, smooth_loss, reproj_loss, the pre-clip grad_norm,
+    grad_max and grad_min."""
+    return TrainStep(cfg, model, loss_fn, optimizer, schedule)
+
+
+def make_grad_fn(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
+                 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """Gradient-only pass for observability: ``grad_fn(batch)`` returns
+    {parameter name: gradient} of the training loss. As in JAX, the
+    running statistics and the parameters' ``.grad`` stay as they were."""
+
+    def grad_fn(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.train()
+        names, params = zip(*model.named_parameters())
+        saved = {k: v.clone() for k, v in model.named_buffers()}
+        gt = batch["depth"]
+        pred = model(*_inputs(cfg, batch))
+        total, _ = loss_fn(pred, gt, batch["rgb"], batch["intrinsics"],
+                           gt > cfg.loss.min_depth)
+        grads = torch.autograd.grad(total, params, allow_unused=True,
+                                    materialize_grads=True)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(saved[k])
+        return dict(zip(names, grads))
+
+    return grad_fn
+
+
+def make_eval_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
+                   ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """Validation step: the loss components, the 12 depth metrics over
+    (validation.min_depth, validation.max_depth) and ``pcl_max_rot``, the
+    largest |predicted rotation| of any PCL (the two-pass warp is
+    sub-pixel only below a rotation bound)."""
+
+    @torch.inference_mode()
+    def eval_fn(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        record: Dict[str, List[torch.Tensor]] = {}
+        pred = model(*_inputs(cfg, batch), record)
+        gt = batch["depth"]
+        _, comps = loss_fn(pred, gt, batch["rgb"], batch["intrinsics"],
+                           gt > cfg.loss.min_depth)
+        out = dict(comps)
+        out.update(compute_depth_metrics(
+            pred, gt, min_depth=cfg.validation.min_depth,
+            max_depth=cfg.validation.max_depth))
+        if record.get("pcl_max_rot"):
+            out["pcl_max_rot"] = torch.stack(record["pcl_max_rot"]).max()
+        return out
+
+    return eval_fn
+
+
 def make_predict_fn(cfg: Config, model: nn.Module
-                    ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+                    ) -> Callable[[Batch], torch.Tensor]:
     """Inference-only forward of ``model`` (put in eval mode) over a
     batch dict with 'rgb', 'intrinsics' and 'k4'; returns depth
     (B, H, W, 1) in metres."""
-    arch = cfg.model.architecture
-    needs_rays = arch.startswith("geometry_aware")
-    derive_rays = cfg.data.compute_rays
     model.eval()
 
     @torch.inference_mode()
-    def predict(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        b = _batch_with_rays(batch, needs_rays, derive_rays)
-        return model(*model_inputs(arch, b))
+    def predict(batch: Batch) -> torch.Tensor:
+        return model(*_inputs(cfg, batch))
 
     return predict

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive cadepth_tpu_torch's serving path on one NVIDIA card and check it.
+"""Drive cadepth_tpu_torch's serving and training paths on one NVIDIA card.
 
     python3 chip_smoke.py                 # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal # tiny sizes on the CPU, plain warp
@@ -22,7 +22,24 @@ Phases, each fatal on failure:
 5. times: per decoder level the kernel (CUDA events), its bound, the
    plain version and F.grid_sample's time; the Predictor's latency at
    batch 8 and batch 1; peak device memory;
-6. one JSON line describing every kernel; last, the ok line.
+6. backward against plain: the warp's two backward kernels against the
+   plain backward at the five decoder shapes at the training batch (B=4),
+   f32 and bf16, five thetas (the exact identity among them), both
+   paddings;
+7. training: the flagship as geometry_aware_full ships it (f=64,
+   240x320, batch 4, bf16 over fp32 parameters, AdamW, clip 1.0, the
+   step schedule with warmup) takes 10 steps on seeded batches, then an
+   eval step; logs finite, parameters and BN statistics moved, exactly 10
+   forward and 10 backward warp launches per step, and the same steps
+   with the plain warp give the same logs;
+8. a small f32 model takes 3 train steps on the card and on the CPU from
+   the same weights and batches;
+9. training times: per decoder level the backward kernels (device time),
+   their bound, the plain backward and the backward of F.grid_sample;
+   the train step's p50/p95 and images/s, the device's busy share over 3
+   profiled steps, peak device memory;
+10. one JSON line describing every kernel and the train step; last, the
+   ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -48,6 +65,22 @@ THETAS = {
     "shear": [[1.0, 0.1, 0.0], [0.05, 1.0, 0.0]],
 }
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}  # bf16: a few ulps at |x| ~ 4
+# backward, kernel vs plain: d_img at these atols times max(1, max|d_img|)
+# (d_v's f32 sums run in another order, so a bf16 d_v can round the other
+# way, one bf16 ulp ~ 0.8 % of the value), and d_theta divided by its
+# largest |entry|
+BWD_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+THETA_ATOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# losses and grad_norm of the bf16 flagship over its train steps, kernels
+# vs the plain warp on the card: bf16 rounding (2^-8) of d_img and d_v
+# that differs in a few elements, amplified by the round-off sensitivity
+# of this network's gradient (tests/test_torch_train_step.py), and cuDNN's
+# backward algorithms, which need not be deterministic (the kernels run
+# twice give the noise floor)
+TRAIN_RTOL = 1e-2
+# the small f32 model's losses over 3 steps, card (kernels) vs CPU
+CROSS_TRAIN_RTOL = 1e-4
+STEPS_PER_EPOCH = 2  # 2 warmup epochs = 4 steps: lr 0, 2.5e-5, 5e-5, ...
 # served depths, kernel vs plain warp, bf16 model (1/200 of max_depth)
 SERVE_ATOL = 0.05
 # the small f32 model, card (kernel) vs CPU (plain), TF32 off
@@ -70,11 +103,13 @@ def card_info() -> str:
     return out[0].strip()
 
 
-def flagship_config(init_features: int, height: int, width: int):
+def flagship_config(init_features: int, height: int, width: int,
+                    batch: int = 8):
     from cadepth_tpu_torch.config import config_from_dict
 
     # the geometry_aware_full experiment of configs/train_config.yaml, with
-    # the shipped defaults written out
+    # the shipped defaults written out (its training batch is 4; serving
+    # here runs at 8)
     return config_from_dict({
         "model": {"architecture": "geometry_aware", "variant": "full",
                   "init_features": init_features, "use_pcl": True,
@@ -83,7 +118,11 @@ def flagship_config(init_features: int, height: int, width: int):
                   "sa_lowering": "toeplitz"},
         "data": {"input_height": height, "input_width": width,
                  "compute_rays": True},
-        "training": {"use_amp": True, "batch_size": 8},
+        "training": {"use_amp": True, "batch_size": batch},
+        "optimization": {"optimizer": "adamw", "learning_rate": 1e-4,
+                         "weight_decay": 1e-5, "lr_scheduler": "step",
+                         "lr_warmup_epochs": 2, "gradient_clip": True,
+                         "gradient_clip_value": 1.0},
         "experiment": {"name": "geometry_aware_full"},
     })
 
@@ -355,6 +394,11 @@ def device_rows(prof, calls: int):
 
     rows = []
     for e in prof.key_averages():
+        # user annotations (the optimizer's step) span kernels on the
+        # device's timeline; they are not kernels of their own
+        if getattr(e, "is_user_annotation", False) or \
+                e.key.startswith("Optimizer."):
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 e.self_device_time_total > 0:
             rows.append((e.self_device_time_total / 1000.0 / calls,
@@ -486,6 +530,442 @@ def times(device, args, pred, card: str):
     return rows, total, bench, one, peak, prof
 
 
+def synthetic_batch(rng, batch: int, height: int, width: int, device):
+    """A seeded training batch: rgb in (0, 1), gt depth in (0, 10) with
+    ~10 % of the pixels at or below the 0.1 m validity floor, a distinct
+    K per sample."""
+    import numpy as np
+    import torch
+
+    depth = rng.uniform(0.3, 9.5, (batch, height, width, 1)).astype(np.float32)
+    low = rng.uniform(0, 1, depth.shape) < 0.1
+    depth[low] = rng.uniform(0.0, 0.1, int(low.sum()))
+    k = np.tile(np.eye(3, dtype=np.float32), (batch, 1, 1))
+    k[:, 0, 0] = rng.uniform(0.5, 1.5, batch) * width
+    k[:, 1, 1] = rng.uniform(0.5, 1.5, batch) * width
+    k[:, 0, 2] = rng.uniform(0.3, 0.7, batch) * width
+    k[:, 1, 2] = rng.uniform(0.3, 0.7, batch) * height
+    rgb = rng.uniform(0, 1, (batch, height, width, 3)).astype(np.float32)
+    b = {"rgb": rgb, "depth": depth, "intrinsics": k,
+         "k4": np.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2], k[:, 1, 2]], -1)}
+    return {key: torch.from_numpy(v).to(device) for key, v in b.items()}
+
+
+def check_backward(device, shapes, seed: int):
+    """Phase 6: the backward kernels against the plain backward. Returns
+    the worst errors: d_img per dtype, and d_theta over its largest
+    |entry|."""
+    import torch
+
+    from cadepth_tpu_torch.ops import two_pass_warp as warp
+    from cadepth_tpu_torch.ops.affine_warp import (
+        two_pass_affine_warp_plain_bwd,
+        two_pass_affine_warp_plain_fwd,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = {"float32": 0.0, "bfloat16": 0.0, "d_theta": 0.0}
+    for level, shape in shapes:
+        b = shape[0]
+        img32 = torch.randn(shape, device=device, generator=gen)
+        grad32 = torch.randn(shape, device=device, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            img, grad = img32.to(dtype), grad32.to(dtype)
+            for pad in ("zeros", "border"):
+                errs = []
+                for tname, th in THETAS.items():
+                    theta = torch.tensor(th, device=device).expand(b, 2, 3) \
+                        .contiguous()
+                    if tname == "identity_noise":
+                        theta = theta + 0.01 * torch.randn(
+                            b, 2, 3, device=device, generator=gen)
+                    _, v = two_pass_affine_warp_plain_fwd(img, theta, pad)
+                    before = warp.bwd_launches
+                    got = warp.two_pass_warp_bwd(img, v, theta, grad, pad)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                        if warp.bwd_launches != \
+                                before + warp.BWD_LAUNCHES_PER_CALL:
+                            raise AssertionError("two_pass_warp_bwd did not "
+                                                 "count its launches")
+                    want = two_pass_affine_warp_plain_bwd(img, v, theta,
+                                                          grad, pad)
+                    scale = max(1.0, want[0].float().abs().max().item())
+                    err = (got[0].float() - want[0].float()).abs().max().item()
+                    t_err = ((got[1] - want[1]).abs().max()
+                             / want[1].abs().max().clamp_min(1e-12)).item()
+                    if not (err <= BWD_ATOL[name] * scale
+                            and t_err <= THETA_ATOL[name]):
+                        raise AssertionError(
+                            f"backward kernel vs plain {level} {tuple(shape)} "
+                            f"{name} {pad} {tname}: d_img err {err} (atol "
+                            f"{BWD_ATOL[name]} x {scale:.3g}), d_theta err "
+                            f"{t_err} (atol {THETA_ATOL[name]})")
+                    errs.append(f"{tname}={err:.3g}/{t_err:.2g}")
+                    worst[name] = max(worst[name], err)
+                    worst["d_theta"] = max(worst["d_theta"], t_err)
+                log(f"  {level} {tuple(shape)} {name:8s} {pad:6s} "
+                    "max|d_img err|/rel d_theta err " + " ".join(errs))
+    return worst
+
+
+def plain_warp_function():
+    """The warp with the plain forward and the plain backward, as an
+    autograd Function: the phase-7 reference for the kernels."""
+    import torch
+
+    from cadepth_tpu_torch.ops.affine_warp import (
+        two_pass_affine_warp_plain_bwd,
+        two_pass_affine_warp_plain_fwd,
+    )
+
+    class PlainWarp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, img, theta, padding_mode, align_corners):
+            out, v = two_pass_affine_warp_plain_fwd(img, theta, padding_mode,
+                                                    align_corners)
+            ctx.save_for_backward(img, v, theta)
+            ctx.args = (padding_mode, align_corners)
+            return out
+
+        @staticmethod
+        def backward(ctx, grad):
+            img, v, theta = ctx.saved_tensors
+            d_img, d_theta = two_pass_affine_warp_plain_bwd(
+                img, v, theta, grad.contiguous(), *ctx.args)
+            return d_img, d_theta, None, None
+
+    return lambda img, theta, pad, ac: PlainWarp.apply(img, theta, pad, ac)
+
+
+def train(device, args):
+    """Phase 7: the flagship's train step at full width, then its eval
+    step, and the same steps with the plain warp swapped in."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.ops import two_pass_warp as warp
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    f, h, w, bsz = args.init_features, args.height, args.width, \
+        args.train_batch
+    cfg = flagship_config(f, h, w, bsz)
+    gen = torch.Generator().manual_seed(args.seed + 3)
+    model, loss_fn = ts.build_model_and_loss(cfg, device=device,
+                                             generator=gen)
+    rotate_pcl_heads(model, gen)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = cfg.optimization
+    schedule = build_lr_schedule(opt, STEPS_PER_EPOCH, cfg.training.num_epochs)
+    lrs = [schedule(s) for s in range(args.train_steps)]
+    log(f"  flagship f={f}, {h}x{w}, batch {bsz}, bf16 over fp32 "
+        f"parameters; {opt.optimizer}, weight decay {opt.weight_decay}, clip "
+        f"{opt.gradient_clip_value}, {opt.lr_scheduler} schedule with "
+        f"{opt.lr_warmup_epochs} warmup epochs of {STEPS_PER_EPOCH} steps: "
+        f"lr {', '.join(f'{x:.3g}' for x in lrs)}")
+    rng = np.random.default_rng(args.seed + 4)
+    batches = [synthetic_batch(rng, bsz, h, w, device)
+               for _ in range(args.train_steps)]
+
+    def run(warp_fn):
+        model.load_state_dict(init)
+        for pcl in pcl_layers(model):
+            pcl.warp = warp_fn
+        step = ts.make_train_step(cfg, model, loss_fn,
+                                  ts.build_optimizer(opt, model.parameters()),
+                                  schedule)
+        return [step(b) for b in batches], step
+
+    # the main path, counted
+    warp.launches = warp.bwd_launches = warp.grad_copies = 0
+    logs, step = run(warp.two_pass_warp)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches, bwd_launches = warp.launches, warp.bwd_launches
+    grad_copies = warp.grad_copies
+    logs = [{k: float(v) for k, v in x.items()} for x in logs]
+    per_step = warp.LAUNCHES_PER_CALL * len(pcl_layers(model))
+    cuda = device.type == "cuda"
+    want = per_step * args.train_steps if cuda else 0
+    log(f"  main path: {args.train_steps} train steps, two_pass_warp "
+        f"launches {launches}, two_pass_warp_bwd launches {bwd_launches} "
+        f"(expected {want} each = {per_step} per step); {grad_copies} of "
+        f"{len(pcl_layers(model)) * args.train_steps} backward calls copied "
+        "a non-contiguous incoming gradient")
+    if launches != want or bwd_launches != want:
+        raise AssertionError(f"launch counts {launches}, {bwd_launches} != "
+                             f"{want}")
+    for i, x in enumerate(logs):
+        log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in x.items()))
+        if not all(math.isfinite(v) for v in x.values()):
+            raise AssertionError(f"step {i}: non-finite logs {x}")
+    after = model.state_dict()
+    moved = {k: (after[k].float() - init[k].float()).abs().max().item()
+             for k in init if not k.endswith("num_batches_tracked")}
+    params = {k for k, _ in model.named_parameters()}
+    p_moved = max(v for k, v in moved.items() if k in params)
+    s_moved = min(v for k, v in moved.items() if "running" in k)
+    log(f"  parameters moved by up to {p_moved:.3g}; every BN running "
+        f"statistic moved (least max change {s_moved:.3g})")
+    if not (p_moved > 0 and s_moved > 0):
+        raise AssertionError("the train steps left the parameters or the "
+                             "BN statistics as they were")
+
+    ev = ts.make_eval_step(cfg, model, loss_fn)(batches[0])
+    ev = {k: float(v) for k, v in ev.items()}
+    log("  eval step: " + ", ".join(f"{k} {v:.5g}" for k, v in ev.items()))
+    if len(ev) != 18 or not all(math.isfinite(v) for v in ev.values()) \
+            or not ev["pcl_max_rot"] > 0:
+        raise AssertionError(f"eval step: {ev}")
+
+    def rel_diff(other):
+        """[{log key: relative difference from ``logs``} per step]"""
+        other = [{k: float(v) for k, v in x.items()} for x in other]
+        return [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in a}
+                for a, b in zip(logs, other)]
+
+    # the kernels again (the run-to-run noise floor of the bf16 step), then
+    # the plain warp, forward and backward
+    again = rel_diff(run(warp.two_pass_warp)[0])
+    plain = rel_diff(run(plain_warp_function())[0])
+    for name, d in (("kernels again", again), ("plain warp", plain)):
+        log(f"  the same {args.train_steps} steps, {name}: max relative "
+            "log differences " + ", ".join(
+                f"{k} {max(x[k] for x in d):.3g}" for k in d[0])
+            + "; grad_norm by step " + " ".join(f"{x['grad_norm']:.2g}"
+                                                for x in d))
+    # the losses at every step; the gradient's norm where both sides hold
+    # the same parameters (before the first update with lr > 0); later
+    # norms and the single entries grad_max and grad_min are reported:
+    # Adam turns round-off-sized gradient differences into +-lr moves
+    same = [i for i, lr in enumerate(lrs) if i == 0 or lrs[i - 1] == 0.0]
+    worst = max([x[k] for x in plain for k in x if k.endswith("loss")]
+                + [plain[i]["grad_norm"] for i in same])
+    log(f"  kernels vs plain warp: losses at every step and grad_norm at "
+        f"steps {same} within {worst:.3g} (rtol {TRAIN_RTOL})")
+    if not worst <= TRAIN_RTOL:
+        raise AssertionError(f"kernel and plain training differ by {worst}")
+    plain = {k: max(x[k] for x in plain) for k in plain[0]}
+    again = {k: max(x[k] for x in again) for k in again[0]}
+    for pcl in pcl_layers(model):
+        pcl.warp = warp.two_pass_warp
+    return {"model": model, "loss_fn": loss_fn, "cfg": cfg, "step": step,
+            "batches": batches, "launches": launches,
+            "bwd_launches": bwd_launches, "per_step": per_step,
+            "grad_copies": grad_copies, "logs": logs, "eval": ev,
+            "kernel_vs_plain_rel": plain, "kernel_vs_kernel_rel": again}
+
+
+def cross_device_train(device, args):
+    """Phase 8: a small f32 flagship takes 3 train steps on the card
+    (kernels, TF32 off) and on the CPU (plain) from the same weights and
+    batches."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.config import config_from_dict
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    cfg = config_from_dict({
+        "model": {"architecture": "geometry_aware", "init_features": 8},
+        "data": {"input_height": 64, "input_width": 96},
+        "training": {"use_amp": False, "batch_size": 4}})
+    schedule = build_lr_schedule(cfg.optimization, 1, 50)  # 2-step warmup
+    rng = np.random.default_rng(args.seed + 5)
+    batches = [synthetic_batch(rng, 4, 64, 96, "cpu") for _ in range(3)]
+    runs = []
+    for dev in ("cpu", device):
+        gen = torch.Generator().manual_seed(args.seed + 6)
+        model, loss_fn = ts.build_model_and_loss(cfg, device=dev,
+                                                 generator=gen)
+        rotate_pcl_heads(model, gen)
+        step = ts.make_train_step(
+            cfg, model, loss_fn,
+            ts.build_optimizer(cfg.optimization, model.parameters()), schedule)
+        logs = [{k: float(v) for k, v in step(
+            {k: t.to(dev) for k, t in b.items()}).items()} for b in batches]
+        runs.append((logs, {k: v.cpu() for k, v in
+                            model.state_dict().items()}))
+    (cpu_logs, cpu_sd), (dev_logs, dev_sd) = runs
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                   zip(dev_logs, cpu_logs) for k in a if k.endswith("loss"))
+    param_err = max((dev_sd[k].float() - cpu_sd[k].float()).abs().max().item()
+                    for k in cpu_sd)
+    # Adam moves a parameter by about lr per step, so a gradient entry whose
+    # sign is round-off can move the two sides apart by 2 lr
+    bound = 2 * sum(schedule(s) for s in range(3))
+    log(f"  small f32 model (f=8, 64x96, B=4), 3 steps, {device} vs cpu: "
+        f"losses max rel err {loss_err:.3g} (rtol {CROSS_TRAIN_RTOL}); "
+        f"parameters and statistics max|err| {param_err:.3g} (bound "
+        f"2 sum(lr) {bound:.3g})")
+    if not (loss_err <= CROSS_TRAIN_RTOL and param_err <= bound):
+        raise AssertionError("card and CPU training disagree")
+    return loss_err, param_err
+
+
+def bwd_times(device, args, card: str):
+    """Phase 9a: per decoder level at the training batch, the backward
+    kernels, their bound, the plain backward and the backward of
+    F.grid_sample(F.affine_grid(theta)), bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from cadepth_tpu_torch.ops import two_pass_warp as warp
+    from cadepth_tpu_torch.ops.affine_warp import (
+        two_pass_affine_warp_plain_bwd,
+        two_pass_affine_warp_plain_fwd,
+    )
+
+    cuda = device.type == "cuda"
+    timer = Timer(device)
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+    theta = (torch.tensor(THETAS["rotation"], device=device)
+             .expand(args.train_batch, 2, 3).contiguous())
+    rows = {}
+    for level, shape in decoder_shapes(args.train_batch, args.height,
+                                       args.width, args.init_features):
+        img = torch.randn(shape, device=device, generator=gen) \
+            .to(torch.bfloat16)
+        grad = torch.randn(shape, device=device, generator=gen) \
+            .to(torch.bfloat16)
+        _, v = two_pass_affine_warp_plain_fwd(img, theta)
+        elems = img.numel()
+        # read grad_out, V and img once, write d_img once
+        bytes_moved = 4 * elems * img.element_size()
+        # per element: two tap multiply-adds and three tap dot
+        # multiply-adds in each of the two transposed passes
+        flops = 20 * elems
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        nchw = img.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        th = theta.to(torch.bfloat16).requires_grad_(True)
+        with torch.enable_grad():
+            gs = F.grid_sample(
+                nchw, F.affine_grid(th, list(nchw.shape), align_corners=False),
+                mode="bilinear", padding_mode="zeros", align_corners=False)
+        gs_grad = grad.permute(0, 3, 1, 2)
+        calls = {
+            "kernel": lambda: warp.two_pass_warp_bwd(img, v, theta, grad),
+            "plain": lambda: two_pass_affine_warp_plain_bwd(img, v, theta,
+                                                            grad),
+            "library": lambda: torch.autograd.grad(gs, (nchw, th), gs_grad,
+                                                   retain_graph=True),
+        }
+        row = dict(shape=shape, bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=bytes_moved, two_launch_bytes=6 * elems * 2)
+        for name, fn in calls.items():
+            n = args.timing_iters if name != "plain" else \
+                max(args.timing_iters // 10, 2)
+            before = warp.bwd_launches
+            row[f"{name}_wall_ms"] = timer(fn, n, 2)
+            if name == "kernel" and cuda and warp.bwd_launches == before:
+                raise AssertionError("timing loop did not launch the "
+                                     "backward kernels")
+            row[f"{name}_ms"] = None
+            if cuda:
+                total, per_kernel = device_ms(fn, n)
+                row[f"{name}_ms"] = total
+                if name == "kernel":
+                    # the two launches alone, and the whole call (with the
+                    # partials' sum and the chain to d_theta)
+                    row["kernel_ms"] = sum(ms for key, ms in per_kernel.items()
+                                           if "bwd_pass_kernel" in key)
+                    row["kernel_call_ms"] = total
+        rows[level] = row
+
+        def fmt(name):
+            dev = row[f"{name}_ms"]
+            return (f"{dev:.4f} ms device" if dev is not None
+                    else "device not measured") + \
+                f" / {row[f'{name}_wall_ms']:.4f} ms wall"
+        share = (f", {row['bound_ms'] / row['kernel_ms']:.1%} of bound"
+                 if row["kernel_ms"] else "")
+        call = (f" ({row['kernel_call_ms']:.4f} ms device with the partials' "
+                "sum and the d_theta chain)" if row.get("kernel_call_ms")
+                else "")
+        log(f"  [{card}] {level} {shape} bf16 backward: kernels "
+            f"{fmt('kernel')}{call}; bound {row['bound_ms'] * 1e3:.1f} us "
+            f"({row['bound_by']}, {bytes_moved / 1e6:.1f} MB; the two "
+            f"launches move {row['two_launch_bytes'] / 1e6:.1f} MB){share}; "
+            f"plain {fmt('plain')}; grid_sample backward {fmt('library')}"
+            f"{unit}")
+    return rows
+
+
+def train_times(device, args, card: str, tr):
+    """Phase 9b: train step latency at the training batch, the device's
+    busy share over 3 profiled steps, peak device memory."""
+    import torch
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    step, batches = tr["step"], tr["batches"]
+    for b in batches[:2]:
+        step(b)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(args.train_time_steps):
+        t0 = time.perf_counter()
+        step(batches[i % len(batches)])
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    times.sort()
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(round(0.95 * (len(times) - 1))))]
+    mean = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    out = {"batch": args.train_batch, "p50_ms": p50, "p95_ms": p95,
+           "mean_ms": mean, "images_per_sec": args.train_batch * 1000.0 / mean,
+           "steps_timed": len(times), "peak_bytes": peak}
+    log(f"  [{card}] train step batch {args.train_batch}: p50 {p50:.3f} ms, "
+        f"p95 {p95:.3f} ms, mean {mean:.3f} ms, "
+        f"{out['images_per_sec']:.2f} images/s ({len(times)} steps, host "
+        f"clock to a synchronize){unit}")
+    if peak is not None:
+        log(f"  [{card}] peak device memory while training batch "
+            f"{args.train_batch}: {peak / 2**30:.3f} GiB "
+            "(torch.cuda.max_memory_allocated)")
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        n = 3
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                step(batches[i])
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / n
+        rows = device_rows(prof, n)
+        busy = sum(r[0] for r in rows)
+        bwd = sum(r[0] for r in rows if "bwd_pass_kernel" in r[2])
+        fwd = sum(r[0] for r in rows if "pass_v_kernel" in r[2]
+                  or "pass_h_kernel" in r[2])
+        log(f"  [{card}] profile of a batch-{args.train_batch} train step "
+            f"(torch.profiler, {n} steps): device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall ({busy / wall:.1%}), "
+            f"{sum(r[1] for r in rows)} kernels per step; warp forward "
+            f"{fwd:.3f} ms, warp backward kernels {bwd:.3f} ms "
+            f"({(fwd + bwd) / busy:.1%} of busy)" if busy else
+            f"  [{card}] profile: no device time seen (not measured)")
+        for ms, count, key in rows[:12]:
+            log(f"    {ms:8.3f} ms {ms / busy:6.1%} x{count:<4d} {key[:90]}")
+        out["profile"] = {"busy_ms": busy, "wall_ms": wall,
+                          "busy_share": busy / wall if wall else None,
+                          "warp_fwd_ms": fwd, "warp_bwd_ms": bwd,
+                          "kernels_per_step": sum(r[1] for r in rows)}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -501,6 +981,7 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
         args.init_features, args.height, args.width, args.batch = 8, 64, 64, 4
         args.timing_iters, args.bench_iters = 4, 3
+        args.train_batch, args.train_steps, args.train_time_steps = 4, 3, 3
         card = "cpu rehearsal"
     else:
         if not torch.cuda.is_available():
@@ -510,7 +991,8 @@ def main(argv=None) -> int:
         device = torch.device("cuda")
         args.init_features, args.height, args.width, args.batch = \
             64, 240, 320, 8
-        args.timing_iters, args.bench_iters = 200, 50
+        args.timing_iters, args.bench_iters = 100, 50
+        args.train_batch, args.train_steps, args.train_time_steps = 4, 10, 20
         card = card_info()
     sys.path.insert(0, str(ROOT))
     import cadepth_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -533,24 +1015,46 @@ def main(argv=None) -> int:
         log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
             f"into {_build.BUILD_DIR.relative_to(ROOT)}/")
 
-    log("== 3. kernel against plain")
-    shapes = decoder_shapes(args.batch, args.height, args.width,
-                            args.init_features)
-    worst = check_kernel(device, shapes, args.seed)
+    # serving runs without autograd, as Predictor does
+    with torch.no_grad():
+        log("== 3. kernel against plain")
+        shapes = decoder_shapes(args.batch, args.height, args.width,
+                                args.init_features)
+        worst = check_kernel(device, shapes, args.seed)
 
-    log("== 4. serving")
-    pred, launches, per_forward, serve_err = serve(device, args)
-    cross_err = cross_device(device, args)
+        log("== 4. serving")
+        from cadepth_tpu_torch.ops import two_pass_warp as warp
+        warp.bwd_launches = 0
+        pred, launches, per_forward, serve_err = serve(device, args)
+        cross_err = cross_device(device, args)
+        if warp.bwd_launches:
+            raise AssertionError("serving launched the backward kernels")
 
-    log("== 5. times")
-    rows, total, bench, one, peak, prof = times(device, args, pred, card)
+        log("== 5. times")
+        rows, total, bench, one, peak, prof = times(device, args, pred, card)
+    del pred
+
+    log("== 6. backward kernels against plain")
+    bwd_worst = check_backward(
+        device, decoder_shapes(args.train_batch, args.height, args.width,
+                               args.init_features), args.seed + 8)
+
+    log("== 7. training")
+    tr = train(device, args)
+
+    log("== 8. training, card against CPU")
+    cross_train = cross_device_train(device, args)
+
+    log("== 9. training times")
+    bwd_rows = bwd_times(device, args, card)
+    train_out = train_times(device, args, card, tr)
 
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
             "is printed")
         return 0
 
-    dec1 = rows["dec1"]
+    dec1, bwd_dec1 = rows["dec1"], bwd_rows["dec1"]
     kernels = {"kernels": [{
         "name": "two_pass_warp",
         "route": "cuda",
@@ -578,7 +1082,42 @@ def main(argv=None) -> int:
                                          "plain_ms", "library_ms",
                                          "bound_ms")}
                    for k, r in rows.items()},
-    }], "predictor": {
+    }, {
+        "name": "two_pass_warp_bwd",
+        "route": "cuda",
+        "source": "cadepth_tpu_torch/csrc/two_pass_warp.cu",
+        "replaces": f"{TPU_KERNEL}:194",
+        "replaces_all": [f"{TPU_KERNEL}:194 _bwd_h_kernel",
+                         f"{TPU_KERNEL}:246 _bwd_v_kernel"],
+        "launches": tr["bwd_launches"],
+        "launches_per_step": tr["per_step"],
+        "max_abs_err": max(bwd_worst["float32"], bwd_worst["bfloat16"]),
+        "max_abs_err_by_dtype": bwd_worst,
+        "ms": bwd_dec1["kernel_ms"],
+        "ms_how": "torch.profiler device time of both backward launches "
+                  "per call",
+        "call_ms": bwd_dec1["kernel_call_ms"],
+        "wall_ms": bwd_dec1["kernel_wall_ms"],
+        "plain_ms": bwd_dec1["plain_ms"],
+        "bound_ms": bwd_dec1["bound_ms"],
+        "bound_by": bwd_dec1["bound_by"],
+        "bound_bytes": bwd_dec1["bytes"],
+        "two_launch_bytes": bwd_dec1["two_launch_bytes"],
+        "library_ms": bwd_dec1["library_ms"],
+        "library": "backward of F.grid_sample(F.affine_grid(theta))",
+        "at": f"dec1 {bwd_dec1['shape']} bf16",
+        "levels": {k: {m: r[m] for m in ("kernel_ms", "kernel_call_ms",
+                                         "kernel_wall_ms", "plain_ms",
+                                         "library_ms", "bound_ms")}
+                   for k, r in bwd_rows.items()},
+    }], "train": dict(
+        train_out, steps=len(tr["logs"]),
+        forward_launches=tr["launches"], grad_copies=tr["grad_copies"],
+        last_logs=tr["logs"][-1], eval=tr["eval"],
+        kernel_vs_plain_max_rel=tr["kernel_vs_plain_rel"],
+        kernel_vs_kernel_max_rel=tr["kernel_vs_kernel_rel"],
+        card_vs_cpu_f32=cross_train),
+        "predictor": {
         "batch": args.batch, "p50_ms": bench["p50_ms"],
         "p95_ms": bench["p95_ms"], "images_per_sec": bench["images_per_sec"],
         "batch1_p50_ms": one["p50_ms"], "peak_bytes": peak,

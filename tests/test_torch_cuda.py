@@ -19,7 +19,13 @@ import torch
 from cadepth_tpu_torch.config import config_from_dict
 from cadepth_tpu_torch.inference import Predictor
 from cadepth_tpu_torch.ops import two_pass_warp as warp_mod
-from cadepth_tpu_torch.ops.affine_warp import two_pass_affine_warp_plain
+from cadepth_tpu_torch.ops.affine_warp import (
+    two_pass_affine_warp_plain,
+    two_pass_affine_warp_plain_bwd,
+    two_pass_affine_warp_plain_fwd,
+)
+from cadepth_tpu_torch.training import train_state as ts
+from cadepth_tpu_torch.training.schedule import build_lr_schedule
 
 THETAS = {
     "identity": [[1, 0, 0], [0, 1, 0.0]],
@@ -29,9 +35,9 @@ THETAS = {
     "a_tiny": [[4e-4, 0.1, 0.05], [0.2, 0.9, 0.0]],
 }
 # odd sizes, channel counts that do and do not fill 16-byte vectors, and
-# the flagship's dec5 map
+# the flagship's dec5 map (at the serving and the training batch)
 SHAPES = [(2, 24, 32, 8), (3, 15, 20, 16), (2, 14, 20, 32), (1, 7, 9, 3),
-          (2, 5, 6, 12), (8, 14, 20, 1024)]
+          (2, 5, 6, 12), (8, 14, 20, 1024), (4, 14, 20, 1024)]
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -79,6 +85,157 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="theta is on"):
         warp_mod.two_pass_warp(torch.zeros(2, 6, 8, 4, device="cuda"),
                                theta.cpu())
+
+
+def _bwd_case(shape, name, dtype, rng):
+    """(img, theta, grad_out, v) on the card for one backward check."""
+    img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    theta = np.tile(np.asarray(THETAS[name], np.float32)[None],
+                    (shape[0], 1, 1))
+    if name not in ("identity", "a_tiny"):  # identity: the exact kinks
+        theta = theta + rng.normal(scale=0.01, size=theta.shape) \
+            .astype(np.float32)
+    theta = torch.from_numpy(theta).cuda()
+    grad = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    x = img.to(dtype)
+    return x, theta, grad.to(dtype)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_on_card():
+    """d_img at f32 atol 1e-5 x max(1, max|d_img|) (sums of many taps
+    where |A| is tiny are taken in another order than the plain
+    version's index_add_), bf16 atol 2e-2 x max(1, max|d_img|);
+    d_theta divided by its largest |entry| at atol 1e-5 (f32) and 1e-3
+    (bf16: a one-ulp difference of a bf16 d_v moves the g partials)."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    for shape in SHAPES:
+        for name in THETAS:
+            for dtype, atol in ATOL.items():
+                x, theta, grad = _bwd_case(shape, name, dtype, rng)
+                for pad in ("zeros", "border"):
+                    for ac in (False, True):
+                        _, v = two_pass_affine_warp_plain_fwd(x, theta, pad,
+                                                              ac)
+                        before = warp_mod.bwd_launches
+                        got = warp_mod.two_pass_warp_bwd(x, v, theta, grad,
+                                                         pad, ac)
+                        torch.cuda.synchronize()
+                        assert warp_mod.bwd_launches == \
+                            before + warp_mod.BWD_LAUNCHES_PER_CALL
+                        want = two_pass_affine_warp_plain_bwd(x, v, theta,
+                                                              grad, pad, ac)
+                        what = (shape, name, dtype, pad, ac)
+                        assert got[0].dtype == dtype, what
+                        scale = max(1.0, want[0].float().abs().max().item())
+                        err = (got[0].float() - want[0].float()).abs().max()
+                        assert err.item() <= atol * scale, (what, err)
+                        t_scale = want[1].abs().max().item() + 1e-12
+                        t_err = (got[1] - want[1]).abs().max().item()
+                        t_atol = 1e-5 if dtype == torch.float32 else 1e-3
+                        assert t_err <= t_atol * t_scale, (what, t_err)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic():
+    _need_card()
+    rng = np.random.default_rng(2)
+    x, theta, grad = _bwd_case((2, 30, 40, 64), "rotation", torch.bfloat16,
+                               rng)
+    _, v = two_pass_affine_warp_plain_fwd(x, theta)
+    a = warp_mod.two_pass_warp_bwd(x, v, theta, grad)
+    b = warp_mod.two_pass_warp_bwd(x, v, theta, grad)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_the_backward_kernels():
+    """Through the Function on the card, against the plain backward on
+    the CPU, with a strided incoming gradient (copied, and counted)."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    img = rng.normal(size=(2, 15, 20, 16)).astype(np.float32)
+    theta = np.asarray([THETAS["rotation"]] * 2, np.float32)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        im = torch.from_numpy(img).to(dev).requires_grad_(True)
+        th = torch.from_numpy(theta).to(dev).requires_grad_(True)
+        warp_mod.launches = warp_mod.bwd_launches = warp_mod.grad_copies = 0
+        out = warp_mod.two_pass_warp(im, th).permute(0, 3, 1, 2)
+        torch.sin(out.contiguous()).sum().backward()
+        if dev == "cuda":
+            assert warp_mod.launches == warp_mod.LAUNCHES_PER_CALL
+            assert warp_mod.bwd_launches == warp_mod.BWD_LAUNCHES_PER_CALL
+            assert warp_mod.grad_copies == 1
+        grads.append((im.grad.cpu(), th.grad.cpu()))
+    torch.testing.assert_close(grads[1][0], grads[0][0], atol=1e-5, rtol=0)
+    scale = grads[0][1].abs().max()
+    torch.testing.assert_close(grads[1][1] / scale, grads[0][1] / scale,
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_three_train_steps_on_card_match_cpu():
+    """A small f32 flagship takes three AdamW steps on the card (kernels,
+    TF32 off) and on the CPU (plain) from the same weights and batches:
+    losses at rtol 1e-4, parameters within 2 x sum(lr) (Adam moves a
+    parameter by about lr per step, and a gradient entry whose sign is
+    round-off may move it the other way on the other side, as
+    test_torch_train_step.py explains); 10 backward launches per step."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config_from_dict({
+        "model": {"architecture": "geometry_aware", "init_features": 8},
+        "data": {"input_height": 64, "input_width": 96},
+        "training": {"use_amp": False, "batch_size": 4},
+        "optimization": {"lr_warmup_epochs": 0, "learning_rate": 1e-4}})
+    rng = np.random.default_rng(4)
+    batches = [_train_batch(rng, 4, 64, 96) for _ in range(3)]
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model, loss_fn = ts.build_model_and_loss(
+            cfg, device=dev, generator=torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("fc_transform.bias"):
+                    p.copy_(torch.tensor([1.04, 0.95, 0.03, -0.02, 0.04,
+                                          0.03]))
+        opt = ts.build_optimizer(cfg.optimization, model.parameters())
+        step = ts.make_train_step(cfg, model, loss_fn, opt,
+                                  build_lr_schedule(cfg.optimization, 10, 5))
+        logs = []
+        for b in batches:
+            warp_mod.bwd_launches = 0
+            logs.append({k: float(v) for k, v in step(
+                {k: torch.from_numpy(a).to(dev) for k, a in b.items()})
+                .items()})
+            if dev == "cuda":
+                assert warp_mod.bwd_launches == 5 * 2
+        runs.append((logs, {k: v.cpu() for k, v in
+                            model.state_dict().items()}))
+    (cpu_logs, cpu_sd), (gpu_logs, gpu_sd) = runs
+    for a, b in zip(gpu_logs, cpu_logs):
+        for k in ("total_loss", "si_loss", "grad_loss", "smooth_loss",
+                  "reproj_loss"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, err_msg=k)
+    for k in cpu_sd:
+        assert (gpu_sd[k].float() - cpu_sd[k].float()).abs().max() <= 6e-4, k
+
+
+def _train_batch(rng, b, h, w):
+    k = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
+    k[:, 0, 0] = rng.uniform(0.5, 1.5, b) * w
+    k[:, 1, 1] = rng.uniform(0.5, 1.5, b) * w
+    k[:, 0, 2] = rng.uniform(0.3, 0.7, b) * w
+    k[:, 1, 2] = rng.uniform(0.3, 0.7, b) * h
+    depth = rng.uniform(0.3, 9.5, (b, h, w, 1)).astype(np.float32)
+    depth[rng.uniform(0, 1, depth.shape) < 0.1] = 0.05
+    return {"rgb": rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32),
+            "depth": depth, "intrinsics": k,
+            "k4": np.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2], k[:, 1, 2]],
+                           -1)}
 
 
 @pytest.mark.cuda

@@ -10,10 +10,17 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from cadepth_tpu import config as jax_config
+from cadepth_tpu.training import train_state as jax_ts
+from cadepth_tpu.training.schedule import build_lr_schedule as jax_schedule
+from cadepth_tpu_torch import config as port_config
 from cadepth_tpu_torch import convert
+from cadepth_tpu_torch.training import train_state as ts
+from cadepth_tpu_torch.training.schedule import build_lr_schedule
 
 # fc_transform bias [sx, sy, tx, ty, rot, shear] of a PCL head that
 # zooms, shifts, rotates and shears (the identity head warps nothing).
@@ -117,3 +124,75 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).float().numpy()
+
+
+# The train-step comparisons: the f32 flagship at f=8, 64x64, batch 4,
+# the shipped optimizer and step schedule with 2 warmup epochs of 2 steps
+TRAIN_H = TRAIN_W = 64
+TRAIN_B = 4
+STEPS_PER_EPOCH = 2
+TRAIN_RAW = {"model": {"architecture": "geometry_aware", "init_features": 8},
+             "data": {"input_height": TRAIN_H, "input_width": TRAIN_W},
+             "training": {"use_amp": False, "batch_size": TRAIN_B,
+                          "num_epochs": 20}}
+
+
+def make_train_batch(rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """rgb in (0, 1), gt depth in (0, 10) with ~10 % of pixels at or below
+    the 0.1 m validity floor, a distinct K per sample drawn wide (fx, fy
+    in 0.5-1.5 W, the principal point in 0.3-0.7 of the image): FiLM's
+    BatchNorm1d normalises the 4 camera vectors, and similar ones make its
+    gradient ill-conditioned."""
+    b, h, w = TRAIN_B, TRAIN_H, TRAIN_W
+    rgb = rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32)
+    depth = rng.uniform(0.3, 9.5, (b, h, w, 1)).astype(np.float32)
+    low = rng.uniform(0, 1, depth.shape) < 0.1
+    depth[low] = rng.uniform(0.0, 0.1, int(low.sum()))
+    k = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
+    k[:, 0, 0] = rng.uniform(0.5, 1.5, b) * w
+    k[:, 1, 1] = rng.uniform(0.5, 1.5, b) * w
+    k[:, 0, 2] = rng.uniform(0.3, 0.7, b) * w
+    k[:, 1, 2] = rng.uniform(0.3, 0.7, b) * h
+    k4 = np.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2], k[:, 1, 2]], -1)
+    return {"rgb": rgb, "depth": depth, "intrinsics": k, "k4": k4}
+
+
+def setup_training(raw: Dict[str, Any], seed: int, steps: int):
+    """Both sides of a train-step comparison from one seed: (JAX config,
+    model, loss, optimizer, state), (port config, model, loss, optimizer,
+    schedule) and ``steps`` numpy batches. The port's model holds the
+    JAX variables, converted."""
+    rng = np.random.default_rng(seed)
+    jcfg = jax_config.config_from_dict(raw)
+    pcfg = port_config.config_from_dict(raw)
+    jm, jloss = jax_ts.build_model_and_loss(jcfg)
+    sample = make_train_batch(np.random.default_rng(0))
+    params, stats = init_random(jm, rng, jnp.asarray(sample["rgb"]),
+                                jnp.asarray(sample["rgb"]),
+                                jnp.asarray(sample["k4"]))
+    tx = jax_ts.build_optimizer(
+        jcfg.optimization,
+        jax_schedule(jcfg.optimization, STEPS_PER_EPOCH,
+                     jcfg.training.num_epochs))
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    state = jax_ts.TrainState(
+        step=jnp.zeros((), jnp.int32), params=jparams,
+        batch_stats=jax.tree_util.tree_map(jnp.asarray, stats),
+        opt_state=tx.init(jparams))
+    model, loss_fn = ts.build_model_and_loss(pcfg, device="cpu")
+    model.load_state_dict(convert.to_torch(params, stats))
+    optimizer = ts.build_optimizer(pcfg.optimization, model.parameters())
+    schedule = build_lr_schedule(pcfg.optimization, STEPS_PER_EPOCH,
+                                 pcfg.training.num_epochs)
+    batches = [make_train_batch(rng) for _ in range(steps)]
+    return (jcfg, jm, jloss, tx, state), (pcfg, model, loss_fn, optimizer,
+                                          schedule), batches
+
+
+def torch_batch(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def leaves(tree):
+    """(path, leaf) pairs of a nested dict, for comparing two trees."""
+    return jax.tree_util.tree_leaves_with_path(tree)
