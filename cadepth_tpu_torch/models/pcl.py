@@ -2,7 +2,8 @@
 
 A 6-parameter head over [mean-pooled features; normalized K] predicts an
 affine theta per sample, and the feature map is warped by it with the
-two-pass warp (``ops/two_pass_warp.py``), differentiable in both the
+two-pass warp (``ops/two_pass_warp.py``) or, for ``warp_mode="fused"``,
+the banded warp (``ops/fused_warp.py``), differentiable in both the
 features and theta while grad mode is on. The head starts at the
 identity (zero kernel, bias [1, 1, 0, 0, 0, 0]). As in the reference's
 decoder, the layer takes no ray directions.
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cadepth_tpu_torch.models.layers import Linear
+from cadepth_tpu_torch.ops.fused_warp import fused_warp
 from cadepth_tpu_torch.ops.two_pass_warp import two_pass_warp
 
 # Rotation magnitude (rad) under which the two-pass warp's kernel
@@ -24,9 +26,11 @@ from cadepth_tpu_torch.ops.two_pass_warp import two_pass_warp
 # against it.
 DEFAULT_ROT_BOUND = 0.05
 
-# JAX warp modes that compute the two-pass function; both go to the kernel.
+# JAX warp modes that compute the two-pass function; both go to its
+# kernels. "fused" is the banded function (exact only inside
+# ops/fused_warp.fused_warp_theta_ok), with kernels of its own.
 TWO_PASS_MODES = ("two_pass", "pallas")
-UNPORTED_MODES = ("gather", "auto", "separable", "fused")
+UNPORTED_MODES = ("gather", "auto", "separable")
 
 
 def _build_affine_matrix(params: torch.Tensor) -> torch.Tensor:
@@ -52,14 +56,14 @@ class PerspectiveCorrectionLayer(nn.Module):
             raise NotImplementedError(
                 f"pcl_warp={warp_mode!r} is not ported yet "
                 "(ROADMAP.md Queue 1, item 2; Queue 2)")
-        if warp_mode not in TWO_PASS_MODES:
+        if warp_mode not in TWO_PASS_MODES + ("fused",):
             raise ValueError(f"Unknown warp_mode: {warp_mode}")
         self.loc_fc1 = Linear(feature_channels + camera_dim, hidden_dim)
         self.loc_fc2 = Linear(hidden_dim, hidden_dim)
         self.fc_transform = Linear(hidden_dim, 6)
         # The warp function; chip_smoke.py swaps in the plain version to
         # hold the served depths against it on the card.
-        self.warp = two_pass_warp
+        self.warp = fused_warp if warp_mode == "fused" else two_pass_warp
 
     def forward(self, features: torch.Tensor, camera_intrinsics: torch.Tensor,
                 intermediates: Optional[Dict[str, List[torch.Tensor]]] = None

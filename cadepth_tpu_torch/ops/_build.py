@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process for
 ``sm_90a`` into a shared library with a plain C interface, in
 ``build/cadepth_tpu_torch/`` at the root of the checkout. The library
-name carries a hash of its source, so an edited source is rebuilt and a
+name carries a hash of its source and of every header under ``csrc``
+that it includes (``#include "..."``, followed into headers), so an
+edited source or shared header rebuilds each library that uses it and a
 stale library is never loaded. All sources are compiled together on the
 first call of :func:`build_all` or :func:`library`; later calls load
 what is there. A failed build raises.
@@ -15,11 +17,12 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "cadepth_tpu_torch"
@@ -42,9 +45,32 @@ def _nvcc() -> str:
                        "build only where the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(src: pathlib.Path) -> List[pathlib.Path]:
+    """``src`` and the headers it includes with quotes, directly or
+    through other headers, that exist beside it: each once, in the order
+    first reached."""
+    seen: List[pathlib.Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / name.decode()
+            if header.exists():
+                todo.append(header)
+    return seen
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources_of(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, pathlib.Path]:

@@ -66,6 +66,13 @@ def affine_pixel_coeffs(theta: torch.Tensor, height: int, width: int,
     return a, b, c, d, e, f
 
 
+def safe_divisor(x: torch.Tensor) -> torch.Tensor:
+    """x with |x| >= 1e-3 and x's sign, as the reference's ``a_safe`` and
+    ``q_safe``."""
+    return torch.where(x.abs() < 1e-3,
+                       torch.where(x < 0, -1e-3, 1e-3).to(x.dtype), x)
+
+
 def warp_coeffs(theta: torch.Tensor, height: int, width: int,
                 align_corners: bool = False) -> torch.Tensor:
     """(B, 6) f32 rows [A, B, C, p, q, r]: the pass-H and pass-V lines.
@@ -75,9 +82,7 @@ def warp_coeffs(theta: torch.Tensor, height: int, width: int,
     """
     a, b, c, d, e, f = affine_pixel_coeffs(theta, height, width,
                                            align_corners)
-    a_safe = torch.where(a.abs() < 1e-3,
-                         torch.where(a < 0, -1e-3, 1e-3).to(a.dtype), a)
-    p = d / a_safe
+    p = d / safe_divisor(a)
     return torch.stack([a, b, c, p, e - p * b, f - p * c], dim=-1)
 
 
@@ -153,7 +158,7 @@ def two_pass_affine_warp_plain_fwd(img: torch.Tensor, theta: torch.Tensor,
     border = padding_mode == "border"
     bf16 = img.dtype == torch.bfloat16
     dev = img.device
-    g, hpos = _positions(theta, h, w, align_corners, dev)
+    g, _ = _positions(theta, h, w, align_corners, dev)
     bi = torch.arange(bsz, device=dev)[:, None, None]
     xi = torch.arange(w, device=dev)[None, None, :]
 
@@ -161,13 +166,44 @@ def two_pass_affine_warp_plain_fwd(img: torch.Tensor, theta: torch.Tensor,
     y0, y1, w0, w1 = _taps(g, h, border, bf16)
     v = (w0[..., None] * img[bi, y0, xi].float()
          + w1[..., None] * img[bi, y1, xi].float()).to(img.dtype)
+    return plain_pass_h(v, theta, padding_mode, align_corners), v
 
-    # pass H: for each (b, i, j), two source columns x of row i of V
-    x0, x1, u0, u1 = _taps(hpos, w, border, bf16)
+
+def plain_pass_h(v: torch.Tensor, theta: torch.Tensor, padding_mode: str,
+                 align_corners: bool) -> torch.Tensor:
+    """Pass H of the warp over V (B, H, W, C): for each (b, i, j), the two
+    taps of row i of V at ``h(j, i)``; returns ``v.dtype``. The banded
+    warp (``ops/fused_warp.py``) shares it."""
+    bsz, h, w, _ = v.shape
+    dev = v.device
+    _, hpos = _positions(theta, h, w, align_corners, dev)
+    x0, x1, u0, u1 = _taps(hpos, w, padding_mode == "border",
+                           v.dtype == torch.bfloat16)
+    bi = torch.arange(bsz, device=dev)[:, None, None]
     ri = torch.arange(h, device=dev)[None, :, None]
     out = (u0[..., None] * v[bi, ri, x0].float()
            + u1[..., None] * v[bi, ri, x1].float())
-    return out.to(img.dtype), v
+    return out.to(v.dtype)
+
+
+def plain_pass_h_bwd(v: torch.Tensor, theta: torch.Tensor,
+                     grad_out: torch.Tensor, padding_mode: str,
+                     align_corners: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transposed pass H: (d_v in ``v.dtype``, (B, 3) f32 partials
+    ``(sum c*j, i*sum c, sum c)`` of the pass-H line [A, B, C]) given V
+    and the cotangent of the warp's output, as :func:`_transpose_pass`
+    computes them. The banded warp's backward shares it."""
+    _, h, w, _ = v.shape
+    dev = v.device
+    _, hpos = _positions(theta, h, w, align_corners, dev)
+    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    d_v, c_h = _transpose_pass(hpos, w, padding_mode == "border",
+                               grad_out.float(), v.float(), rows=False)
+    partials = torch.stack([(c_h * xs).sum((1, 2)), (c_h * ii).sum((1, 2)),
+                            c_h.sum((1, 2))], dim=-1)
+    return d_v.to(v.dtype), partials
 
 
 def _dtent(diff: torch.Tensor) -> torch.Tensor:
@@ -261,22 +297,20 @@ def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
     differ from JAX's at the identity theta the PCL starts from.
     """
     check_warp_args(img, theta, padding_mode)
-    bsz, h, w, _ = img.shape
+    _, h, w, _ = img.shape
     border = padding_mode == "border"
     dev = img.device
-    g, hpos = _positions(theta, h, w, align_corners, dev)
+    g, _ = _positions(theta, h, w, align_corners, dev)
     ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
 
-    d_v, c_h = _transpose_pass(hpos, w, border, grad_out.float(), v.float(),
-                               rows=False)
-    d_v = d_v.to(img.dtype)
+    d_v, part_h = plain_pass_h_bwd(v, theta, grad_out, padding_mode,
+                                   align_corners)
     d_img, c_g = _transpose_pass(g, h, border, d_v.float(), img.float(),
                                  rows=True)
-    partials = torch.stack([
-        (c_h * xs).sum((1, 2)), (c_h * ii).sum((1, 2)), c_h.sum((1, 2)),
+    partials = torch.cat([part_h, torch.stack([
         (c_g * xs).sum((1, 2)), (c_g * ii).sum((1, 2)), c_g.sum((1, 2)),
-    ], dim=-1)                                                # (B, 6)
+    ], dim=-1)], dim=-1)                                      # (B, 6)
     return d_img.to(img.dtype), chain_theta(theta, partials, h, w,
                                              align_corners)
 

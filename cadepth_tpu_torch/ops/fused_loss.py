@@ -1,0 +1,218 @@
+"""Fused masked depth-loss statistics: wrapper of ``csrc/fused_loss.cu``
+and its plain versions.
+
+Replaces ``cadepth_tpu/ops/pallas/fused_loss.py``: ``_stats_fwd_impl``
+(``_stats_kernel``) and ``_grad_impl`` (``_grad_kernel``), behind
+``fused_depth_loss_stats`` and ``silog_reproj_losses``. Over the pixels
+with gt > 1e-6, one pass over pred and gt gives
+
+    [sum d, sum d^2, count, sum ||backproj(pred) - backproj(gt)||]
+
+with d = log clip(pred) - log clip(gt) (clip to [1e-6, 1000]) and the
+back-projection through a per-sample K in PIXELS, k4 = [fx, fy, cx, cy]
+(the model's K4 is normalized; this one is not). The op is
+differentiable in ``pred`` only. As in the JAX package it is a public
+op that no module calls; the train step's losses are
+``losses/depth_loss.py``'s.
+
+For CUDA tensors the statistics and the gradient launch their kernels
+(one launch each) or raise; for CPU tensors they compute the plain
+versions, :func:`depth_loss_stats_plain` and :func:`depth_loss_grad_plain`.
+``launches`` and ``bwd_launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from cadepth_tpu_torch.ops import _build
+from cadepth_tpu_torch.ops.two_pass_warp import raise_on
+
+EPS = 1e-6
+CLAMP_MAX = 1000.0
+
+# Kernel launches since the counts were last set to 0.
+launches = 0
+bwd_launches = 0
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def _check(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor) -> None:
+    if pred.dim() != 3 or gt.shape != pred.shape:
+        raise ValueError(f"pred and gt must be one (B, H, W) shape, got "
+                         f"{tuple(pred.shape)} and {tuple(gt.shape)}")
+    if tuple(k4.shape) != (pred.shape[0], 4):
+        raise ValueError(f"k4 must be ({pred.shape[0]}, 4), got "
+                         f"{tuple(k4.shape)}")
+    if gt.device != pred.device or k4.device != pred.device:
+        raise ValueError("pred, gt and k4 must lie on one device")
+
+
+def _geometry(pred: torch.Tensor, k4: torch.Tensor):
+    """(xs, ys), each broadcastable to (B, H, W): (u - cx) / (fx + eps) of
+    column u, (v - cy) / (fy + eps) of row v."""
+    _, h, w = pred.shape
+    dev = pred.device
+    fx, fy, cx, cy = (k4[:, m, None, None] for m in range(4))
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    v = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    return (u - cx) / (fx + EPS), (v - cy) / (fy + EPS)
+
+
+def _log_diff(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.log(pred.clamp(EPS, CLAMP_MAX)) - \
+        torch.log(gt.clamp(EPS, CLAMP_MAX))
+
+
+def depth_loss_stats_plain(pred: torch.Tensor, gt: torch.Tensor,
+                           k4: torch.Tensor) -> torch.Tensor:
+    """(4,) f32 [sum d, sum d^2, count, sum reprojection] of f32 (B, H, W)
+    maps, with the kernel's f32 formulas (sums in torch's order)."""
+    maskf = (gt > EPS).to(torch.float32)
+    d = _log_diff(pred, gt) * maskf
+    xs, ys = _geometry(pred, k4)
+    e = pred - gt
+    rep = torch.sqrt((xs * e) * (xs * e) + (ys * e) * (ys * e) + e * e
+                     + EPS) * maskf
+    return torch.stack([d.sum(), (d * d).sum(), maskf.sum(), rep.sum()])
+
+
+def depth_loss_grad_plain(pred: torch.Tensor, gt: torch.Tensor,
+                          k4: torch.Tensor, coefs: torch.Tensor
+                          ) -> torch.Tensor:
+    """d/dpred (B, H, W) f32 of ``coefs . [sum d, sum d^2, sum
+    reprojection]``, coefs (3,) f32, with the kernel's f32 formulas: the
+    reprojection's derivative as geom * e / sqrt(geom * e^2 + eps),
+    geom = xs^2 + ys^2 + 1, and 1 / clip(pred) strictly inside the clip
+    range."""
+    maskf = (gt > EPS).to(torch.float32)
+    pred_c = pred.clamp(EPS, CLAMP_MAX)
+    d = _log_diff(pred, gt)
+    in_clamp = ((pred > EPS) & (pred < CLAMP_MAX)).to(torch.float32)
+    inv_pred = in_clamp / pred_c
+    xs, ys = _geometry(pred, k4)
+    e = pred - gt
+    geom = xs * xs + ys * ys + 1.0
+    drep = geom * e / torch.sqrt(geom * e * e + EPS)
+    c_d, c_d2, c_rep = coefs[0], coefs[1], coefs[2]
+    return maskf * (c_d * inv_pred + c_d2 * 2.0 * d * inv_pred
+                    + c_rep * drep)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.library("fused_loss")
+    if lib.cadepth_fused_loss_stats.argtypes is None:
+        lib.cadepth_fused_loss_blocks.argtypes = [_INT] * 3
+        lib.cadepth_fused_loss_blocks.restype = _INT
+        lib.cadepth_fused_loss_stats.argtypes = [_VP] * 4 + [_INT] * 3 + [_VP]
+        lib.cadepth_fused_loss_stats.restype = _INT
+        lib.cadepth_fused_loss_grad.argtypes = [_VP] * 5 + [_INT] * 3 + [_VP]
+        lib.cadepth_fused_loss_grad.restype = _INT
+        lib.cadepth_cuda_error_string.argtypes = [_INT]
+        lib.cadepth_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _card_args(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"fused_depth_loss_stats runs on cuda or cpu "
+                             f"tensors, got {t.device}")
+
+
+def depth_loss_stats(pred: torch.Tensor, gt: torch.Tensor,
+                     k4: torch.Tensor) -> torch.Tensor:
+    """The four statistics of f32 (B, H, W) ``pred`` and ``gt`` and (B, 4)
+    ``k4``: the kernel and a fixed-order sum of its per-block rows on the
+    card, :func:`depth_loss_stats_plain` on the CPU."""
+    global launches
+    _check(pred, gt, k4)
+    pred, gt, k4 = (t.to(torch.float32).contiguous() for t in (pred, gt, k4))
+    if pred.device.type == "cpu":
+        return depth_loss_stats_plain(pred, gt, k4)
+    _card_args(pred, gt, k4)
+    b, h, w = pred.shape
+    lib = _library()
+    part = torch.empty(lib.cadepth_fused_loss_blocks(b, h, w), 4,
+                       dtype=torch.float32, device=pred.device)
+    with torch.cuda.device(pred.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cadepth_fused_loss_stats(
+            pred.data_ptr(), gt.data_ptr(), k4.data_ptr(), part.data_ptr(),
+            b, h, w, stream)
+    raise_on(lib, err, "fused_depth_loss_stats")
+    launches += 1
+    return part.sum(0)
+
+
+def depth_loss_grad(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor,
+                    coefs: torch.Tensor) -> torch.Tensor:
+    """d/dpred (B, H, W) f32 given the (3,) cotangents [c_d, c_d2, c_rep]
+    of sums 0, 1 and 3: the kernel on the card (it reads ``coefs`` from
+    device memory), :func:`depth_loss_grad_plain` on the CPU."""
+    global bwd_launches
+    _check(pred, gt, k4)
+    pred, gt, k4, coefs = (t.to(torch.float32).contiguous()
+                           for t in (pred, gt, k4, coefs))
+    if pred.device.type == "cpu":
+        return depth_loss_grad_plain(pred, gt, k4, coefs)
+    _card_args(pred, gt, k4, coefs)
+    b, h, w = pred.shape
+    dpred = torch.empty_like(pred)
+    lib = _library()
+    with torch.cuda.device(pred.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cadepth_fused_loss_grad(
+            pred.data_ptr(), gt.data_ptr(), k4.data_ptr(), coefs.data_ptr(),
+            dpred.data_ptr(), b, h, w, stream)
+    raise_on(lib, err, "fused_depth_loss_stats backward")
+    bwd_launches += 1
+    return dpred
+
+
+class FusedDepthLossStats(torch.autograd.Function):
+    """The statistics with the reference's elementwise backward."""
+
+    @staticmethod
+    def forward(ctx, pred, gt, k4):
+        ctx.save_for_backward(pred, gt, k4)
+        return depth_loss_stats(pred, gt, k4)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        pred, gt, k4 = ctx.saved_tensors
+        # the count has no pred-gradient
+        coefs = grad.to(torch.float32)[[0, 1, 3]]
+        return depth_loss_grad(pred, gt, k4, coefs).to(pred.dtype), None, None
+
+
+def fused_depth_loss_stats(pred: torch.Tensor, gt: torch.Tensor,
+                           k4: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) pred and gt, (B, 4) pixel k4 [fx, fy, cx, cy] -> (4,) f32
+    [sum d, sum d^2, count, sum reprojection] over gt > 1e-6;
+    differentiable in ``pred`` only, its gradient in ``pred.dtype``."""
+    return FusedDepthLossStats.apply(pred, gt.detach(), k4.detach())
+
+
+def silog_reproj_losses(pred: torch.Tensor, gt: torch.Tensor,
+                        k4: torch.Tensor, lam: float = 0.5
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(SILog, reprojection) losses from the fused statistics: what
+    ``scale_invariant_loss`` and ``reprojection_loss`` of
+    ``losses/depth_loss.py`` give with their default gt > eps mask, 0
+    each where no pixel is valid. Accepts (B, H, W, 1) or (B, H, W)."""
+    if pred.dim() == 4:
+        pred, gt = pred[..., 0], gt[..., 0]
+    sum_d, sum_d2, count, sum_rep = fused_depth_loss_stats(pred, gt, k4)
+    n = count.clamp_min(1.0)
+    silog = torch.where(count > 0, sum_d2 / n - lam * (sum_d * sum_d) / (n * n),
+                        0.0)
+    reproj = torch.where(count > 0, sum_rep / n, 0.0)
+    return silog, reproj

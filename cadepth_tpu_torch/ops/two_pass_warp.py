@@ -46,7 +46,7 @@ BWD_LAUNCHES_PER_CALL = 2
 # Backward calls that copied a non-contiguous incoming gradient.
 grad_copies = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 
@@ -67,9 +67,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_card_args(img: torch.Tensor, theta: torch.Tensor) -> None:
+def check_card_args(img: torch.Tensor, theta: torch.Tensor,
+                    name: str = "two_pass_warp") -> None:
+    """What a warp kernel takes: a contiguous NHWC ``img`` on the card,
+    ``theta`` on the same card, row counts that fit the kernel's int32."""
     if img.device.type != "cuda":
-        raise ValueError(f"two_pass_warp runs on cuda or cpu tensors, "
+        raise ValueError(f"{name} runs on cuda or cpu tensors, "
                          f"got {img.device}")
     if theta.device != img.device:
         raise ValueError(f"theta is on {theta.device}, img on {img.device}")
@@ -82,11 +85,11 @@ def _check_card_args(img: torch.Tensor, theta: torch.Tensor) -> None:
                          "int32 row counts")
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a library's launch returned a CUDA error."""
     if err != 0:
         msg = lib.cadepth_cuda_error_string(err).decode()
-        raise RuntimeError(f"two_pass_warp {what} kernel launch failed: "
-                           f"{msg} ({err})")
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
 def _forward(img: torch.Tensor, theta: torch.Tensor, padding_mode: str,
@@ -96,7 +99,7 @@ def _forward(img: torch.Tensor, theta: torch.Tensor, padding_mode: str,
     if img.device.type == "cpu":
         return two_pass_affine_warp_plain_fwd(img, theta, padding_mode,
                                               align_corners)
-    _check_card_args(img, theta)
+    check_card_args(img, theta)
     bsz, h, w, ch = img.shape
     theta = theta.to(torch.float32).contiguous()
     v = torch.empty_like(img)
@@ -106,9 +109,9 @@ def _forward(img: torch.Tensor, theta: torch.Tensor, padding_mode: str,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_two_pass_warp_fwd(
             img.data_ptr(), v.data_ptr(), out.data_ptr(), theta.data_ptr(),
-            bsz, h, w, ch, _DTYPE_CODE[img.dtype],
+            bsz, h, w, ch, DTYPE_CODE[img.dtype],
             int(padding_mode == "border"), int(align_corners), stream)
-    _raise_on(lib, err, "forward")
+    raise_on(lib, err, "two_pass_warp forward")
     launches += LAUNCHES_PER_CALL
     return out, v
 
@@ -129,7 +132,7 @@ def two_pass_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
     if img.device.type == "cpu":
         return two_pass_affine_warp_plain_bwd(img, v, theta, grad_out,
                                               padding_mode, align_corners)
-    _check_card_args(img, theta)
+    check_card_args(img, theta)
     for name, t in (("v", v), ("grad_out", grad_out)):
         if t.shape != img.shape or t.dtype != img.dtype or \
                 t.device != img.device or not t.is_contiguous():
@@ -148,9 +151,9 @@ def two_pass_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
         err = lib.cadepth_two_pass_warp_bwd(
             grad_out.data_ptr(), v.data_ptr(), img.data_ptr(), th.data_ptr(),
             d_v.data_ptr(), d_img.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), bsz, h, w, ch, _DTYPE_CODE[img.dtype],
+            part[1].data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
             int(padding_mode == "border"), int(align_corners), stream)
-    _raise_on(lib, err, "backward")
+    raise_on(lib, err, "two_pass_warp backward")
     bwd_launches += BWD_LAUNCHES_PER_CALL
     partials = torch.cat([part[0].sum(1), part[1].sum(1)], dim=-1)  # (B, 6)
     return d_img, chain_theta(th, partials, h, w, align_corners)

@@ -103,11 +103,26 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 @dataclasses.dataclass
 class Optimizer:
     """optax's ``chain(clip_by_global_norm, adam | adamw | sgd)`` over a
-    torch optimizer: :meth:`step` clips the gradients in place (when
-    ``clip_value`` is set), sets the learning rate and updates."""
+    torch optimizer, wrapped in ``optax.MultiSteps`` when
+    ``accum_steps`` > 1.
+
+    :meth:`step` clips the gradients in place (when ``clip_value`` is
+    set), sets the learning rate and updates. :meth:`update` takes one
+    micro-batch's gradients: with ``accum_steps`` k > 1 it folds them into
+    a running mean (MultiSteps' ``acc + (g - acc) / (n + 1)``) and, on
+    every k-th call, steps on the mean; the other calls leave the
+    parameters and the optimizer's state as they are. ``updates`` counts
+    the steps taken, which the learning-rate schedule reads."""
 
     base: torch.optim.Optimizer
     clip_value: Optional[float] = None
+    accum_steps: int = 1
+    updates: int = 0
+    # the running mean of this update's micro-batch gradients, and their
+    # number
+    _mean: Optional[List[torch.Tensor]] = dataclasses.field(
+        default=None, init=False, repr=False)
+    _micro: int = dataclasses.field(default=0, init=False, repr=False)
 
     def params(self) -> List[nn.Parameter]:
         return [p for g in self.base.param_groups for p in g["params"]]
@@ -119,6 +134,32 @@ class Optimizer:
         for group in self.base.param_groups:
             group["lr"] = lr
         self.base.step()
+        self.updates += 1
+
+    def update(self, schedule: Callable[[int], float],
+               norm: Optional[torch.Tensor] = None) -> bool:
+        """One micro-batch: ``step(schedule(updates), norm)`` when it
+        completes an update (every call when ``accum_steps`` is 1; then
+        ``norm``, the gradient's global norm, saves recomputing it).
+        Returns whether the parameters were updated."""
+        if self.accum_steps > 1:
+            params = self.params()
+            if self._mean is None:
+                self._mean = [torch.zeros_like(p) for p in params]
+            # divided by a tensor, not a Python float: on the card the
+            # latter is a reciprocal multiply, one bit off the division
+            n1 = torch.tensor(float(self._micro + 1),
+                              device=self._mean[0].device)
+            for m, p in zip(self._mean, params):
+                m.add_((p.grad - m) / n1)
+            self._micro += 1
+            if self._micro < self.accum_steps:
+                return False
+            for m, p in zip(self._mean, params):
+                p.grad = m
+            self._mean, self._micro, norm = None, 0, None
+        self.step(schedule(self.updates), norm)
+        return True
 
     def zero_grad(self) -> None:
         self.base.zero_grad(set_to_none=True)
@@ -127,13 +168,10 @@ class Optimizer:
 def build_optimizer(opt: OptimizationConfig,
                     params: Iterable[nn.Parameter]) -> Optimizer:
     """adam, adamw (decaying every parameter, as ``optax.adamw`` with no
-    mask) or sgd with Nesterov momentum, and optional global-norm
-    clipping. The learning rate is given to each :meth:`Optimizer.step`
-    by the schedule."""
-    if opt.grad_accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet "
-            "(ROADMAP.md Queue 1, item 1)")
+    mask) or sgd with Nesterov momentum, optional global-norm clipping,
+    and ``grad_accum_steps`` micro-batches averaged per update. The
+    learning rate is given to each :meth:`Optimizer.step` by the
+    schedule."""
     params = list(params)
     betas = tuple(opt.adam_betas)
     if opt.optimizer == "adam":
@@ -148,17 +186,20 @@ def build_optimizer(opt: OptimizationConfig,
     else:
         raise ValueError(f"Unknown optimizer: {opt.optimizer}")
     return Optimizer(base, opt.gradient_clip_value if opt.gradient_clip
-                     else None)
+                     else None, max(1, opt.grad_accum_steps))
 
 
 # -- steps -------------------------------------------------------------------
 
 class TrainStep:
-    """One optimizer update per call: forward in training mode (batch
+    """One micro-batch per call: forward in training mode (batch
     statistics, running statistics moved), the combined loss over
     ``gt > loss.min_depth``, backward, the pre-clip gradient norm, max
-    and min, clipping, the learning rate ``schedule(updates)`` and the
-    update. ``updates`` counts the calls, as the JAX state's ``step``."""
+    and min of this micro-batch's gradient, then
+    :meth:`Optimizer.update`: clipping, the learning rate
+    ``schedule(optimizer.updates)`` and the update, on every call or,
+    with ``grad_accum_steps`` k, on the mean of every k calls' gradients.
+    ``updates`` counts the calls, as the JAX state's ``step``."""
 
     def __init__(self, cfg: Config, model: nn.Module,
                  loss_fn: CombinedDepthLoss, optimizer: Optimizer,
@@ -188,7 +229,7 @@ class TrainStep:
         logs["grad_norm"] = global_norm(grads)
         logs["grad_max"] = torch.stack(torch._foreach_max(grads)).max()
         logs["grad_min"] = torch.stack([g.min() for g in grads]).min()
-        self.optimizer.step(self.schedule(self.updates), logs["grad_norm"])
+        self.optimizer.update(self.schedule, logs["grad_norm"])
         self.updates += 1
         return logs
 

@@ -38,8 +38,28 @@ Phases, each fatal on failure:
    their bound, the plain backward and the backward of F.grid_sample;
    the train step's p50/p95 and images/s, the device's busy share over 3
    profiled steps, peak device memory;
-10. one JSON line describing every kernel and the train step; last, the
-   ok line.
+10. the banded ("fused") warp's kernels against its plain versions: the
+   forward (V and the output) at the five decoder shapes at B=8, the
+   backward at B=4, f32 and bf16, the five thetas and a 0.2 rad rotation
+   that lies outside the band at dec1;
+11. serving with pcl_warp fused: a Predictor over phase 4's weights
+   answers N=8 and N=3; exactly 2 fused_warp launches per PCL per forward
+   and no other warp launch; the depths agree with the same model run
+   with the plain banded warp and with phase 4's two-pass depths (every
+   served theta is in band, where the two are one function); per level
+   the forward kernels' time, bound, plain and F.grid_sample time; the
+   fused Predictor's latency at batch 8;
+12. training with pcl_warp fused: 10 full-width steps at batch 4 with
+   exactly 10 forward and 10 backward fused_warp launches per step (none
+   of the two-pass warp), then the same steps with the plain banded warp;
+13. the fused depth-loss op on phase 12's predicted depth and gt: its
+   statistics and gradient kernels launched once each on that path,
+   against their plain versions and against scale_invariant_loss +
+   reprojection_loss;
+14. fused times: the banded backward per level, the loss kernels, the
+   fused train step;
+15. one JSON line describing every kernel, the train steps and the
+   Predictors; last, the ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -55,6 +75,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+START = time.perf_counter()
 
 # (name, theta) pairs of the kernel checks; "identity_noise" adds N(0, 0.01)
 THETAS = {
@@ -86,13 +107,26 @@ SERVE_ATOL = 0.05
 # the small f32 model, card (kernel) vs CPU (plain), TF32 off
 CROSS_ATOL = 1e-3
 PCL_BIAS = [1.04, 0.95, 0.03, -0.02, 0.04, 0.03]
+# the out-of-band rotation of the fused checks (rad): outside the band at
+# dec1 (240 x 320, column strips of 64)
+ROT_OUT = 0.2
+# the fused loss on the trained model's depth against
+# scale_invariant_loss + reprojection_loss: f32 sums over 307,200 pixels
+# in another order, and SILog's difference of two means
+LOSS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 TPU_KERNEL = "cadepth_tpu/ops/pallas/two_pass_warp.py"
+FUSED_KERNEL = "cadepth_tpu/ops/pallas/fused_warp.py"
+LOSS_KERNEL = "cadepth_tpu/ops/pallas/fused_loss.py"
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def phase(title: str) -> None:
+    log(f"== {title}  [{time.perf_counter() - START:.0f} s]")
 
 
 def card_info() -> str:
@@ -104,16 +138,16 @@ def card_info() -> str:
 
 
 def flagship_config(init_features: int, height: int, width: int,
-                    batch: int = 8):
+                    batch: int = 8, pcl_warp: str = "two_pass"):
     from cadepth_tpu_torch.config import config_from_dict
 
     # the geometry_aware_full experiment of configs/train_config.yaml, with
     # the shipped defaults written out (its training batch is 4; serving
-    # here runs at 8)
+    # here runs at 8); pcl_warp "fused" selects the banded warp
     return config_from_dict({
         "model": {"architecture": "geometry_aware", "variant": "full",
                   "init_features": init_features, "use_pcl": True,
-                  "use_attention": True, "pcl_warp": "two_pass",
+                  "use_attention": True, "pcl_warp": pcl_warp,
                   "norm": "batch", "decoder_upsample": "transpose",
                   "sa_lowering": "toeplitz"},
         "data": {"input_height": height, "input_width": width,
@@ -336,7 +370,7 @@ def serve(device, args):
     rots = [float(r) for r in record["pcl_max_rot"]]
     log("  pcl_max_rot per level (dec5..dec1): "
         + ", ".join(f"{r:.4f}" for r in rots) + " rad")
-    return pred, launches, per_forward, serve_err
+    return pred, launches, per_forward, serve_err, (rgb8, k, depth8)
 
 
 def cross_device(device, args) -> float:
@@ -406,9 +440,12 @@ def device_rows(prof, calls: int):
     return sorted(rows, reverse=True)
 
 
-def profile_forward(pred, card: str, forwards: int = 3):
+def profile_forward(pred, card: str, forwards: int = 3,
+                    warp_keys=("pass_v_kernel", "pass_h_kernel"),
+                    warp_name: str = "two_pass_warp"):
     """Where a batch's forward spends the card's time: device time by
-    kernel and the device's busy share of the wall time."""
+    kernel and the device's busy share of the wall time; the warp is the
+    kernels whose names hold one of ``warp_keys``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -427,12 +464,11 @@ def profile_forward(pred, card: str, forwards: int = 3):
     wall_ms = (time.perf_counter() - t0) * 1000.0 / forwards
     rows = device_rows(prof, forwards)
     busy = sum(r[0] for r in rows)
-    warp_ms = sum(r[0] for r in rows if "pass_v_kernel" in r[2]
-                  or "pass_h_kernel" in r[2])
+    warp_ms = sum(r[0] for r in rows if any(k in r[2] for k in warp_keys))
     log(f"  [{card}] profile of a batch-{pred.batch_size} forward "
         f"(torch.profiler, {forwards} forwards): device busy {busy:.3f} ms "
         f"of {wall_ms:.3f} ms wall ({busy / wall_ms:.1%}), "
-        f"{sum(r[1] for r in rows)} kernels per forward; two_pass_warp "
+        f"{sum(r[1] for r in rows)} kernels per forward; {warp_name} "
         f"{warp_ms:.3f} ms ({warp_ms / busy:.1%} of busy)" if busy else
         f"  [{card}] profile: no device time seen (not measured)")
     for ms, count, key in rows[:12]:
@@ -444,11 +480,47 @@ def profile_forward(pred, card: str, forwards: int = 3):
 def times(device, args, pred, card: str):
     """Phase 5: per-level warp times and the Predictor's latency."""
     import torch
-    import torch.nn.functional as F
 
     from cadepth_tpu_torch.inference import Predictor
     from cadepth_tpu_torch.ops import two_pass_warp as warp
     from cadepth_tpu_torch.ops.affine_warp import two_pass_affine_warp_plain
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    rows, total = level_times(device, args, card, "two_pass_warp",
+                              warp.two_pass_warp, two_pass_affine_warp_plain,
+                              warp)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    bench = pred.benchmark(iterations=args.bench_iters, warmup=5)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    log(f"  [{card}] Predictor batch {args.batch}: p50 {bench['p50_ms']:.3f} "
+        f"ms, p95 {bench['p95_ms']:.3f} ms, p99 {bench['p99_ms']:.3f} ms, "
+        f"{bench['images_per_sec']:.2f} images/s "
+        f"({args.bench_iters} requests, host clock to the read-back){unit}")
+    prof = profile_forward(pred, card) if cuda else None
+    single = Predictor(pred.cfg, pred.model.state_dict(), batch_size=1,
+                       device=device)
+    one = single.benchmark(iterations=args.bench_iters, warmup=5)
+    log(f"  [{card}] Predictor batch 1: p50 {one['p50_ms']:.3f} ms, "
+        f"p95 {one['p95_ms']:.3f} ms{unit}")
+    if cuda:
+        profile_forward(single, card)
+    if peak is not None:
+        log(f"  [{card}] peak device memory while serving batch "
+            f"{args.batch}: {peak / 2**30:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated)")
+    return rows, total, bench, one, peak, prof
+
+
+def level_times(device, args, card: str, name: str, kernel, plain, counted):
+    """Per decoder level at the serving batch (bf16, the rotation theta):
+    ``kernel`` (CUDA events over back-to-back calls, and the device time
+    of its launches from torch.profiler), its bound, ``plain`` and
+    F.grid_sample(F.affine_grid(theta)). ``counted`` is the wrapper module
+    whose ``launches`` the kernel moves. Returns (rows, all-level sums)."""
+    import torch
+    import torch.nn.functional as F
 
     cuda = device.type == "cuda"
     timer = Timer(device)
@@ -471,8 +543,8 @@ def times(device, args, pred, card: str):
             flops / F32_FLOPS_PER_S else "operations"
         iters = args.timing_iters
         calls = {
-            "kernel": lambda: warp.two_pass_warp(img, theta),
-            "plain": lambda: two_pass_affine_warp_plain(img, theta),
+            "kernel": lambda: kernel(img, theta),
+            "plain": lambda: plain(img, theta),
             "library": lambda: F.grid_sample(
                 nchw, F.affine_grid(theta.to(img.dtype), list(nchw.shape),
                                     align_corners=False),
@@ -480,54 +552,33 @@ def times(device, args, pred, card: str):
         }
         row = dict(shape=shape, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=bytes_moved)
-        for name, fn in calls.items():
-            n = iters if name != "plain" else max(iters // 10, 2)
-            before = warp.launches
-            row[f"{name}_wall_ms"] = timer(fn, n, 2)
-            if name == "kernel" and cuda and warp.launches == before:
-                raise AssertionError("timing loop did not launch the kernel")
-            row[f"{name}_ms"] = device_ms(fn, n)[0] if cuda else None
+        for key, fn in calls.items():
+            n = iters if key != "plain" else max(iters // 10, 2)
+            before = counted.launches
+            row[f"{key}_wall_ms"] = timer(fn, n, 2)
+            if key == "kernel" and cuda and counted.launches == before:
+                raise AssertionError(f"timing loop did not launch {name}")
+            row[f"{key}_ms"] = device_ms(fn, n)[0] if cuda else None
         rows[level] = row
 
-        def fmt(name):
-            dev = row[f"{name}_ms"]
+        def fmt(key):
+            dev = row[f"{key}_ms"]
             return (f"{dev:.4f} ms device" if dev is not None
                     else "device not measured") + \
-                f" / {row[f'{name}_wall_ms']:.4f} ms wall"
+                f" / {row[f'{key}_wall_ms']:.4f} ms wall"
         share = (f", {bound_ms / row['kernel_ms']:.1%} of bound"
                  if row["kernel_ms"] else "")
-        log(f"  [{card}] {level} {shape} bf16: kernel {fmt('kernel')}; "
+        log(f"  [{card}] {level} {shape} bf16 {name}: kernel {fmt('kernel')}; "
             f"bound {bound_ms * 1e3:.1f} us ({bound_by}, "
             f"{bytes_moved / 1e6:.1f} MB){share}; plain {fmt('plain')}; "
             f"grid_sample {fmt('library')}{unit}")
     keys = [k for k in rows["dec1"] if k.endswith("_ms")]
     total = {k: (None if any(r[k] is None for r in rows.values())
                  else sum(r[k] for r in rows.values())) for k in keys}
-    log(f"  [{card}] all five levels per forward: "
+    log(f"  [{card}] {name}, all five levels per forward: "
         + ", ".join(f"{k} {v:.4f}" for k, v in total.items()
                     if v is not None) + unit)
-
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    bench = pred.benchmark(iterations=args.bench_iters, warmup=5)
-    peak = torch.cuda.max_memory_allocated() if cuda else None
-    log(f"  [{card}] Predictor batch {args.batch}: p50 {bench['p50_ms']:.3f} "
-        f"ms, p95 {bench['p95_ms']:.3f} ms, p99 {bench['p99_ms']:.3f} ms, "
-        f"{bench['images_per_sec']:.2f} images/s "
-        f"({args.bench_iters} requests, host clock to the read-back){unit}")
-    prof = profile_forward(pred, card) if cuda else None
-    single = Predictor(pred.cfg, pred.model.state_dict(), batch_size=1,
-                       device=device)
-    one = single.benchmark(iterations=args.bench_iters, warmup=5)
-    log(f"  [{card}] Predictor batch 1: p50 {one['p50_ms']:.3f} ms, "
-        f"p95 {one['p95_ms']:.3f} ms{unit}")
-    if cuda:
-        profile_forward(single, card)
-    if peak is not None:
-        log(f"  [{card}] peak device memory while serving batch "
-            f"{args.batch}: {peak / 2**30:.3f} GiB "
-            f"(torch.cuda.max_memory_allocated)")
-    return rows, total, bench, one, peak, prof
+    return rows, total
 
 
 def synthetic_batch(rng, batch: int, height: int, width: int, device):
@@ -610,21 +661,31 @@ def check_backward(device, shapes, seed: int):
     return worst
 
 
-def plain_warp_function():
-    """The warp with the plain forward and the plain backward, as an
-    autograd Function: the phase-7 reference for the kernels."""
+def plain_warp_function(mode: str = "two_pass"):
+    """The warp of ``mode`` ("two_pass" or "fused") with the plain forward
+    and the plain backward, as an autograd Function: the reference of the
+    training phases for the kernels."""
     import torch
 
+    from cadepth_tpu_torch.ops import fused_warp as fw
     from cadepth_tpu_torch.ops.affine_warp import (
         two_pass_affine_warp_plain_bwd,
         two_pass_affine_warp_plain_fwd,
     )
 
+    if mode == "fused":
+        fwd = lambda img, th, pad, ac: fw.fused_warp_plain_fwd(  # noqa: E731
+            img, th, ac)
+        bwd = lambda img, v, th, g, pad, ac: fw.fused_warp_plain_bwd(  # noqa: E731
+            img, v, th, g, ac)
+    else:
+        fwd, bwd = two_pass_affine_warp_plain_fwd, \
+            two_pass_affine_warp_plain_bwd
+
     class PlainWarp(torch.autograd.Function):
         @staticmethod
         def forward(ctx, img, theta, padding_mode, align_corners):
-            out, v = two_pass_affine_warp_plain_fwd(img, theta, padding_mode,
-                                                    align_corners)
+            out, v = fwd(img, theta, padding_mode, align_corners)
             ctx.save_for_backward(img, v, theta)
             ctx.args = (padding_mode, align_corners)
             return out
@@ -632,28 +693,35 @@ def plain_warp_function():
         @staticmethod
         def backward(ctx, grad):
             img, v, theta = ctx.saved_tensors
-            d_img, d_theta = two_pass_affine_warp_plain_bwd(
-                img, v, theta, grad.contiguous(), *ctx.args)
+            d_img, d_theta = bwd(img, v, theta, grad.contiguous(), *ctx.args)
             return d_img, d_theta, None, None
 
     return lambda img, theta, pad, ac: PlainWarp.apply(img, theta, pad, ac)
 
 
-def train(device, args):
-    """Phase 7: the flagship's train step at full width, then its eval
-    step, and the same steps with the plain warp swapped in."""
+def train(device, args, mode: str = "two_pass", steps=None):
+    """Phase 7 (and 13): the flagship with ``pcl_warp: mode`` takes
+    ``steps`` train steps at full width, then its eval step, and the same
+    steps with the plain warp swapped in."""
     import math
 
     import numpy as np
     import torch
 
-    from cadepth_tpu_torch.ops import two_pass_warp as warp
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
     from cadepth_tpu_torch.training import train_state as ts
     from cadepth_tpu_torch.training.schedule import build_lr_schedule
 
+    # the wrapper the mode's PCLs call, and the other one, which must
+    # launch nothing
+    warp, other = (fw, tpw) if mode == "fused" else (tpw, fw)
+    kernel_warp = fw.fused_warp if mode == "fused" else tpw.two_pass_warp
+    name = "fused_warp" if mode == "fused" else "two_pass_warp"
+    steps = steps or args.train_steps
     f, h, w, bsz = args.init_features, args.height, args.width, \
         args.train_batch
-    cfg = flagship_config(f, h, w, bsz)
+    cfg = flagship_config(f, h, w, bsz, mode)
     gen = torch.Generator().manual_seed(args.seed + 3)
     model, loss_fn = ts.build_model_and_loss(cfg, device=device,
                                              generator=gen)
@@ -661,15 +729,14 @@ def train(device, args):
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = cfg.optimization
     schedule = build_lr_schedule(opt, STEPS_PER_EPOCH, cfg.training.num_epochs)
-    lrs = [schedule(s) for s in range(args.train_steps)]
+    lrs = [schedule(s) for s in range(steps)]
     log(f"  flagship f={f}, {h}x{w}, batch {bsz}, bf16 over fp32 "
         f"parameters; {opt.optimizer}, weight decay {opt.weight_decay}, clip "
         f"{opt.gradient_clip_value}, {opt.lr_scheduler} schedule with "
         f"{opt.lr_warmup_epochs} warmup epochs of {STEPS_PER_EPOCH} steps: "
         f"lr {', '.join(f'{x:.3g}' for x in lrs)}")
     rng = np.random.default_rng(args.seed + 4)
-    batches = [synthetic_batch(rng, bsz, h, w, device)
-               for _ in range(args.train_steps)]
+    batches = [synthetic_batch(rng, bsz, h, w, device) for _ in range(steps)]
 
     def run(warp_fn):
         model.load_state_dict(init)
@@ -681,8 +748,9 @@ def train(device, args):
         return [step(b) for b in batches], step
 
     # the main path, counted
-    warp.launches = warp.bwd_launches = warp.grad_copies = 0
-    logs, step = run(warp.two_pass_warp)
+    for m in (warp, other):
+        m.launches = m.bwd_launches = m.grad_copies = 0
+    logs, step = run(kernel_warp)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches, bwd_launches = warp.launches, warp.bwd_launches
@@ -690,15 +758,18 @@ def train(device, args):
     logs = [{k: float(v) for k, v in x.items()} for x in logs]
     per_step = warp.LAUNCHES_PER_CALL * len(pcl_layers(model))
     cuda = device.type == "cuda"
-    want = per_step * args.train_steps if cuda else 0
-    log(f"  main path: {args.train_steps} train steps, two_pass_warp "
-        f"launches {launches}, two_pass_warp_bwd launches {bwd_launches} "
-        f"(expected {want} each = {per_step} per step); {grad_copies} of "
-        f"{len(pcl_layers(model)) * args.train_steps} backward calls copied "
+    want = per_step * steps if cuda else 0
+    log(f"  main path: {steps} train steps, {name} launches {launches}, "
+        f"{name}_bwd launches {bwd_launches} (expected {want} each = "
+        f"{per_step} per step); {grad_copies} of "
+        f"{len(pcl_layers(model)) * steps} backward calls copied "
         "a non-contiguous incoming gradient")
     if launches != want or bwd_launches != want:
         raise AssertionError(f"launch counts {launches}, {bwd_launches} != "
                              f"{want}")
+    if other.launches or other.bwd_launches:
+        raise AssertionError(f"pcl_warp {mode} launched the other warp's "
+                             "kernels")
     for i, x in enumerate(logs):
         log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in x.items()))
         if not all(math.isfinite(v) for v in x.values()):
@@ -730,10 +801,10 @@ def train(device, args):
 
     # the kernels again (the run-to-run noise floor of the bf16 step), then
     # the plain warp, forward and backward
-    again = rel_diff(run(warp.two_pass_warp)[0])
-    plain = rel_diff(run(plain_warp_function())[0])
-    for name, d in (("kernels again", again), ("plain warp", plain)):
-        log(f"  the same {args.train_steps} steps, {name}: max relative "
+    again = rel_diff(run(kernel_warp)[0])
+    plain = rel_diff(run(plain_warp_function(mode))[0])
+    for label, d in (("kernels again", again), ("plain warp", plain)):
+        log(f"  the same {steps} steps, {label}: max relative "
             "log differences " + ", ".join(
                 f"{k} {max(x[k] for x in d):.3g}" for k in d[0])
             + "; grad_norm by step " + " ".join(f"{x['grad_norm']:.2g}"
@@ -752,8 +823,12 @@ def train(device, args):
     plain = {k: max(x[k] for x in plain) for k in plain[0]}
     again = {k: max(x[k] for x in again) for k in again[0]}
     for pcl in pcl_layers(model):
-        pcl.warp = warp.two_pass_warp
+        pcl.warp = kernel_warp
+    fwd_keys = ("fused_v_kernel", "pass_h_kernel") if mode == "fused" \
+        else ("pass_v_kernel", "pass_h_kernel")
+    bwd_keys = ("bwd_pass_kernel", "fused_bwd_v_kernel")
     return {"model": model, "loss_fn": loss_fn, "cfg": cfg, "step": step,
+            "fwd_keys": fwd_keys, "bwd_keys": bwd_keys, "name": name,
             "batches": batches, "launches": launches,
             "bwd_launches": bwd_launches, "per_step": per_step,
             "grad_copies": grad_copies, "logs": logs, "eval": ev,
@@ -808,19 +883,29 @@ def cross_device_train(device, args):
     return loss_err, param_err
 
 
-def bwd_times(device, args, card: str):
-    """Phase 9a: per decoder level at the training batch, the backward
-    kernels, their bound, the plain backward and the backward of
+def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
+    """Phase 9a (and 14a): per decoder level at the training batch, the
+    backward kernels of ``name`` ("two_pass_warp" or "fused_warp"), their
+    bound, the plain backward and the backward of
     F.grid_sample(F.affine_grid(theta)), bf16."""
     import torch
     import torch.nn.functional as F
 
+    from cadepth_tpu_torch.ops import fused_warp as fw
     from cadepth_tpu_torch.ops import two_pass_warp as warp
     from cadepth_tpu_torch.ops.affine_warp import (
         two_pass_affine_warp_plain_bwd,
         two_pass_affine_warp_plain_fwd,
     )
 
+    if name == "fused_warp":
+        counted, plain_fwd = fw, fw.fused_warp_plain_fwd
+        kernel, plain = fw.fused_warp_bwd, fw.fused_warp_plain_bwd
+        keys = ("bwd_pass_kernel", "fused_bwd_v_kernel")
+    else:
+        counted, plain_fwd = warp, two_pass_affine_warp_plain_fwd
+        kernel, plain = warp.two_pass_warp_bwd, two_pass_affine_warp_plain_bwd
+        keys = ("bwd_pass_kernel",)
     cuda = device.type == "cuda"
     timer = Timer(device)
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
@@ -834,7 +919,7 @@ def bwd_times(device, args, card: str):
             .to(torch.bfloat16)
         grad = torch.randn(shape, device=device, generator=gen) \
             .to(torch.bfloat16)
-        _, v = two_pass_affine_warp_plain_fwd(img, theta)
+        _, v = plain_fwd(img, theta)
         elems = img.numel()
         # read grad_out, V and img once, write d_img once
         bytes_moved = 4 * elems * img.element_size()
@@ -850,46 +935,46 @@ def bwd_times(device, args, card: str):
                 mode="bilinear", padding_mode="zeros", align_corners=False)
         gs_grad = grad.permute(0, 3, 1, 2)
         calls = {
-            "kernel": lambda: warp.two_pass_warp_bwd(img, v, theta, grad),
-            "plain": lambda: two_pass_affine_warp_plain_bwd(img, v, theta,
-                                                            grad),
+            "kernel": lambda: kernel(img, v, theta, grad),
+            "plain": lambda: plain(img, v, theta, grad),
             "library": lambda: torch.autograd.grad(gs, (nchw, th), gs_grad,
                                                    retain_graph=True),
         }
         row = dict(shape=shape, bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=bytes_moved, two_launch_bytes=6 * elems * 2)
-        for name, fn in calls.items():
-            n = args.timing_iters if name != "plain" else \
+        for call, fn in calls.items():
+            n = args.timing_iters if call != "plain" else \
                 max(args.timing_iters // 10, 2)
-            before = warp.bwd_launches
-            row[f"{name}_wall_ms"] = timer(fn, n, 2)
-            if name == "kernel" and cuda and warp.bwd_launches == before:
-                raise AssertionError("timing loop did not launch the "
-                                     "backward kernels")
-            row[f"{name}_ms"] = None
+            before = counted.bwd_launches
+            row[f"{call}_wall_ms"] = timer(fn, n, 2)
+            if call == "kernel" and cuda and counted.bwd_launches == before:
+                raise AssertionError(f"timing loop did not launch the "
+                                     f"{name} backward kernels")
+            row[f"{call}_ms"] = row.setdefault("kernel_call_ms", None)
             if cuda:
                 total, per_kernel = device_ms(fn, n)
-                row[f"{name}_ms"] = total
-                if name == "kernel":
+                row[f"{call}_ms"] = total
+                if call == "kernel":
                     # the two launches alone, and the whole call (with the
                     # partials' sum and the chain to d_theta)
-                    row["kernel_ms"] = sum(ms for key, ms in per_kernel.items()
-                                           if "bwd_pass_kernel" in key)
+                    row["kernel_ms"] = sum(
+                        ms for key, ms in per_kernel.items()
+                        if any(k in key for k in keys))
                     row["kernel_call_ms"] = total
         rows[level] = row
 
-        def fmt(name):
-            dev = row[f"{name}_ms"]
+        def fmt(call):
+            dev = row[f"{call}_ms"]
             return (f"{dev:.4f} ms device" if dev is not None
                     else "device not measured") + \
-                f" / {row[f'{name}_wall_ms']:.4f} ms wall"
+                f" / {row[f'{call}_wall_ms']:.4f} ms wall"
         share = (f", {row['bound_ms'] / row['kernel_ms']:.1%} of bound"
                  if row["kernel_ms"] else "")
         call = (f" ({row['kernel_call_ms']:.4f} ms device with the partials' "
                 "sum and the d_theta chain)" if row.get("kernel_call_ms")
                 else "")
-        log(f"  [{card}] {level} {shape} bf16 backward: kernels "
+        log(f"  [{card}] {level} {shape} bf16 {name} backward: kernels "
             f"{fmt('kernel')}{call}; bound {row['bound_ms'] * 1e3:.1f} us "
             f"({row['bound_by']}, {bytes_moved / 1e6:.1f} MB; the two "
             f"launches move {row['two_launch_bytes'] / 1e6:.1f} MB){share}; "
@@ -898,9 +983,10 @@ def bwd_times(device, args, card: str):
     return rows
 
 
-def train_times(device, args, card: str, tr):
-    """Phase 9b: train step latency at the training batch, the device's
-    busy share over 3 profiled steps, peak device memory."""
+def train_times(device, args, card: str, tr, steps=None):
+    """Phase 9b (and 14c): train step latency at the training batch over
+    ``steps`` steps, the device's busy share over 3 profiled steps, peak
+    device memory."""
     import torch
 
     cuda = device.type == "cuda"
@@ -912,7 +998,7 @@ def train_times(device, args, card: str, tr):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(args.train_time_steps):
+    for i in range(steps or args.train_time_steps):
         t0 = time.perf_counter()
         step(batches[i % len(batches)])
         if cuda:
@@ -926,7 +1012,8 @@ def train_times(device, args, card: str, tr):
     out = {"batch": args.train_batch, "p50_ms": p50, "p95_ms": p95,
            "mean_ms": mean, "images_per_sec": args.train_batch * 1000.0 / mean,
            "steps_timed": len(times), "peak_bytes": peak}
-    log(f"  [{card}] train step batch {args.train_batch}: p50 {p50:.3f} ms, "
+    log(f"  [{card}] {tr['name']} train step batch {args.train_batch}: "
+        f"p50 {p50:.3f} ms, "
         f"p95 {p95:.3f} ms, mean {mean:.3f} ms, "
         f"{out['images_per_sec']:.2f} images/s ({len(times)} steps, host "
         f"clock to a synchronize){unit}")
@@ -947,10 +1034,12 @@ def train_times(device, args, card: str, tr):
         wall = (time.perf_counter() - t0) * 1000.0 / n
         rows = device_rows(prof, n)
         busy = sum(r[0] for r in rows)
-        bwd = sum(r[0] for r in rows if "bwd_pass_kernel" in r[2])
-        fwd = sum(r[0] for r in rows if "pass_v_kernel" in r[2]
-                  or "pass_h_kernel" in r[2])
-        log(f"  [{card}] profile of a batch-{args.train_batch} train step "
+        bwd = sum(r[0] for r in rows
+                  if any(k in r[2] for k in tr["bwd_keys"]))
+        fwd = sum(r[0] for r in rows
+                  if any(k in r[2] for k in tr["fwd_keys"]))
+        log(f"  [{card}] profile of a batch-{args.train_batch} "
+            f"{tr['name']} train step "
             f"(torch.profiler, {n} steps): device busy {busy:.3f} ms of "
             f"{wall:.3f} ms wall ({busy / wall:.1%}), "
             f"{sum(r[1] for r in rows)} kernels per step; warp forward "
@@ -964,6 +1053,338 @@ def train_times(device, args, card: str, tr):
                           "warp_fwd_ms": fwd, "warp_bwd_ms": bwd,
                           "kernels_per_step": sum(r[1] for r in rows)}
     return out
+
+
+def fused_thetas(device, b: int, gen):
+    """(name, theta) of the fused checks: THETAS and a 0.2 rad rotation,
+    which lies outside the band at the larger levels (there the banded
+    warp drops taps; kernel and plain drop the same ones)."""
+    import math
+
+    import torch
+
+    out = []
+    for tname, th in dict(THETAS, rot_0_2=[
+            [math.cos(ROT_OUT), -math.sin(ROT_OUT), 0.0],
+            [math.sin(ROT_OUT), math.cos(ROT_OUT), 0.0]]).items():
+        theta = torch.tensor(th, device=device).expand(b, 2, 3).contiguous()
+        if tname == "identity_noise":
+            theta = theta + 0.01 * torch.randn(b, 2, 3, device=device,
+                                               generator=gen)
+        out.append((tname, theta))
+    return out
+
+
+def check_fused(device, fwd_shapes, bwd_shapes, seed: int):
+    """Phase 10: the banded warp's kernels against its plain versions: the
+    forward (V and the output) at the serving batch, the backward at the
+    training batch, f32 and bf16, THETAS and an out-of-band rotation.
+    Returns the worst errors: forward per dtype; backward d_img per dtype
+    and d_theta over its largest |entry|."""
+    import torch
+
+    from cadepth_tpu_torch.ops import fused_warp as fw
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fwd = {"float32": 0.0, "bfloat16": 0.0}
+    bwd = {"float32": 0.0, "bfloat16": 0.0, "d_theta": 0.0}
+    for (level, shape), (_, bshape) in zip(fwd_shapes, bwd_shapes):
+        img32 = torch.randn(shape, device=device, generator=gen)
+        grad32 = torch.randn(bshape, device=device, generator=gen)
+        band = fw.fused_tiles(shape[1], shape[2])
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            img, grad = img32.to(dtype), grad32.to(dtype)
+            bimg = img[:bshape[0]].contiguous()
+            errs = []
+            for tname, theta in fused_thetas(device, shape[0], gen):
+                before = fw.launches
+                out, v = fw._forward(img, theta, False)
+                if cuda:
+                    torch.cuda.synchronize()
+                    if fw.launches != before + fw.LAUNCHES_PER_CALL:
+                        raise AssertionError("fused_warp did not count its "
+                                             "launches")
+                want_out, want_v = fw.fused_warp_plain_fwd(img, theta)
+                err = max((out.float() - want_out.float()).abs().max().item(),
+                          (v.float() - want_v.float()).abs().max().item())
+                if not err <= ATOL[name]:
+                    raise AssertionError(
+                        f"fused kernel vs plain {level} {shape} {name} "
+                        f"{tname}: max err {err} > {ATOL[name]}")
+                fwd[name] = max(fwd[name], err)
+                bth = theta[:bshape[0]].contiguous()
+                bv = want_v[:bshape[0]].contiguous()
+                before = fw.bwd_launches
+                got = fw.fused_warp_bwd(bimg, bv, bth, grad)
+                if cuda:
+                    torch.cuda.synchronize()
+                    if fw.bwd_launches != before + fw.BWD_LAUNCHES_PER_CALL:
+                        raise AssertionError("fused_warp_bwd did not count "
+                                             "its launches")
+                want = fw.fused_warp_plain_bwd(bimg, bv, bth, grad)
+                scale = max(1.0, want[0].float().abs().max().item())
+                d_err = (got[0].float() - want[0].float()).abs().max().item()
+                t_err = ((got[1] - want[1]).abs().max()
+                         / want[1].abs().max().clamp_min(1e-12)).item()
+                if not (d_err <= BWD_ATOL[name] * scale
+                        and t_err <= THETA_ATOL[name]):
+                    raise AssertionError(
+                        f"fused backward kernel vs plain {level} {bshape} "
+                        f"{name} {tname}: d_img err {d_err} (atol "
+                        f"{BWD_ATOL[name]} x {scale:.3g}), d_theta err "
+                        f"{t_err} (atol {THETA_ATOL[name]})")
+                bwd[name] = max(bwd[name], d_err)
+                bwd["d_theta"] = max(bwd["d_theta"], t_err)
+                band_ok = bool(fw.fused_warp_theta_ok(theta, shape[1],
+                                                      shape[2]).all())
+                errs.append(f"{tname}{'' if band_ok else '(out of band)'}="
+                            f"{err:.3g}|{d_err:.3g}/{t_err:.2g}")
+            log(f"  {level} {tuple(shape)}/{bshape[0]} {name:8s} (it, wt, "
+                f"kb_f, kb_b) {band} max|err| fwd|d_img/rel d_theta "
+                + " ".join(errs))
+    return fwd, bwd
+
+
+def serve_fused(device, args, weights, request):
+    """Phase 11: the flagship with pcl_warp fused, the two-pass Predictor's
+    ``weights``, served at full width: the fused kernels' launch counts, the
+    depths against the same model with the plain banded warp and against
+    the two-pass flagship's (in band the two are the same function).
+    Returns the Predictor and what the JSON line needs."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.inference import Predictor
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+
+    rgb8, k, depth_two_pass = request
+    cfg = flagship_config(args.init_features, args.height, args.width,
+                          pcl_warp="fused")
+    fused = Predictor(cfg, weights, batch_size=args.batch, device=device)
+    pcls = pcl_layers(fused.model)
+    seen = []
+
+    def recording(img, theta, padding_mode, align_corners):
+        seen.append((tuple(img.shape), img.dtype,
+                     bool(fw.fused_warp_theta_ok(theta, img.shape[1],
+                                                 img.shape[2]).all())))
+        return fw.fused_warp(img, theta, padding_mode, align_corners)
+
+    for pcl in pcls:
+        if pcl.warp is not fw.fused_warp:
+            raise AssertionError("a pcl_warp fused model holds another warp")
+        pcl.warp = recording
+
+    # the main path, counted
+    fw.launches = fw.bwd_launches = tpw.launches = tpw.bwd_launches = 0
+    depth8 = fused.predict(rgb8, k)
+    depth3 = fused.predict(rgb8[:3], k[:3])
+    launches = fw.launches
+    per_forward = fw.LAUNCHES_PER_CALL * len(pcls)
+    cuda = device.type == "cuda"
+    expected = 2 * per_forward if cuda else 0
+    log(f"  main path: 2 forwards, fused_warp launches {launches} (expected "
+        f"{expected} = {per_forward} per forward, 2 per PCL), two_pass_warp "
+        f"launches {tpw.launches}, backward launches "
+        f"{fw.bwd_launches + tpw.bwd_launches}")
+    if launches != expected or tpw.launches or fw.bwd_launches \
+            or tpw.bwd_launches:
+        raise AssertionError("fused serving launched other kernels than 2 "
+                             "fused_warp launches per PCL per forward")
+    shapes = [s for s, _, _ in seen[:len(pcls)]]
+    want_shapes = [tuple(s) for _, s in decoder_shapes(
+        args.batch, args.height, args.width, args.init_features)]
+    if shapes != want_shapes or not all(d == torch.bfloat16
+                                        for _, d, _ in seen):
+        raise AssertionError(f"fused warp inputs {seen}")
+    in_band = [ok for _, _, ok in seen[:len(pcls)]]
+    log(f"  fused_warp_theta_ok per level (dec5..dec1): {in_band}")
+    for pcl in pcls:
+        pcl.warp = fw.fused_warp
+
+    max_depth = cfg.model.max_depth
+    for name, d, n in (("N=8", depth8, args.batch), ("N=3", depth3, 3)):
+        if d.shape != (n, args.height, args.width, 1) or \
+                not (np.isfinite(d).all() and d.min() > 0
+                     and d.max() < max_depth):
+            raise AssertionError(f"fused {name}: {d.shape}, "
+                                 f"[{d.min()}, {d.max()}]")
+    for pcl in pcls:
+        pcl.warp = fw.fused_warp_plain
+    depth8_plain = fused.predict(rgb8, k)
+    for pcl in pcls:
+        pcl.warp = fw.fused_warp
+    errs = {"N=3 vs N=8 rows": float(np.abs(depth3 - depth8[:3]).max()),
+            "kernels vs plain fused warp":
+                float(np.abs(depth8 - depth8_plain).max()),
+            "fused vs two_pass flagship":
+                float(np.abs(depth8 - depth_two_pass).max())}
+    log("  fused depths finite, in "
+        f"[{depth8.min():.4f}, {depth8.max():.4f}] m; max|err| "
+        + ", ".join(f"{k} {v:.3g} m" for k, v in errs.items())
+        + f" (atol {SERVE_ATOL})")
+    if not all(in_band):
+        raise AssertionError("a served theta lies outside the band, so the "
+                             "two-pass comparison does not hold")
+    if not max(errs.values()) <= SERVE_ATOL:
+        raise AssertionError(f"fused serving: {errs}")
+    return fused, launches, per_forward, errs
+
+
+def fused_loss_phase(device, args, tr):
+    """Phase 13b: the fused depth-loss op on the fused train phase's
+    predicted depth (the trained model, batch 0) and its gt. The op's
+    main path (statistics, then the gradient through its Function),
+    counted; the kernels against the plain versions; the losses and the
+    gradient against scale_invariant_loss + 0.01 reprojection_loss."""
+    import torch
+
+    from cadepth_tpu_torch.losses.depth_loss import (
+        reprojection_loss,
+        scale_invariant_loss,
+    )
+    from cadepth_tpu_torch.ops import fused_loss as fl
+    from cadepth_tpu_torch.training import train_state as ts
+
+    cuda = device.type == "cuda"
+    batch = tr["batches"][0]
+    depth = ts.make_predict_fn(tr["cfg"], tr["model"])(batch).float()
+    gt, k4, kmat = batch["depth"], batch["k4"], batch["intrinsics"]
+    x = depth.clone().requires_grad_(True)
+
+    # the main path, counted
+    fl.launches = fl.bwd_launches = 0
+    with torch.enable_grad():
+        si, rep = fl.silog_reproj_losses(x, gt, k4)
+        (si + 0.01 * rep).backward()
+    if cuda:
+        torch.cuda.synchronize()
+    launches, bwd_launches = fl.launches, fl.bwd_launches
+    want = 1 if cuda else 0
+    log(f"  main path: silog_reproj_losses + backward on {tuple(depth.shape)}:"
+        f" stats launches {launches}, grad launches {bwd_launches} (expected "
+        f"{want} each)")
+    if launches != want or bwd_launches != want:
+        raise AssertionError("the fused loss did not launch its kernels")
+
+    y = depth.clone().requires_grad_(True)
+    with torch.enable_grad():
+        si_r = scale_invariant_loss(y, gt)
+        rep_r = reprojection_loss(y, gt, kmat)
+        (si_r + 0.01 * rep_r).backward()
+    si, rep, si_r, rep_r = (float(t.detach()) for t in (si, rep, si_r, rep_r))
+    loss_err = max(abs(si - si_r) / abs(si_r), abs(rep - rep_r) / abs(rep_r))
+    grad_err = ((x.grad - y.grad).abs().max()
+                / y.grad.abs().max()).item()
+    log(f"  silog {si:.6g}, reproj {rep:.6g}; against "
+        f"scale_invariant_loss + reprojection_loss: losses max rel err "
+        f"{loss_err:.3g}, gradient max|err|/max|grad| {grad_err:.3g} "
+        f"(rtol {LOSS_RTOL})")
+    if not (loss_err <= LOSS_RTOL and grad_err <= LOSS_RTOL):
+        raise AssertionError("fused loss differs from the reference losses")
+
+    pred3, gt3 = depth[..., 0].contiguous(), gt[..., 0].contiguous()
+    stats = fl.depth_loss_stats(pred3, gt3, k4)
+    plain = fl.depth_loss_stats_plain(pred3, gt3, k4)
+    maskf = (gt3 > fl.EPS).float()
+    d = fl._log_diff(pred3, gt3) * maskf
+    mag = torch.stack([d.abs().sum(), plain[1], plain[2], plain[3]]) \
+        .clamp_min(1.0)
+    stats_abs = (stats - plain).abs().max().item()
+    stats_err = ((stats - plain).abs() / mag).max().item()
+    coefs = torch.tensor([0.3, -1.7, 0.01], device=device)
+    dpred = fl.depth_loss_grad(pred3, gt3, k4, coefs)
+    dplain = fl.depth_loss_grad_plain(pred3, gt3, k4, coefs)
+    dpred_abs = (dpred - dplain).abs().max().item()
+    dpred_err = dpred_abs / dplain.abs().max().item()
+    log(f"  kernels vs plain: stats max|err| / sum|term| {stats_err:.3g} "
+        f"(atol {ATOL['float32']}), count {float(stats[2]):.0f} == "
+        f"{float(plain[2]):.0f}; grad max|err|/max|grad| {dpred_err:.3g} "
+        f"(atol {ATOL['float32']})")
+    if not (stats_err <= ATOL["float32"] and stats[2] == plain[2]
+            and dpred_err <= ATOL["float32"]):
+        raise AssertionError("fused loss kernels differ from plain")
+    return {"launches": launches, "bwd_launches": bwd_launches,
+            "stats_err": stats_err, "grad_err": dpred_err,
+            "stats_abs": stats_abs, "grad_abs": dpred_abs,
+            "vs_reference_loss_rel": loss_err,
+            "vs_reference_grad_rel": grad_err,
+            "inputs": (pred3, gt3, k4, coefs)}
+
+
+def loss_times(device, args, card: str, inputs):
+    """Phase 14b: the fused loss kernels' device time, their bound and
+    the plain versions' time at the train phase's (4, 240, 320)."""
+    from cadepth_tpu_torch.ops import fused_loss as fl
+
+    cuda = device.type == "cuda"
+    timer = Timer(device)
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    pred, gt, k4, coefs = inputs
+    n = pred.numel()
+    rows = {}
+    # stats: read pred and gt once; ~30 f32 operations and two logs per
+    # element. grad: also write dpred once; ~40 operations.
+    for name, kernel, plain, nbytes, ops in (
+            ("fused_loss_stats", lambda: fl.depth_loss_stats(pred, gt, k4),
+             lambda: fl.depth_loss_stats_plain(pred, gt, k4), 8 * n, 30 * n),
+            ("fused_loss_grad",
+             lambda: fl.depth_loss_grad(pred, gt, k4, coefs),
+             lambda: fl.depth_loss_grad_plain(pred, gt, k4, coefs), 12 * n,
+             40 * n)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+        row = {"shape": tuple(pred.shape), "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes}
+        for call, fn in (("kernel", kernel), ("plain", plain)):
+            row[f"{call}_wall_ms"] = timer(fn, args.timing_iters, 2)
+            row[f"{call}_ms"] = row.setdefault("kernel_call_ms", None)
+            if cuda:
+                total, per_kernel = device_ms(fn, args.timing_iters)
+                row[f"{call}_ms"] = total
+                if call == "kernel":
+                    # the launch alone, and the whole call (the statistics
+                    # add the sum of their per-block rows)
+                    row["kernel_ms"] = sum(
+                        ms for key, ms in per_kernel.items()
+                        if "stats_kernel" in key or "grad_kernel" in key)
+                    row["kernel_call_ms"] = total
+        rows[name] = row
+        dev = row["kernel_ms"]
+        log(f"  [{card}] {name} {row['shape']} f32: kernel "
+            + (f"{dev * 1e3:.2f} us device ({row['kernel_call_ms'] * 1e3:.2f} "
+               f"us for the whole call)" if dev is not None
+               else "device not measured")
+            + f" / {row['kernel_wall_ms']:.4f} ms wall; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+            f"{nbytes / 1e6:.2f} MB); plain "
+            + (f"{row['plain_ms']:.4f} ms device" if row["plain_ms"]
+               is not None else "device not measured")
+            + f"; no single PyTorch call computes it{unit}")
+    return rows
+
+
+def fused_serve_times(device, args, card: str, fused):
+    """Phase 11b: the fused warp's forward per level and the fused
+    Predictor's latency at batch 8."""
+    from cadepth_tpu_torch.ops import fused_warp as fw
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    rows, total = level_times(device, args, card, "fused_warp", fw.fused_warp,
+                              fw.fused_warp_plain, fw)
+    bench = fused.benchmark(iterations=args.bench_iters, warmup=5)
+    log(f"  [{card}] fused Predictor batch {args.batch}: p50 "
+        f"{bench['p50_ms']:.3f} ms, p95 {bench['p95_ms']:.3f} ms, "
+        f"{bench['images_per_sec']:.2f} images/s ({args.bench_iters} "
+        f"requests){unit}")
+    prof = profile_forward(fused, card, warp_keys=("fused_v_kernel",
+                                                   "pass_h_kernel"),
+                           warp_name="fused_warp") if cuda else None
+    return rows, total, bench, prof
 
 
 def main(argv=None) -> int:
@@ -998,7 +1419,7 @@ def main(argv=None) -> int:
     import cadepth_tpu_torch  # noqa: F401  (fails outside a checkout)
     from cadepth_tpu_torch.ops import _build
 
-    log(f"== 1. card: {card}")
+    phase(f"1. card: {card}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     torch.backends.cudnn.allow_tf32 = False
@@ -1006,7 +1427,7 @@ def main(argv=None) -> int:
     log("  TF32 off for cuDNN convolutions and matmuls "
         "(the f32 comparisons need full f32)")
 
-    log("== 2. build")
+    phase("2. build")
     if rehearsal:
         log("  skipped: no nvcc in a CPU rehearsal")
     else:
@@ -1017,37 +1438,67 @@ def main(argv=None) -> int:
 
     # serving runs without autograd, as Predictor does
     with torch.no_grad():
-        log("== 3. kernel against plain")
+        phase("3. kernel against plain")
         shapes = decoder_shapes(args.batch, args.height, args.width,
                                 args.init_features)
         worst = check_kernel(device, shapes, args.seed)
 
-        log("== 4. serving")
+        phase("4. serving")
         from cadepth_tpu_torch.ops import two_pass_warp as warp
         warp.bwd_launches = 0
-        pred, launches, per_forward, serve_err = serve(device, args)
+        pred, launches, per_forward, serve_err, request = serve(device, args)
         cross_err = cross_device(device, args)
         if warp.bwd_launches:
             raise AssertionError("serving launched the backward kernels")
 
-        log("== 5. times")
+        phase("5. times")
         rows, total, bench, one, peak, prof = times(device, args, pred, card)
+    # phase 11 serves these weights with pcl_warp fused
+    weights = {k: v.cpu() for k, v in pred.model.state_dict().items()}
     del pred
 
-    log("== 6. backward kernels against plain")
+    phase("6. backward kernels against plain")
     bwd_worst = check_backward(
         device, decoder_shapes(args.train_batch, args.height, args.width,
                                args.init_features), args.seed + 8)
 
-    log("== 7. training")
+    phase("7. training")
     tr = train(device, args)
 
-    log("== 8. training, card against CPU")
+    phase("8. training, card against CPU")
     cross_train = cross_device_train(device, args)
 
-    log("== 9. training times")
+    phase("9. training times")
     bwd_rows = bwd_times(device, args, card)
     train_out = train_times(device, args, card, tr)
+    del tr["model"], tr["step"]
+
+    with torch.no_grad():
+        phase("10. fused warp kernels against plain")
+        fwd_worst, fbwd_worst = check_fused(
+            device, decoder_shapes(args.batch, args.height, args.width,
+                                   args.init_features),
+            decoder_shapes(args.train_batch, args.height, args.width,
+                           args.init_features), args.seed + 10)
+
+        phase("11. serving with pcl_warp fused")
+        fused, f_launches, f_per_forward, f_errs = serve_fused(
+            device, args, weights, request)
+        f_rows, f_total, f_bench, f_prof = fused_serve_times(device, args,
+                                                             card, fused)
+    del fused, weights
+
+    phase("12. training with pcl_warp fused")
+    ftr = train(device, args, "fused")
+
+    phase("13. the fused depth loss")
+    floss = fused_loss_phase(device, args, ftr)
+
+    phase("14. fused times")
+    f_bwd_rows = bwd_times(device, args, card, "fused_warp")
+    loss_rows = loss_times(device, args, card, floss["inputs"])
+    f_train_out = train_times(device, args, card, ftr,
+                              steps=args.train_steps)
 
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
@@ -1055,6 +1506,7 @@ def main(argv=None) -> int:
         return 0
 
     dec1, bwd_dec1 = rows["dec1"], bwd_rows["dec1"]
+    f_dec1, f_bwd_dec1 = f_rows["dec1"], f_bwd_rows["dec1"]
     kernels = {"kernels": [{
         "name": "two_pass_warp",
         "route": "cuda",
@@ -1110,7 +1562,84 @@ def main(argv=None) -> int:
                                          "kernel_wall_ms", "plain_ms",
                                          "library_ms", "bound_ms")}
                    for k, r in bwd_rows.items()},
-    }], "train": dict(
+    }, {
+        "name": "fused_warp",
+        "route": "cuda",
+        "source": "cadepth_tpu_torch/csrc/fused_warp.cu",
+        "replaces": f"{FUSED_KERNEL}:110",
+        "replaces_all": [f"{FUSED_KERNEL}:110 _fwd_v_banded_kernel",
+                         f"{TPU_KERNEL}:125 _pass_h_kernel (pass H, shared "
+                         "with two_pass_warp)"],
+        "launches": f_launches,
+        "launches_per_forward": f_per_forward,
+        "launches_in_training": ftr["launches"],
+        "max_abs_err": max(fwd_worst.values()),
+        "max_abs_err_by_dtype": fwd_worst,
+        "ms": f_dec1["kernel_ms"],
+        "ms_how": "torch.profiler device time of both launches per call",
+        "wall_ms": f_dec1["kernel_wall_ms"],
+        "plain_ms": f_dec1["plain_ms"],
+        "bound_ms": f_dec1["bound_ms"],
+        "bound_by": f_dec1["bound_by"],
+        "library_ms": f_dec1["library_ms"],
+        "library": "F.grid_sample(F.affine_grid(theta))",
+        "at": f"dec1 {f_dec1['shape']} bf16",
+        "per_forward_ms": f_total["kernel_ms"],
+        "per_forward_bound_ms": f_total["bound_ms"],
+        "levels": {k: {m: r[m] for m in ("kernel_ms", "kernel_wall_ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms")}
+                   for k, r in f_rows.items()},
+    }, {
+        "name": "fused_warp_bwd",
+        "route": "cuda",
+        "source": "cadepth_tpu_torch/csrc/fused_warp.cu",
+        "replaces": f"{FUSED_KERNEL}:150",
+        "replaces_all": [f"{FUSED_KERNEL}:150 _bwd_v_banded_kernel",
+                         f"{TPU_KERNEL}:194 _bwd_h_kernel (shared with "
+                         "two_pass_warp_bwd)"],
+        "launches": ftr["bwd_launches"],
+        "launches_per_step": ftr["per_step"],
+        "max_abs_err": max(fbwd_worst["float32"], fbwd_worst["bfloat16"]),
+        "max_abs_err_by_dtype": fbwd_worst,
+        "ms": f_bwd_dec1["kernel_ms"],
+        "ms_how": "torch.profiler device time of both backward launches "
+                  "per call",
+        "call_ms": f_bwd_dec1["kernel_call_ms"],
+        "wall_ms": f_bwd_dec1["kernel_wall_ms"],
+        "plain_ms": f_bwd_dec1["plain_ms"],
+        "bound_ms": f_bwd_dec1["bound_ms"],
+        "bound_by": f_bwd_dec1["bound_by"],
+        "library_ms": f_bwd_dec1["library_ms"],
+        "library": "backward of F.grid_sample(F.affine_grid(theta))",
+        "at": f"dec1 {f_bwd_dec1['shape']} bf16",
+        "levels": {k: {m: r[m] for m in ("kernel_ms", "kernel_call_ms",
+                                         "kernel_wall_ms", "plain_ms",
+                                         "library_ms", "bound_ms")}
+                   for k, r in f_bwd_rows.items()},
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "cadepth_tpu_torch/csrc/fused_loss.cu",
+        "replaces": f"{LOSS_KERNEL}:{line}",
+        "launches": floss[count],
+        "max_abs_err": floss[err],
+        "max_rel_err": floss[rel],
+        "ms": loss_rows[name]["kernel_ms"],
+        "ms_how": "torch.profiler device time of the launch",
+        "call_ms": loss_rows[name]["kernel_call_ms"],
+        "wall_ms": loss_rows[name]["kernel_wall_ms"],
+        "plain_ms": loss_rows[name]["plain_ms"],
+        "bound_ms": loss_rows[name]["bound_ms"],
+        "bound_by": loss_rows[name]["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes these masked "
+                   "sums (or their gradient)",
+        "at": f"{loss_rows[name]['shape']} f32",
+    } for name, line, count, err, rel in (
+        ("fused_loss_stats", 49, "launches", "stats_abs", "stats_err"),
+        ("fused_loss_grad", 91, "bwd_launches", "grad_abs", "grad_err"))],
+        "train": dict(
         train_out, steps=len(tr["logs"]),
         forward_launches=tr["launches"], grad_copies=tr["grad_copies"],
         last_logs=tr["logs"][-1], eval=tr["eval"],
@@ -1123,7 +1652,18 @@ def main(argv=None) -> int:
         "batch1_p50_ms": one["p50_ms"], "peak_bytes": peak,
         "served_vs_plain_max_err_m": serve_err,
         "card_vs_cpu_f32_max_err_m": cross_err, "profile": prof,
-    }, "card": card}
+    }, "fused_predictor": {
+        "batch": args.batch, "p50_ms": f_bench["p50_ms"],
+        "p95_ms": f_bench["p95_ms"],
+        "images_per_sec": f_bench["images_per_sec"], "max_err_m": f_errs,
+        "profile": f_prof,
+    }, "fused_train": dict(
+        f_train_out, steps=len(ftr["logs"]), grad_copies=ftr["grad_copies"],
+        last_logs=ftr["logs"][-1], eval=ftr["eval"],
+        kernel_vs_plain_max_rel=ftr["kernel_vs_plain_rel"],
+        kernel_vs_kernel_max_rel=ftr["kernel_vs_kernel_rel"]),
+        "fused_loss": {k: v for k, v in floss.items() if k != "inputs"},
+        "card": card}
     log(json.dumps(kernels))
     log(card_info())
     print(json.dumps({"ok": True, "device": {

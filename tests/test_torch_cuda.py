@@ -18,6 +18,8 @@ import torch
 
 from cadepth_tpu_torch.config import config_from_dict
 from cadepth_tpu_torch.inference import Predictor
+from cadepth_tpu_torch.ops import fused_loss as fl
+from cadepth_tpu_torch.ops import fused_warp as fw
 from cadepth_tpu_torch.ops import two_pass_warp as warp_mod
 from cadepth_tpu_torch.ops.affine_warp import (
     two_pass_affine_warp_plain,
@@ -263,3 +265,150 @@ def test_predictor_on_card_matches_cpu():
     got = card.predict(rgb)
     assert warp_mod.launches == 5 * warp_mod.LAUNCHES_PER_CALL
     np.testing.assert_allclose(got, cpu.predict(rgb), atol=1e-3)
+
+
+# the banded warp: odd sizes, it = 3 (15, 30 rows) and it = 2 (14 rows, the
+# flagship's dec5), channel counts below a 16-byte vector, dense levels
+# (kb >= H: 5 and 8 rows), a real band (48 rows), and dec5 at full width
+FUSED_SHAPES = [(3, 15, 20, 16), (2, 30, 40, 8), (4, 14, 20, 8), (1, 7, 9, 3),
+                (2, 5, 6, 12), (2, 8, 12, 4), (2, 48, 64, 8), (8, 14, 20, 1024)]
+FUSED_THETAS = dict(THETAS, rot_02=[[0.98007, -0.19867, 0.0],
+                                    [0.19867, 0.98007, 0.0]])
+
+
+def _fused_case(shape, name, dtype, rng):
+    img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    theta = np.tile(np.asarray(FUSED_THETAS[name], np.float32)[None],
+                    (shape[0], 1, 1))
+    if name not in ("identity", "a_tiny", "rot_02"):
+        theta = theta + rng.normal(scale=0.01, size=theta.shape) \
+            .astype(np.float32)
+    grad = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    return img.to(dtype), torch.from_numpy(theta).cuda(), grad.to(dtype)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_match_plain_on_card():
+    """Forward (V and the output) at the kernel-vs-plain atols above;
+    backward d_img at atol x max(1, max|d_img|), d_theta over its largest
+    |entry| at 1e-5 (f32) and 1e-3 (bf16), as the two-pass backward."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    for shape in FUSED_SHAPES:
+        for name in FUSED_THETAS:
+            for dtype, atol in ATOL.items():
+                x, theta, grad = _fused_case(shape, name, dtype, rng)
+                for ac in (False, True):
+                    what = (shape, name, dtype, ac)
+                    before = fw.launches
+                    out, v = fw._forward(x, theta, ac)
+                    torch.cuda.synchronize()
+                    assert fw.launches == before + fw.LAUNCHES_PER_CALL
+                    want_out, want_v = fw.fused_warp_plain_fwd(x, theta, ac)
+                    for got, want in ((v, want_v), (out, want_out)):
+                        assert got.dtype == dtype, what
+                        err = (got.float() - want.float()).abs().max().item()
+                        assert err <= atol, (what, err)
+                    before = fw.bwd_launches
+                    d_img, d_theta = fw.fused_warp_bwd(x, want_v, theta, grad,
+                                                       ac)
+                    torch.cuda.synchronize()
+                    assert fw.bwd_launches == before + fw.BWD_LAUNCHES_PER_CALL
+                    w_img, w_theta = fw.fused_warp_plain_bwd(x, want_v, theta,
+                                                             grad, ac)
+                    scale = max(1.0, w_img.float().abs().max().item())
+                    err = (d_img.float() - w_img.float()).abs().max().item()
+                    assert err <= atol * scale, (what, err)
+                    t_err = ((d_theta - w_theta).abs().max()
+                             / (w_theta.abs().max() + 1e-12)).item()
+                    assert t_err <= (1e-5 if dtype == torch.float32
+                                     else 1e-3), (what, t_err)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_are_deterministic_and_refuse_border():
+    _need_card()
+    rng = np.random.default_rng(6)
+    x, theta, grad = _fused_case((2, 30, 40, 64), "rotation", torch.bfloat16,
+                                 rng)
+    a = fw._forward(x, theta, False)
+    b = fw._forward(x, theta, False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    da = fw.fused_warp_bwd(x, a[1], theta, grad)
+    db = fw.fused_warp_bwd(x, a[1], theta, grad)
+    assert torch.equal(da[0], db[0]) and torch.equal(da[1], db[1])
+    with pytest.raises(ValueError, match="zeros"):
+        fw.fused_warp(x, theta, "border")
+
+
+@pytest.mark.cuda
+def test_fused_function_on_card_matches_cpu():
+    """Through FusedWarp on the card (kernels, a strided incoming
+    gradient that is copied and counted) against the CPU (plain)."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    img = rng.normal(size=(2, 30, 40, 16)).astype(np.float32)
+    theta = np.asarray([THETAS["rotation"]] * 2, np.float32)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        im = torch.from_numpy(img).to(dev).requires_grad_(True)
+        th = torch.from_numpy(theta).to(dev).requires_grad_(True)
+        fw.launches = fw.bwd_launches = fw.grad_copies = 0
+        out = fw.fused_warp(im, th).permute(0, 3, 1, 2)
+        torch.sin(out.contiguous()).sum().backward()
+        if dev == "cuda":
+            assert fw.launches == fw.LAUNCHES_PER_CALL
+            assert fw.bwd_launches == fw.BWD_LAUNCHES_PER_CALL
+            assert fw.grad_copies == 1
+        grads.append((im.grad.cpu(), th.grad.cpu()))
+    torch.testing.assert_close(grads[1][0], grads[0][0], atol=1e-5, rtol=0)
+    scale = grads[0][1].abs().max()
+    torch.testing.assert_close(grads[1][1] / scale, grads[0][1] / scale,
+                               atol=1e-5, rtol=0)
+
+
+def _loss_case(rng, b, h, w, empty=False):
+    pred = rng.uniform(0.2, 9.0, size=(b, h, w)).astype(np.float32)
+    gt = rng.uniform(0.2, 9.0, size=(b, h, w)).astype(np.float32)
+    gt[gt < 1.0] = 0.0
+    if empty:
+        gt[:] = 0.0
+    pred[0, 0, :3] = [0.0, 1e-7, 2000.0]  # outside the clip range
+    k4 = np.stack([rng.uniform(0.5, 1.5, b) * w, rng.uniform(0.5, 1.5, b) * w,
+                   rng.uniform(0.3, 0.7, b) * w, rng.uniform(0.3, 0.7, b) * h],
+                  -1).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (pred, gt, k4)]
+
+
+@pytest.mark.cuda
+def test_fused_loss_kernels_match_plain_on_card():
+    """Statistics at 1e-5 of the sum of their terms' magnitudes (the
+    count exactly), the gradient at rtol 1e-6 (atol 1e-9): odd sizes, the
+    flagship's (4, 240, 320), an empty mask; two runs give the same bits;
+    the Function's gradient keeps a bf16 pred's dtype."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    for b, h, w, empty in [(1, 21, 30, False), (2, 24, 40, False),
+                           (4, 240, 320, False), (1, 7, 5, True)]:
+        pred, gt, k4 = _loss_case(rng, b, h, w, empty)
+        fl.launches = fl.bwd_launches = 0
+        got = fl.depth_loss_stats(pred, gt, k4)
+        again = fl.depth_loss_stats(pred, gt, k4)
+        assert fl.launches == 2 and torch.equal(got, again)
+        want = fl.depth_loss_stats_plain(pred, gt, k4)
+        maskf = (gt > 1e-6).float()
+        d = fl._log_diff(pred, gt) * maskf
+        mag = torch.stack([d.abs().sum(), want[1], want[2],
+                           want[3]]).clamp_min(1.0)
+        assert got[2] == want[2]
+        assert ((got - want).abs() / mag).max() <= 1e-5, (b, h, w, got, want)
+        coefs = torch.tensor([0.3, -1.7, 0.01], device="cuda")
+        dp = fl.depth_loss_grad(pred, gt, k4, coefs)
+        assert fl.bwd_launches == 1
+        torch.testing.assert_close(
+            dp, fl.depth_loss_grad_plain(pred, gt, k4, coefs), rtol=1e-6,
+            atol=1e-9)
+    x = pred.to(torch.bfloat16).requires_grad_(True)
+    si, rep = fl.silog_reproj_losses(x, gt, k4)
+    (si + rep).backward()
+    assert x.grad.dtype == torch.bfloat16 and float(si) == 0.0

@@ -102,12 +102,6 @@ def test_optimizer_matches_optax(optimizer, clip):
                                    atol=1e-6, rtol=0, err_msg=k)
 
 
-def test_grad_accumulation_is_not_ported():
-    _, popt = _opt(grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        build_optimizer(popt, [torch.nn.Parameter(torch.zeros(2))])
-
-
 def test_clip_is_optax_not_torch():
     """Below the threshold optax leaves the gradient as it is; above it,
     g / norm * max (torch's clip_grad_norm_ divides by norm + 1e-6)."""
