@@ -7,9 +7,9 @@ configures both packages; ``tests/test_torch_model.py`` holds the two
 ``Config`` trees equal. The port does not import the JAX package, so
 the schema lives here a second time.
 
-Fields that only the JAX trainer reads (mesh axes, remat, TPU lowerings)
-are parsed and kept so the tree stays equal; the port's model factory
-raises on values it does not implement yet.
+Fields that only the JAX trainer reads (mesh axes, TPU lowerings) are
+parsed and kept so the tree stays equal; the port's model factory raises
+on values it does not implement yet.
 """
 
 from __future__ import annotations

@@ -6,11 +6,13 @@ flax ``enc1/conv1/kernel`` is torch ``enc1.conv1.weight``. Leaves map as:
 * conv kernel (kh, kw, cin, cout)              -> Conv2d (cout, cin, kh, kw)
 * ConvTranspose kernel (kh, kw, cin, cout), spatially flipped
                                                -> ConvTranspose2d (cin, cout, kh, kw)
-  (the decoders' only transposed convs are the modules named ``up``)
+  (the decoders' only transposed convs are the modules named ``up`` with a
+  2x2 kernel; with ``decoder_upsample: resize`` ``up`` is a 3x3 Conv)
 * Dense kernel (cin, cout)                     -> Linear (cout, cin)
-* BatchNorm scale/bias                         -> weight/bias
+* BatchNorm and GroupNorm scale/bias           -> weight/bias (a 1-D
+  ``weight`` is a norm's scale)
 * batch_stats mean/var                         -> running_mean/running_var,
-  plus ``num_batches_tracked`` = 0
+  plus ``num_batches_tracked`` = 0 (GroupNorm has none)
 * bias                                         -> bias
 
 In eval mode both frameworks normalise with the stored variance as it
@@ -40,7 +42,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 def _kernel_to_torch(module: str, k: np.ndarray) -> np.ndarray:
     if k.ndim == 4:
-        if module == _TRANSPOSED_CONV:
+        if module == _TRANSPOSED_CONV and k.shape[:2] == (2, 2):
             return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
         return np.transpose(k, (3, 2, 0, 1))
     if k.ndim == 2:
@@ -50,7 +52,7 @@ def _kernel_to_torch(module: str, k: np.ndarray) -> np.ndarray:
 
 def _kernel_to_jax(module: str, w: np.ndarray) -> np.ndarray:
     if w.ndim == 4:
-        if module == _TRANSPOSED_CONV:
+        if module == _TRANSPOSED_CONV and w.shape[2:] == (2, 2):
             return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
         return np.transpose(w, (2, 3, 1, 0))
     if w.ndim == 2:
@@ -99,8 +101,6 @@ def to_jax(state_dict: Mapping[str, torch.Tensor]
     batch_stats), nested dicts of float32 numpy arrays."""
     params: Dict[str, Any] = {}
     batch_stats: Dict[str, Any] = {}
-    bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
-                  if k.endswith(".running_mean")}
     for key, tensor in state_dict.items():
         mod, name = key.rsplit(".", 1)
         mods = mod.split(".")
@@ -112,7 +112,7 @@ def to_jax(state_dict: Mapping[str, torch.Tensor]
                                        else "var"], a.copy())
             continue
         if name == "weight":
-            if mod in bn_modules:
+            if a.ndim == 1:
                 name = "scale"
             else:
                 a = _kernel_to_jax(mods[-1], a)

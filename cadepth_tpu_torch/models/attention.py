@@ -1,4 +1,5 @@
-"""CBAM attention (port of ``cadepth_tpu.models.attention``), NCHW.
+"""CBAM and the camera-aware attention modules (port of
+``cadepth_tpu.models.attention``), NCHW.
 
 The JAX package has three TPU lowerings of the spatial gate's 7x7
 conv from 2 channels to 1 (``sa_lowering``: conv, stencil, toeplitz).
@@ -81,3 +82,55 @@ class CBAM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x * self.channel_attention(x)
         return x * self.spatial_attention(x)
+
+
+class DepthSpatialAttention(nn.Module):
+    """sigmoid(1x1 conv([spatial gate; sigmoid(edge 3x3 conv);
+    sigmoid(dilation-2 context KxK conv)])): the edge, context and base
+    attention fusion, all convs without bias."""
+
+    def __init__(self, channels: int, kernel_size: int = 7,
+                 dtype: torch.dtype = torch.bfloat16,
+                 sa_lowering: str = "toeplitz"):
+        super().__init__()
+        self.base_attention = SpatialAttention(kernel_size, dtype, sa_lowering)
+        self.edge_conv = Conv2d(channels, 1, 3, padding=1, bias=False,
+                                dtype=dtype)
+        # dilation 2 with "same" padding
+        self.context_conv = Conv2d(channels, 1, kernel_size,
+                                   padding=kernel_size // 2 * 2, bias=False,
+                                   dtype=dtype, dilation=2)
+        self.fusion_conv = Conv2d(3, 1, 1, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        base = self.base_attention(x)
+        edge = torch.sigmoid(self.edge_conv(x))
+        context = torch.sigmoid(self.context_conv(x))
+        fused = torch.cat([base, edge, context], dim=1)
+        return torch.sigmoid(self.fusion_conv(fused))  # (B, 1, H, W)
+
+
+class CameraAwareSpatialAttention(nn.Module):
+    """Spatial attention conditioned on the intrinsics: a KxK conv of the
+    [mean; max] channel map and a ReLU camera embedding broadcast over
+    (H, W), fused by a 1x1 conv, then sigmoid."""
+
+    def __init__(self, channels: int, camera_dim: int = 4,
+                 kernel_size: int = 7, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.spatial_conv = Conv2d(2, channels, kernel_size,
+                                   padding=kernel_size // 2, bias=False,
+                                   dtype=dtype)
+        self.camera_fc = Linear(camera_dim, channels, dtype)
+        self.fusion_conv = Conv2d(2 * channels, 1, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                camera_params: torch.Tensor) -> torch.Tensor:
+        avg = x.mean(dim=1, keepdim=True)
+        mx = x.amax(dim=1, keepdim=True)
+        spatial = self.spatial_conv(torch.cat([avg, mx], dim=1))
+        cam = F.relu(self.camera_fc(camera_params.to(self.dtype)))
+        cam = cam[:, :, None, None].expand_as(spatial)
+        fused = torch.cat([spatial, cam], dim=1)
+        return torch.sigmoid(self.fusion_conv(fused))  # (B, 1, H, W)

@@ -3,10 +3,12 @@
 The port's own initialisation follows flax's distributions, not its
 bits: lecun-normal (truncated normal, variance 1/fan_in) for conv and
 dense kernels with zero biases, FiLM's gamma head at normal(0.01) with a
-bias of ones and its beta head at normal(0.01) with a bias of zeros, and
-the PCL head at a zero kernel with bias [1, 1, 0, 0, 0, 0]. Weights are
-drawn on the CPU from an explicit ``torch.Generator`` and then moved, so
-one seed gives the same model on every device.
+bias of ones and its beta head at normal(0.01) with a bias of zeros, the
+PCL head at a zero kernel with bias [1, 1, 0, 0, 0, 0], the
+Perspective3DTransformer's translation head at zero, and norm scales at
+one with zero biases. Weights are drawn on the CPU from an explicit
+``torch.Generator`` and then moved, so one seed gives the same model on
+every device.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from torch import nn
 
 from cadepth_tpu_torch.models.film import FiLMLayer
 from cadepth_tpu_torch.models.geometry_aware import GeometryAwareNetwork
-from cadepth_tpu_torch.models.pcl import PerspectiveCorrectionLayer
+from cadepth_tpu_torch.models.pcl import (Perspective3DTransformer,
+                                          PerspectiveCorrectionLayer)
 
 ARCHITECTURES = (
     "baseline_unet",
@@ -73,6 +76,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.fc_transform.weight.zero_()
             m.fc_transform.bias.copy_(
                 torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.0]))
+        elif isinstance(m, Perspective3DTransformer):
+            m.loc_fc2.weight.zero_()
 
 
 def create_model(
@@ -88,6 +93,7 @@ def create_model(
     norm: str = "batch",
     decoder_upsample: str = "transpose",
     sa_lowering: str = "toeplitz",
+    remat=False,
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
     generator: Optional[torch.Generator] = None,
@@ -109,7 +115,8 @@ def create_model(
         in_channels=in_channels, init_features=init_features,
         camera_dim=camera_dim, max_depth=max_depth, use_pcl=use_pcl,
         use_attention=use_attention, dtype=dtype, pcl_warp=pcl_warp,
-        norm=norm, decoder_upsample=decoder_upsample, sa_lowering=sa_lowering)
+        norm=norm, decoder_upsample=decoder_upsample, sa_lowering=sa_lowering,
+        remat=remat)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

@@ -8,11 +8,15 @@ encoder levels to a 32f bottleneck and five decoder levels back.
 Only ``enc1`` reads the rays. The JAX decoder pools rays for each level
 and hands them to the PCL, which ignores them, so the port does not pool
 them.
+
+``remat`` checkpoints blocks as the JAX package's ``maybe_remat`` does:
+True or "full" every block, "highres" the two finest levels (``enc1``,
+``enc2``, ``dec2``, ``dec1``); the backward recomputes them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,11 +25,27 @@ from torch import nn
 from cadepth_tpu_torch.geometry.intrinsics import normalize_k4
 from cadepth_tpu_torch.models.attention import CBAM
 from cadepth_tpu_torch.models.film import FiLMLayer
-from cadepth_tpu_torch.models.layers import (Conv2d, apply_norm, make_norm,
+from cadepth_tpu_torch.models.layers import (Conv2d, apply_norm,
+                                             checkpointed, make_norm,
                                              pad_to_match, upsample2x)
 from cadepth_tpu_torch.models.pcl import PerspectiveCorrectionLayer
 
 Intermediates = Optional[Dict[str, List[torch.Tensor]]]
+
+# The blocks at the two finest levels ("highres" remat) and the rest.
+HIGHRES_BLOCKS = ("enc1", "enc2", "dec2", "dec1")
+LOWRES_BLOCKS = ("enc3", "enc4", "enc5", "bottleneck", "dec5", "dec4", "dec3")
+
+
+def remat_blocks(remat) -> Tuple[str, ...]:
+    """The blocks that ``remat`` (False, True, "full" or "highres")
+    checkpoints."""
+    if not remat:
+        return ()
+    if remat not in (True, "full", "highres"):
+        raise ValueError(f"Unknown remat mode: {remat!r}")
+    return HIGHRES_BLOCKS if remat == "highres" \
+        else HIGHRES_BLOCKS + LOWRES_BLOCKS
 
 
 class RayEnhancedConv(nn.Module):
@@ -117,7 +137,7 @@ class GeometryAwareNetwork(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  pcl_warp: str = "two_pass", norm: str = "batch",
                  decoder_upsample: str = "transpose",
-                 sa_lowering: str = "toeplitz"):
+                 sa_lowering: str = "toeplitz", remat=False):
         super().__init__()
         if camera_dim != 4:
             raise ValueError(f"camera_dim must be 4 ([fx, fy, cx, cy]), "
@@ -141,6 +161,13 @@ class GeometryAwareNetwork(nn.Module):
         self.dec2 = GeometryDecoderBlock(f * 4, f * 2, **dec)
         self.dec1 = GeometryDecoderBlock(f * 2, f, **dec)
         self.out_conv = Conv2d(f, 1, 1, dtype=torch.float32)
+        self.remat = frozenset(remat_blocks(remat))
+
+    def _block(self, name: str, *args) -> torch.Tensor:
+        block = getattr(self, name)
+        if name in self.remat:
+            return checkpointed(block, *args)
+        return block(*args)
 
     def forward(self, rgb: torch.Tensor, ray_directions: torch.Tensor,
                 camera_intrinsics: torch.Tensor,
@@ -153,18 +180,18 @@ class GeometryAwareNetwork(nn.Module):
         x = rgb.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=cl)
         rays = ray_directions.permute(0, 3, 1, 2).contiguous(memory_format=cl)
 
-        skip1 = self.enc1(x, cam, rays)
-        skip2 = self.enc2(skip1, cam)
-        skip3 = self.enc3(skip2, cam)
-        skip4 = self.enc4(skip3, cam)
-        skip5 = self.enc5(skip4, cam)
-        x = self.bottleneck(skip5, cam)
+        skip1 = self._block("enc1", x, cam, rays)
+        skip2 = self._block("enc2", skip1, cam)
+        skip3 = self._block("enc3", skip2, cam)
+        skip4 = self._block("enc4", skip3, cam)
+        skip5 = self._block("enc5", skip4, cam)
+        x = self._block("bottleneck", skip5, cam)
 
-        x = self.dec5(x, skip5, cam, intermediates)
-        x = self.dec4(x, skip4, cam, intermediates)
-        x = self.dec3(x, skip3, cam, intermediates)
-        x = self.dec2(x, skip2, cam, intermediates)
-        x = self.dec1(x, skip1, cam, intermediates)
+        x = self._block("dec5", x, skip5, cam, intermediates)
+        x = self._block("dec4", x, skip4, cam, intermediates)
+        x = self._block("dec3", x, skip3, cam, intermediates)
+        x = self._block("dec2", x, skip2, cam, intermediates)
+        x = self._block("dec1", x, skip1, cam, intermediates)
 
         x = self.out_conv(x.float())
         return (torch.sigmoid(x) * self.max_depth).permute(0, 2, 3, 1)

@@ -6,18 +6,59 @@ parameters to its compute dtype per call, as flax's ``dtype=`` does, so
 a bf16 model keeps fp32 master weights. BatchNorm computes in float32
 and casts its output to the compute dtype; in training mode it keeps
 flax's running statistics, not torch's.
+
+:func:`checkpointed` runs a block under gradient checkpointing (the JAX
+package's ``nn.remat``); while a block is recomputed for the backward,
+:func:`recomputing` is true, and the batch norms leave their running
+statistics alone, as flax's remat does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # flax.linen.BatchNorm defaults: epsilon 1e-5, running-average momentum
 # 0.99, which is torch's momentum 0.01.
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.01
+# flax.linen.GroupNorm's default epsilon (torch's GroupNorm takes 1e-5).
+GN_EPS = 1e-6
+
+_recompute = threading.local()
+
+
+def recomputing() -> bool:
+    """True while a checkpointed block is recomputed for the backward."""
+    return getattr(_recompute, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    _recompute.depth = getattr(_recompute, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _recompute.depth -= 1
+
+
+def _checkpoint_contexts():
+    return contextlib.nullcontext(), _recompute_context()
+
+
+def checkpointed(block: nn.Module, *args):
+    """``block(*args)``, keeping only the inputs for the backward, which
+    recomputes the block (``torch.utils.checkpoint``, non-reentrant) with
+    :func:`recomputing` true. Outside grad mode the block just runs."""
+    if not torch.is_grad_enabled():
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=_checkpoint_contexts)
 
 
 class Conv2d(nn.Conv2d):
@@ -25,16 +66,16 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, bias: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         padding=padding, bias=bias)
+                         padding=padding, bias=bias, dilation=dilation)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias,
-                        padding=self.padding)
+                        padding=self.padding, dilation=self.dilation)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -85,13 +126,14 @@ class _FlaxTrainingNorm:
         dims = [0] + list(range(2, x.dim()))
         mean = x.mean(dims)
         var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            keep = 1.0 - BN_MOMENTUM
-            self.running_mean.copy_(keep * self.running_mean
-                                    + BN_MOMENTUM * mean)
-            self.running_var.copy_(keep * self.running_var
-                                   + BN_MOMENTUM * var)
-            self.num_batches_tracked.add_(1)
+        if not recomputing():
+            with torch.no_grad():
+                keep = 1.0 - BN_MOMENTUM
+                self.running_mean.copy_(keep * self.running_mean
+                                        + BN_MOMENTUM * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + BN_MOMENTUM * var)
+                self.num_batches_tracked.add_(1)
         shape = [1, -1] + [1] * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + \
@@ -106,13 +148,20 @@ class BatchNorm1d(_FlaxTrainingNorm, nn.BatchNorm1d):
     """BatchNorm over (B, C) vectors, flax's in training."""
 
 
+def group_count(channels: int) -> int:
+    """The JAX package's groups: the largest divisor of C not above 32."""
+    return next(g for g in range(min(32, channels), 0, -1)
+                if channels % g == 0)
+
+
 def make_norm(kind: str, channels: int) -> nn.Module:
-    """The per-block normalization module (``apply_norm``'s ``kind``)."""
+    """The per-block normalization module (``apply_norm``'s ``kind``):
+    "batch", or "group" (flax's GroupNorm: no running statistics, epsilon
+    1e-6)."""
     if kind == "batch":
         return BatchNorm2d(channels)
     if kind == "group":
-        raise NotImplementedError(
-            "norm='group' is not ported yet (ROADMAP.md Queue 1, item 2)")
+        return nn.GroupNorm(group_count(channels), channels, eps=GN_EPS)
     raise ValueError(f"Unknown norm kind: {kind!r}")
 
 
@@ -122,15 +171,26 @@ def apply_norm(x: torch.Tensor, norm: nn.Module,
     return norm(x.float()).to(out_dtype)
 
 
+class ResizeConv2d(Conv2d):
+    """Nearest 2x resize, then a 3x3 conv with padding 1 and a bias."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_channels, out_channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(F.interpolate(x, scale_factor=2,
+                                             mode="nearest"))
+
+
 def upsample2x(in_channels: int, features: int, mode: str,
                dtype: torch.dtype) -> nn.Module:
-    """The 2x decoder upsampling module: ConvTranspose 2x2 stride 2."""
+    """The 2x decoder upsampling module: "transpose" (ConvTranspose 2x2
+    stride 2, the reference's) or "resize" (nearest 2x, then Conv 3x3)."""
     if mode == "transpose":
         return ConvTranspose2d(in_channels, features, dtype)
     if mode == "resize":
-        raise NotImplementedError(
-            "decoder_upsample='resize' is not ported yet "
-            "(ROADMAP.md Queue 1, item 2)")
+        return ResizeConv2d(in_channels, features, dtype)
     raise ValueError(f"Unknown decoder_upsample mode: {mode!r}")
 
 

@@ -1,12 +1,27 @@
-"""Perspective Correction Layer (port of ``cadepth_tpu.models.pcl``).
+"""Perspective Correction Layers (port of ``cadepth_tpu.models.pcl``).
 
 A 6-parameter head over [mean-pooled features; normalized K] predicts an
-affine theta per sample, and the feature map is warped by it with the
-two-pass warp (``ops/two_pass_warp.py``) or, for ``warp_mode="fused"``,
-the banded warp (``ops/fused_warp.py``), differentiable in both the
-features and theta while grad mode is on. The head starts at the
-identity (zero kernel, bias [1, 1, 0, 0, 0, 0]). As in the reference's
-decoder, the layer takes no ray directions.
+affine theta per sample, and the feature map is warped by it. The head
+starts at the identity (zero kernel, bias [1, 1, 0, 0, 0, 0]). As in the
+reference's decoder, the layer takes no ray directions. The warp modes
+(``warp_mode``, the config's ``model.pcl_warp``):
+
+* "two_pass" and "pallas": the two-pass warp (``ops/two_pass_warp.py``,
+  CUDA kernels on the card);
+* "fused": the banded warp (``ops/fused_warp.py``, kernels of its own);
+* "gather": ``grid_sample(affine_grid(theta))`` (``ops/grid_sample.py``,
+  plain PyTorch, as JAX leaves it to XLA);
+* "separable": the scale-and-translate warp of
+  ``ops/affine_warp.py: separable_affine_warp`` (rotation and shear
+  dropped), plain PyTorch products;
+* "auto": the two-pass warp, replaced by the gather warp's result when
+  the batch's max |rotation| reaches ``DEFAULT_ROT_BOUND``. JAX selects with
+  ``lax.cond`` on the device; here ``torch.where`` selects on the device
+  too (no host sync), so the gather warp runs on every call.
+
+Every mode is differentiable in the features and theta while grad mode
+is on. :class:`Perspective3DTransformer` is the reference's ray-displaced
+warp (``grid_sample`` with border padding, ``align_corners=True``).
 """
 
 from __future__ import annotations
@@ -17,20 +32,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cadepth_tpu_torch.models.layers import Linear
+from cadepth_tpu_torch.models.layers import Conv2d, Linear, recomputing
+from cadepth_tpu_torch.ops.affine_warp import separable_affine_warp
 from cadepth_tpu_torch.ops.fused_warp import fused_warp
+from cadepth_tpu_torch.ops.grid_sample import gather_affine_warp, grid_sample
 from cadepth_tpu_torch.ops.two_pass_warp import two_pass_warp
 
 # Rotation magnitude (rad) under which the two-pass warp's kernel
-# displacement (<= |tan rot| px) stays sub-pixel; pcl_max_rot is read
-# against it.
+# displacement (<= |tan rot| px) stays sub-pixel: "auto" mode's guard,
+# and what pcl_max_rot is read against.
 DEFAULT_ROT_BOUND = 0.05
 
-# JAX warp modes that compute the two-pass function; both go to its
-# kernels. "fused" is the banded function (exact only inside
-# ops/fused_warp.fused_warp_theta_ok), with kernels of its own.
-TWO_PASS_MODES = ("two_pass", "pallas")
-UNPORTED_MODES = ("gather", "auto", "separable")
+# The warp each mode calls ("auto" calls the two-pass warp and the gather
+# warp).
+WARPS = {"two_pass": two_pass_warp, "pallas": two_pass_warp,
+         "fused": fused_warp, "gather": gather_affine_warp,
+         "separable": separable_affine_warp, "auto": two_pass_warp}
 
 
 def _build_affine_matrix(params: torch.Tensor) -> torch.Tensor:
@@ -52,18 +69,15 @@ class PerspectiveCorrectionLayer(nn.Module):
     def __init__(self, feature_channels: int, camera_dim: int = 4,
                  hidden_dim: int = 128, warp_mode: str = "two_pass"):
         super().__init__()
-        if warp_mode in UNPORTED_MODES:
-            raise NotImplementedError(
-                f"pcl_warp={warp_mode!r} is not ported yet "
-                "(ROADMAP.md Queue 1, item 2; Queue 2)")
-        if warp_mode not in TWO_PASS_MODES + ("fused",):
+        if warp_mode not in WARPS:
             raise ValueError(f"Unknown warp_mode: {warp_mode}")
+        self.warp_mode = warp_mode
         self.loc_fc1 = Linear(feature_channels + camera_dim, hidden_dim)
         self.loc_fc2 = Linear(hidden_dim, hidden_dim)
         self.fc_transform = Linear(hidden_dim, 6)
         # The warp function; chip_smoke.py swaps in the plain version to
         # hold the served depths against it on the card.
-        self.warp = fused_warp if warp_mode == "fused" else two_pass_warp
+        self.warp = WARPS[warp_mode]
 
     def forward(self, features: torch.Tensor, camera_intrinsics: torch.Tensor,
                 intermediates: Optional[Dict[str, List[torch.Tensor]]] = None
@@ -71,7 +85,8 @@ class PerspectiveCorrectionLayer(nn.Module):
         """features (B, C, H, W) channels_last, K4 (B, 4) normalized.
 
         When ``intermediates`` is a dict, appends this layer's max
-        |predicted rotation| to its ``"pcl_max_rot"`` list.
+        |predicted rotation| to its ``"pcl_max_rot"`` list (once: not again
+        when a checkpointed block is recomputed).
         """
         pooled = features.mean(dim=(2, 3)).float()
         loc_in = torch.cat([pooled, camera_intrinsics.float()], dim=-1)
@@ -79,8 +94,50 @@ class PerspectiveCorrectionLayer(nn.Module):
         h = F.relu(self.loc_fc2(h))
         params = self.fc_transform(h)
         theta = _build_affine_matrix(params)
-        if intermediates is not None:
+        # max |rotation| is read, never differentiated
+        rot = params[:, 4].detach()
+        if intermediates is not None and not recomputing():
             intermediates.setdefault("pcl_max_rot", []).append(
-                params[:, 4].abs().max())
-        out = self.warp(features.permute(0, 2, 3, 1), theta, "zeros", False)
+                rot.abs().max())
+        x = features.permute(0, 2, 3, 1)
+        out = self.warp(x, theta, "zeros", False)
+        if self.warp_mode == "auto":
+            in_bound = rot.abs().max() < DEFAULT_ROT_BOUND
+            out = torch.where(in_bound, out,
+                              gather_affine_warp(x, theta, "zeros", False))
+        return out.permute(0, 3, 1, 2)
+
+
+class Perspective3DTransformer(nn.Module):
+    """Ray-displaced warping with per-pixel depth offsets: a 1x1 conv and
+    tanh give a depth offset per pixel, a small head over [mean-pooled
+    features; K] a translation (tx, ty, tz; ``models/factory.init_weights``
+    starts its last layer at zero); the map is resampled at
+    ``offset * ray_xy + t_xy``, normalised by half the size, with border
+    padding and ``align_corners=True``."""
+
+    def __init__(self, feature_channels: int, camera_dim: int = 4):
+        super().__init__()
+        self.depth_pred = Conv2d(feature_channels, 1, 1, dtype=torch.float32)
+        self.loc_fc1 = Linear(feature_channels + camera_dim, 128)
+        self.loc_fc2 = Linear(128, 3)
+
+    def forward(self, features: torch.Tensor, camera_intrinsics: torch.Tensor,
+                ray_directions: torch.Tensor) -> torch.Tensor:
+        """features (B, C, H, W) and rays (B, 3, H, W), NCHW; K4 (B, 4)."""
+        h, w = features.shape[2], features.shape[3]
+        depth_offset = torch.tanh(self.depth_pred(features.float()))
+        pooled = features.mean(dim=(2, 3)).float()
+        loc_in = torch.cat([pooled, camera_intrinsics.float()], dim=-1)
+        translation = self.loc_fc2(F.relu(self.loc_fc1(loc_in)))  # (B, 3)
+        rays = ray_directions.float()
+        t = translation[:, :, None, None]
+        dx = depth_offset * rays[:, 0:1] + t[:, 0:1]
+        dy = depth_offset * rays[:, 1:2] + t[:, 1:2]
+        # divide by device tensors: CUDA divides by a Python float through
+        # its reciprocal
+        grid = torch.cat([dx / dx.new_tensor(w / 2.0),
+                          dy / dy.new_tensor(h / 2.0)], dim=1)
+        out = grid_sample(features.permute(0, 2, 3, 1),
+                          grid.permute(0, 2, 3, 1), "border", True)
         return out.permute(0, 3, 1, 2)

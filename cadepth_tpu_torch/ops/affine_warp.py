@@ -1,4 +1,6 @@
-"""Two-pass affine warp: coefficients and the plain PyTorch version.
+"""Affine warps: the two-pass warp's coefficients and plain PyTorch
+version, and the separable warp (:func:`separable_affine_warp`, the PCL's
+``separable`` mode, plain PyTorch products as in JAX).
 
 Port of ``cadepth_tpu.ops.affine_warp``. The source position of output
 pixel (row i, col j) is ``px = A j + B i + C``, ``py = D j + E i + F``
@@ -26,6 +28,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from cadepth_tpu_torch.ops.grid_sample import jax_clip
 
 PADDING_MODES = ("zeros", "border")
 
@@ -324,3 +328,58 @@ def chain_theta(theta: torch.Tensor, partials: torch.Tensor, height: int,
         co = warp_coeffs(th, height, width, align_corners)
         (d_theta,) = torch.autograd.grad(co, th, partials)
     return d_theta
+
+
+# -- the separable warp -------------------------------------------------------
+
+def _tent(pos: torch.Tensor, size: int, padding_mode: str,
+          dtype: torch.dtype) -> torch.Tensor:
+    """(..., size) tent weights ``max(1 - |pos - k|, 0)`` of ``pos``
+    against k = 0..size-1, cast to ``dtype``; "border" clips ``pos`` to
+    [0, size - 1] first. Written so that autograd takes JAX's kinks:
+    abs'(0) = +1, half the gradient at a max or clip tie."""
+    if padding_mode == "border":
+        pos = jax_clip(pos, 0.0, size - 1.0)
+    elif padding_mode != "zeros":
+        raise ValueError(f"Unsupported padding_mode: {padding_mode}")
+    grid = torch.arange(size, dtype=torch.float32, device=pos.device)
+    d = pos[..., None] - grid
+    w = torch.maximum(1.0 - torch.where(d >= 0.0, d, -d), d.new_zeros(()))
+    return w.to(dtype)
+
+
+def _mat_dtype(img_dtype: torch.dtype) -> torch.dtype:
+    """Tent weights in the data's dtype: f32 and f64 stay, others bf16."""
+    return img_dtype if img_dtype in (torch.float32, torch.float64) \
+        else torch.bfloat16
+
+
+def separable_affine_warp(img: torch.Tensor, theta: torch.Tensor,
+                          padding_mode: str = "zeros",
+                          align_corners: bool = False) -> torch.Tensor:
+    """Axis-aligned affine warp of NHWC ``img`` (B, H, W, C) as two
+    products with one tent matrix per sample and axis (port of the
+    reference's ``separable_affine_warp``; the PCL's ``separable`` mode).
+
+    Only scale and translation are kept (``px = A j + C``,
+    ``py = E i + F``): the rotation and shear terms of ``theta`` are
+    ignored, as in JAX. The products accumulate in f32 and round to the
+    matrices' dtype (bf16 for bf16 data) after each pass; the result is
+    cast to ``img.dtype``. Differentiable in ``img`` and ``theta`` by
+    autograd, as the reference is by plain autodiff.
+    """
+    bsz, h, w, ch = img.shape
+    dt = _mat_dtype(img.dtype)
+    a, _, c, _, e, f = affine_pixel_coeffs(theta, h, w, align_corners)
+    dev = img.device
+    iis = torch.arange(h, dtype=torch.float32, device=dev)
+    js = torch.arange(w, dtype=torch.float32, device=dev)
+    py = e[:, None] * iis[None, :] + f[:, None]               # (B, Ho)
+    px = a[:, None] * js[None, :] + c[:, None]                # (B, Wo)
+    mv = _tent(py, h, padding_mode, dt)                       # (B, Ho, H)
+    mh = _tent(px, w, padding_mode, dt)                       # (B, Wo, W)
+    # pass V: out[b, i, (x, c)] = sum_y mv[b, i, y] img[b, y, (x, c)]
+    v = torch.bmm(mv, img.to(dt).reshape(bsz, h, w * ch))
+    # pass H: out[b, i, j, c] = sum_x mh[b, j, x] v[b, i, x, c]
+    out = torch.matmul(mh[:, None], v.reshape(bsz, h, w, ch))
+    return out.to(img.dtype)

@@ -57,10 +57,6 @@ def build_model_and_loss(cfg: Config, device="cuda",
     """(model, loss_fn) as the config says: bf16 compute over fp32
     parameters when ``training.use_amp`` is set, else float32."""
     m = cfg.model
-    if m.remat not in (False, "none"):
-        raise NotImplementedError(
-            f"model.remat={m.remat!r} is not ported yet "
-            "(ROADMAP.md Queue 1, item 2)")
     model = create_model(
         m.architecture, in_channels=m.in_channels,
         init_features=m.init_features, camera_dim=m.camera_dim,
@@ -68,6 +64,7 @@ def build_model_and_loss(cfg: Config, device="cuda",
         use_attention=m.use_attention, variant=m.variant,
         pcl_warp=m.pcl_warp, norm=m.norm,
         decoder_upsample=m.decoder_upsample, sa_lowering=m.sa_lowering,
+        remat=m.remat,
         dtype=torch.bfloat16 if cfg.training.use_amp else torch.float32,
         device=device, generator=generator)
     lc = cfg.loss

@@ -58,7 +58,25 @@ Phases, each fatal on failure:
    reprojection_loss;
 14. fused times: the banded backward per level, the loss kernels, the
    fused train step;
-15. one JSON line describing every kernel, the train steps and the
+15. the banded affine warp's kernel (the port of pallas_affine_warp)
+   against its plain version at the five decoder shapes, f32 and bf16,
+   tests/test_pallas.py's four thetas and, at dec1, a 0.35 rad rotation
+   past its 16-row band; max_rotation_rows;
+16. serving with pcl_warp gather, auto and separable over phase 4's
+   weights: each mode's kernel launches per forward, its depths against
+   phase 4's (auto equal to them, and equal to gather with the heads
+   turned past its 0.05 bound), the banded affine warp on the gather
+   forward's five PCL inputs (1 launch per call, counted) against its
+   plain version and the gather warp, each mode's latency and device
+   profile, a small f32 model card against CPU;
+17. training at full width, batch 4: gather for 10 steps, again with
+   remat highres (losses against the run without, peak memory), auto and
+   separable for 3 steps each; a flagship with norm group and
+   decoder_upsample resize trained for 3 steps and served once;
+18. times: the banded affine kernel per level against its bound, its
+   plain version and F.grid_sample; the gather warp's device time per
+   level, per forward and per train step;
+19. one JSON line describing every kernel, the train steps and the
    Predictors; last, the ok line.
 
 Every timing line carries the card's name and power limit. The script
@@ -119,6 +137,22 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 TPU_KERNEL = "cadepth_tpu/ops/pallas/two_pass_warp.py"
 FUSED_KERNEL = "cadepth_tpu/ops/pallas/fused_warp.py"
 LOSS_KERNEL = "cadepth_tpu/ops/pallas/fused_loss.py"
+AFFINE_KERNEL = "cadepth_tpu/ops/pallas/affine_warp.py"
+# the banded affine warp's checks: tests/test_pallas.py's four thetas
+BANDED_THETAS = {
+    "identity": [[1, 0, 0], [0, 1, 0.0]],
+    "zoom_shift": [[1.3, 0, 0.2], [0, 0.7, -0.3]],
+    "rotation": [[0.999, -0.037, 0], [0.037, 0.999, 0.0]],
+    "oob_translate": [[1, 0, 0.9], [0, 1, 0.9]],
+}
+# a rotation (rad) past the banded affine warp's 16-row band at dec1
+ROT_BAND_OUT = 0.35
+# the banded affine warp against the gather warp on the PCL inputs, f32:
+# tests/test_pallas.py's 5e-4 at N(0, 1) data, scaled by max|input| (the
+# two write the f32 positions with other operations)
+BANDED_VS_GATHER = 5e-4
+# auto's fallback: a head rotation (rad) past its bound of 0.05
+ROT_PAST_BOUND = 0.08
 
 
 def log(*parts) -> None:
@@ -138,18 +172,21 @@ def card_info() -> str:
 
 
 def flagship_config(init_features: int, height: int, width: int,
-                    batch: int = 8, pcl_warp: str = "two_pass"):
+                    batch: int = 8, pcl_warp: str = "two_pass",
+                    norm: str = "batch", decoder_upsample: str = "transpose",
+                    remat=False):
     from cadepth_tpu_torch.config import config_from_dict
 
     # the geometry_aware_full experiment of configs/train_config.yaml, with
     # the shipped defaults written out (its training batch is 4; serving
-    # here runs at 8); pcl_warp "fused" selects the banded warp
+    # here runs at 8); pcl_warp, norm, decoder_upsample and remat select
+    # the model options
     return config_from_dict({
         "model": {"architecture": "geometry_aware", "variant": "full",
                   "init_features": init_features, "use_pcl": True,
                   "use_attention": True, "pcl_warp": pcl_warp,
-                  "norm": "batch", "decoder_upsample": "transpose",
-                  "sa_lowering": "toeplitz"},
+                  "norm": norm, "decoder_upsample": decoder_upsample,
+                  "sa_lowering": "toeplitz", "remat": remat},
         "data": {"input_height": height, "input_width": width,
                  "compute_rays": True},
         "training": {"use_amp": True, "batch_size": batch},
@@ -373,16 +410,17 @@ def serve(device, args):
     return pred, launches, per_forward, serve_err, (rgb8, k, depth8)
 
 
-def cross_device(device, args) -> float:
-    """A small f32 flagship on the card (kernel) against the same model on
-    the CPU (plain warp)."""
+def cross_device(device, args, mode: str = "two_pass") -> float:
+    """A small f32 flagship with ``pcl_warp: mode`` on the card (kernels,
+    where the mode has them) against the same model on the CPU (plain)."""
     import numpy as np
     import torch
 
     from cadepth_tpu_torch.config import config_from_dict
     from cadepth_tpu_torch.inference import Predictor
 
-    raw = {"model": {"architecture": "geometry_aware", "init_features": 8},
+    raw = {"model": {"architecture": "geometry_aware", "init_features": 8,
+                     "pcl_warp": mode},
            "data": {"input_height": 64, "input_width": 96},
            "training": {"use_amp": False}}
     preds = []
@@ -396,37 +434,65 @@ def cross_device(device, args) -> float:
         0, 1, (2, 64, 96, 3)).astype(np.float32)
     ref, got = (p.predict(rgb) for p in preds)
     err = float(np.abs(got - ref).max())
-    log(f"  small f32 model (f=8, 64x96, B=2), {device} vs cpu: max|err| "
-        f"{err:.3g} m (atol {CROSS_ATOL})")
+    log(f"  small f32 model (f=8, 64x96, B=2, pcl_warp {mode}), {device} vs "
+        f"cpu: max|err| {err:.3g} m (atol {CROSS_ATOL})")
     if not err <= CROSS_ATOL:
         raise AssertionError(f"card and CPU disagree by {err}")
     return err
 
 
-def device_ms(fn, iters: int):
+def device_ms(fn, iters: int, kernels=(), launches: int = 0,
+              attempts: int = 3):
     """Device time per call of fn(): the kernels' own durations summed by
     torch.profiler over ``iters`` calls, or None where the profiler sees
-    no device time. Also returns {kernel name: ms per call}."""
+    no device time. Also returns {kernel name: ms per call}.
+
+    Where ``kernels`` (substrings of kernel names) is given, fn() makes
+    ``launches`` launches of those kernels a call, and their time per
+    call is their mean over the launches the profile holds times
+    ``launches``: a profile that lost records (one of 200 is lost in
+    some profiles) would otherwise read short by their share. A profile
+    holding fewer than 90 % of ``iters * launches`` of them, or more, is
+    taken again, and after ``attempts`` such profiles the call raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    want = iters * launches
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_kernel = {key: ms for ms, _, key in device_rows(prof, iters)}
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        counts = {key: count for _, count, key in events
+                  if any(k in key for k in kernels)}
+        seen = sum(counts.values())
+        if seen != want:
+            log(f"  torch.profiler holds {seen} launches of "
+                f"{'/'.join(kernels)} in {iters} calls, want {want} "
+                f"(profile {attempt} of {attempts}): "
+                + ", ".join(f"{n} x {key[:60]}" for key, n in counts.items()))
+        if not kernels or 0.9 * want <= seen <= want:
+            break
+    else:
+        raise AssertionError(f"torch.profiler held too few or too many "
+                             f"launches of {'/'.join(kernels)} in "
+                             f"{attempts} profiles")
+    per_kernel = {key: us / 1000.0 * (launches / seen if key in counts
+                                      else 1.0 / iters)
+                  for us, _, key in events}
     total = sum(per_kernel.values())
     return (total if total > 0 else None), per_kernel
 
 
-def device_rows(prof, calls: int):
-    """[(device ms per call, launches per call, kernel name)] of the
-    device-side events of a profile, longest first."""
+def device_events(prof):
+    """[(device us, launches, kernel name)] summed over a profile's
+    device-side events."""
     import torch
 
-    rows = []
+    out = []
     for e in prof.key_averages():
         # user annotations (the optimizer's step) span kernels on the
         # device's timeline; they are not kernels of their own
@@ -435,9 +501,15 @@ def device_rows(prof, calls: int):
             continue
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total / 1000.0 / calls,
-                         e.count // calls, e.key))
-    return sorted(rows, reverse=True)
+            out.append((e.self_device_time_total, e.count, e.key))
+    return out
+
+
+def device_rows(prof, calls: int):
+    """[(device ms per call, launches per call, kernel name)] of the
+    device-side events of a profile, longest first."""
+    return sorted(((us / 1000.0 / calls, count // calls, key)
+                   for us, count, key in device_events(prof)), reverse=True)
 
 
 def profile_forward(pred, card: str, forwards: int = 3,
@@ -489,7 +561,7 @@ def times(device, args, pred, card: str):
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     rows, total = level_times(device, args, card, "two_pass_warp",
                               warp.two_pass_warp, two_pass_affine_warp_plain,
-                              warp)
+                              warp, ("pass_v_kernel", "pass_h_kernel"))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     bench = pred.benchmark(iterations=args.bench_iters, warmup=5)
@@ -513,12 +585,17 @@ def times(device, args, pred, card: str):
     return rows, total, bench, one, peak, prof
 
 
-def level_times(device, args, card: str, name: str, kernel, plain, counted):
+def level_times(device, args, card: str, name: str, kernel, plain, counted,
+                kernel_keys, flops_per_elem: int = 6):
     """Per decoder level at the serving batch (bf16, the rotation theta):
     ``kernel`` (CUDA events over back-to-back calls, and the device time
     of its launches from torch.profiler), its bound, ``plain`` and
     F.grid_sample(F.affine_grid(theta)). ``counted`` is the wrapper module
-    whose ``launches`` the kernel moves. Returns (rows, all-level sums)."""
+    whose ``launches`` the kernel moves, ``kernel_keys`` substrings of its
+    kernels' names, which the profile must hold ``counted.LAUNCHES_PER_CALL``
+    times a call; ``flops_per_elem`` the f32
+    operations per output element (6 for the two-pass warp: two taps, a
+    multiply-add each, per pass). Returns (rows, all-level sums)."""
     import torch
     import torch.nn.functional as F
 
@@ -536,7 +613,7 @@ def level_times(device, args, card: str, name: str, kernel, plain, counted):
         nchw = img.permute(0, 3, 1, 2)  # channels_last NCHW view
         elems = img.numel()
         bytes_moved = 2 * elems * img.element_size()
-        flops = 6 * elems  # two taps, a multiply-add each, per pass
+        flops = flops_per_elem * elems
         bound_ms = max(bytes_moved / HBM_BYTES_PER_S,
                        flops / F32_FLOPS_PER_S) * 1e3
         bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= \
@@ -558,7 +635,10 @@ def level_times(device, args, card: str, name: str, kernel, plain, counted):
             row[f"{key}_wall_ms"] = timer(fn, n, 2)
             if key == "kernel" and cuda and counted.launches == before:
                 raise AssertionError(f"timing loop did not launch {name}")
-            row[f"{key}_ms"] = device_ms(fn, n)[0] if cuda else None
+            expect = dict(kernels=kernel_keys,
+                          launches=counted.LAUNCHES_PER_CALL) \
+                if key == "kernel" else {}
+            row[f"{key}_ms"] = device_ms(fn, n, **expect)[0] if cuda else None
         rows[level] = row
 
         def fmt(key):
@@ -953,7 +1033,10 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
                                      f"{name} backward kernels")
             row[f"{call}_ms"] = row.setdefault("kernel_call_ms", None)
             if cuda:
-                total, per_kernel = device_ms(fn, n)
+                expect = dict(kernels=keys,
+                              launches=counted.BWD_LAUNCHES_PER_CALL) \
+                    if call == "kernel" else {}
+                total, per_kernel = device_ms(fn, n, **expect)
                 row[f"{call}_ms"] = total
                 if call == "kernel":
                     # the two launches alone, and the whole call (with the
@@ -1343,14 +1426,18 @@ def loss_times(device, args, card: str, inputs):
             row[f"{call}_wall_ms"] = timer(fn, args.timing_iters, 2)
             row[f"{call}_ms"] = row.setdefault("kernel_call_ms", None)
             if cuda:
-                total, per_kernel = device_ms(fn, args.timing_iters)
+                # fused_loss_stats -> stats_kernel, fused_loss_grad ->
+                # grad_kernel
+                kname = name.split("_")[-1] + "_kernel"
+                expect = dict(kernels=(kname,), launches=1) \
+                    if call == "kernel" else {}
+                total, per_kernel = device_ms(fn, args.timing_iters, **expect)
                 row[f"{call}_ms"] = total
                 if call == "kernel":
                     # the launch alone, and the whole call (the statistics
                     # add the sum of their per-block rows)
                     row["kernel_ms"] = sum(
-                        ms for key, ms in per_kernel.items()
-                        if "stats_kernel" in key or "grad_kernel" in key)
+                        ms for key, ms in per_kernel.items() if kname in key)
                     row["kernel_call_ms"] = total
         rows[name] = row
         dev = row["kernel_ms"]
@@ -1375,7 +1462,8 @@ def fused_serve_times(device, args, card: str, fused):
     cuda = device.type == "cuda"
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     rows, total = level_times(device, args, card, "fused_warp", fw.fused_warp,
-                              fw.fused_warp_plain, fw)
+                              fw.fused_warp_plain, fw,
+                              ("fused_v_kernel", "pass_h_kernel"))
     bench = fused.benchmark(iterations=args.bench_iters, warmup=5)
     log(f"  [{card}] fused Predictor batch {args.batch}: p50 "
         f"{bench['p50_ms']:.3f} ms, p95 {bench['p95_ms']:.3f} ms, "
@@ -1385,6 +1473,383 @@ def fused_serve_times(device, args, card: str, fused):
                                                    "pass_h_kernel"),
                            warp_name="fused_warp") if cuda else None
     return rows, total, bench, prof
+
+
+def rotation(rad: float):
+    import math
+
+    return [[math.cos(rad), -math.sin(rad), 0.0],
+            [math.sin(rad), math.cos(rad), 0.0]]
+
+
+def check_banded(device, shapes, seed: int):
+    """Phase 15: the banded affine warp's kernel against its plain
+    version at the five decoder shapes (serving batch), f32 and bf16:
+    tests/test_pallas.py's four thetas at every level and, at dec1, a
+    rotation past the band; max_rotation_rows against its plain
+    computation. Returns the worst error per dtype."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.ops import banded_affine_warp as baw
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for level, shape in shapes:
+        b, h, w = shape[:3]
+        img32 = torch.randn(shape, device=device, generator=gen)
+        cases = dict(BANDED_THETAS)
+        if level == "dec1":
+            cases[f"rot_{ROT_BAND_OUT}"] = rotation(ROT_BAND_OUT)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            img = img32.to(dtype)
+            errs = []
+            for tname, th in cases.items():
+                theta = torch.tensor(th, device=device).expand(b, 2, 3) \
+                    .contiguous()
+                rows = baw.max_rotation_rows(theta, h, w)
+                t10 = np.asarray(th, np.float64)[1, 0]
+                want_rows = abs(t10 * h / w) * (w - 1)
+                if not np.allclose(rows.cpu().numpy(), want_rows, rtol=1e-6,
+                                   atol=1e-6):
+                    raise AssertionError(f"max_rotation_rows {rows} != "
+                                         f"{want_rows}")
+                before = baw.launches
+                got = baw.banded_affine_warp(img, theta)
+                if cuda:
+                    torch.cuda.synchronize()
+                    if baw.launches != before + baw.LAUNCHES_PER_CALL:
+                        raise AssertionError("banded_affine_warp did not "
+                                             "count its launch")
+                want = baw.banded_affine_warp_plain(img, theta)
+                err = (got.float() - want.float()).abs().max().item()
+                if not err <= ATOL[name]:
+                    raise AssertionError(
+                        f"banded affine kernel vs plain {level} {shape} "
+                        f"{name} {tname}: max err {err} > {ATOL[name]}")
+                worst[name] = max(worst[name], err)
+                band = "" if float(rows.max()) + 2 <= baw.BAND_S else \
+                    f"(out of band, {float(rows.max()):.1f} rows)"
+                errs.append(f"{tname}{band}={err:.3g}")
+            log(f"  {level} {tuple(shape)} {name:8s} max|err| "
+                + " ".join(errs) + f"  (atol {ATOL[name]})")
+    return worst
+
+
+def set_head_rotation(model, rad: float) -> None:
+    """Set every PCL head's rotation bias."""
+    import torch
+
+    with torch.no_grad():
+        for pcl in pcl_layers(model):
+            pcl.fc_transform.bias[4] = rad
+
+
+def serve_modes(device, args, card: str, weights, request):
+    """Phase 16: the flagship with pcl_warp gather, auto and separable,
+    phase 4's weights, served at full width (batch 8). The warp kernels
+    launched per forward (auto: the two-pass warp's 2 per PCL; gather and
+    separable: none); auto equal to phase 4's two-pass depths with the
+    shipped heads and equal to gather with the heads turned past its bound;
+    the banded affine warp on the gather forward's five PCL inputs, counted
+    (its path: 1 launch per call, 5 per forward), against its plain
+    version and, in f32, against the gather warp; each mode's latency and
+    device profile, and a small f32 model card against CPU."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.inference import Predictor
+    from cadepth_tpu_torch.ops import banded_affine_warp as baw
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+    from cadepth_tpu_torch.ops.grid_sample import gather_affine_warp
+
+    rgb8, k, depth_two_pass = request
+    cuda = device.type == "cuda"
+    h, w = args.height, args.width
+    preds, out, seen = {}, {}, []
+
+    def recording(img, theta, padding_mode, align_corners):
+        res = gather_affine_warp(img, theta, padding_mode, align_corners)
+        seen.append((img, theta, res))
+        return res
+
+    for mode in ("gather", "auto", "separable"):
+        cfg = flagship_config(args.init_features, h, w, pcl_warp=mode)
+        pred = Predictor(cfg, weights, batch_size=args.batch, device=device)
+        pcls = pcl_layers(pred.model)
+        if mode == "gather":
+            for pcl in pcls:
+                pcl.warp = recording
+        # the main path, counted
+        for m in (tpw, fw, baw):
+            m.launches = 0
+        tpw.bwd_launches = fw.bwd_launches = 0
+        depth = pred.predict(rgb8, k)
+        if cuda:
+            torch.cuda.synchronize()
+        two_pass = tpw.launches
+        others = fw.launches + baw.launches + tpw.bwd_launches + \
+            fw.bwd_launches
+        want = tpw.LAUNCHES_PER_CALL * len(pcls) if cuda and mode == "auto" \
+            else 0
+        if mode == "gather":
+            for pcl in pcls:
+                pcl.warp = gather_affine_warp
+        if two_pass != want or others:
+            raise AssertionError(f"pcl_warp {mode}: two_pass_warp launches "
+                                 f"{two_pass} (expected {want}), other "
+                                 f"kernels {others}")
+        if depth.shape != (args.batch, h, w, 1) or not (
+                np.isfinite(depth).all() and depth.min() > 0
+                and depth.max() < cfg.model.max_depth):
+            raise AssertionError(f"{mode}: depth {depth.shape} "
+                                 f"[{depth.min()}, {depth.max()}]")
+        err = float(np.abs(depth - depth_two_pass).max())
+        log(f"  pcl_warp {mode}: 1 forward, two_pass_warp launches "
+            f"{two_pass} (expected {want}), no other kernel; depths in "
+            f"[{depth.min():.4f}, {depth.max():.4f}] m; against the "
+            f"two-pass flagship max|err| {err:.3g} m")
+        if mode == "auto" and err != 0.0:
+            raise AssertionError("auto with in-bound heads differs from the "
+                                 f"two-pass flagship by {err}")
+        preds[mode] = pred
+        out[mode] = {"two_pass_launches_per_forward": two_pass,
+                     "vs_two_pass_max_err_m": err, "depth": depth}
+
+    # the banded affine warp on the gather forward's PCL inputs, counted
+    inputs = seen[:len(pcl_layers(preds["gather"].model))]
+    baw.launches = 0
+    results = [baw.banded_affine_warp(img, theta) for img, theta, _ in inputs]
+    if cuda:
+        torch.cuda.synchronize()
+    launches = baw.launches
+    want = baw.LAUNCHES_PER_CALL * len(inputs) if cuda else 0
+    log(f"  banded_affine_warp on the gather forward's {len(inputs)} PCL "
+        f"inputs: launches {launches} (expected {want}, 1 per call)")
+    if launches != want:
+        raise AssertionError(f"banded_affine_warp launches {launches} != "
+                             f"{want}")
+    plain_err, gather_err = 0.0, []
+    for (img, theta, _), got in zip(inputs, results):
+        shape = tuple(img.shape)
+        rows = float(baw.max_rotation_rows(theta, shape[1], shape[2]).max())
+        e_plain = (got.float() - baw.banded_affine_warp_plain(img, theta)
+                   .float()).abs().max().item()
+        img32 = img.float()
+        e_gather = (baw.banded_affine_warp(img32, theta)
+                    - gather_affine_warp(img32, theta)).abs().max().item()
+        bound = BANDED_VS_GATHER * img32.abs().max().item()
+        log(f"    {shape} bf16: span {rows:.2f} rows; kernel vs plain "
+            f"{e_plain:.3g} (atol {ATOL['bfloat16']}); f32 kernel vs the "
+            f"gather warp {e_gather:.3g} (bound {bound:.3g})")
+        if rows + 2 > baw.BAND_S:
+            raise AssertionError(f"{shape}: the served theta is out of band")
+        if not (e_plain <= ATOL["bfloat16"] and e_gather <= bound):
+            raise AssertionError(f"banded affine warp on {shape}: plain "
+                                 f"{e_plain}, gather {e_gather}")
+        plain_err = max(plain_err, e_plain)
+        gather_err.append(e_gather / max(img32.abs().max().item(), 1e-12))
+
+    # heads turned past auto's bound: auto takes the gather warp
+    for mode in ("gather", "auto"):
+        set_head_rotation(preds[mode].model, ROT_PAST_BOUND)
+    tpw.launches = 0
+    past = {mode: preds[mode].predict(rgb8, k) for mode in ("gather", "auto")}
+    for mode in ("gather", "auto"):
+        set_head_rotation(preds[mode].model, PCL_BIAS[4])
+    err = float(np.abs(past["auto"] - past["gather"]).max())
+    moved = float(np.abs(past["auto"] - out["auto"]["depth"]).max())
+    log(f"  heads turned to {ROT_PAST_BOUND} rad: auto vs gather max|err| "
+        f"{err:.3g} m (must be 0); auto moved by {moved:.3g} m; two_pass_warp "
+        f"launches {tpw.launches} (auto still runs it)")
+    if err != 0.0 or not moved > 0.0:
+        raise AssertionError("auto past its bound is not the gather warp")
+    out["auto"]["past_bound_vs_gather_max_err_m"] = err
+
+    for mode, pred in preds.items():
+        bench = pred.benchmark(iterations=args.mode_bench_iters, warmup=3)
+        keys = ("pass_v_kernel", "pass_h_kernel") if mode == "auto" else ()
+        prof = profile_forward(
+            pred, card, warp_keys=keys, warp_name="two_pass_warp" if keys
+            else "warp kernels (none)") if cuda else None
+        unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+        log(f"  [{card}] {mode} Predictor batch {args.batch}: p50 "
+            f"{bench['p50_ms']:.3f} ms, p95 {bench['p95_ms']:.3f} ms, "
+            f"{bench['images_per_sec']:.2f} images/s "
+            f"({args.mode_bench_iters} requests){unit}")
+        out[mode].update(p50_ms=bench["p50_ms"], p95_ms=bench["p95_ms"],
+                         images_per_sec=bench["images_per_sec"],
+                         profile=prof,
+                         card_vs_cpu_f32_max_err_m=cross_device(device, args,
+                                                                mode))
+        del out[mode]["depth"]
+    return out, {"launches": launches, "per_forward": want,
+                 "max_abs_err": plain_err,
+                 "vs_gather_max_rel_err": max(gather_err)}
+
+
+def train_mode(device, args, card: str, mode: str, steps: int, **model):
+    """Phase 17: the flagship with ``pcl_warp: mode`` (and ``model``
+    options) takes ``steps`` train steps at full width, batch 4, from
+    phase 7's seeds: finite logs, the warp kernels it launches, step p50
+    (host clock to a synchronize, the first step left out), busy device
+    ms per step (torch.profiler, one step) and peak device memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    cuda = device.type == "cuda"
+    f, h, w, bsz = args.init_features, args.height, args.width, \
+        args.train_batch
+    cfg = flagship_config(f, h, w, bsz, mode, **model)
+    gen = torch.Generator().manual_seed(args.seed + 3)
+    net, loss_fn = ts.build_model_and_loss(cfg, device=device, generator=gen)
+    rotate_pcl_heads(net, gen)
+    opt = cfg.optimization
+    schedule = build_lr_schedule(opt, STEPS_PER_EPOCH, cfg.training.num_epochs)
+    rng = np.random.default_rng(args.seed + 4)
+    batches = [synthetic_batch(rng, bsz, h, w, device) for _ in range(steps)]
+    step = ts.make_train_step(cfg, net, loss_fn,
+                              ts.build_optimizer(opt, net.parameters()),
+                              schedule)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for m in (tpw, fw):
+        m.launches = m.bwd_launches = 0
+    logs, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        logs.append({k: float(v) for k, v in step(b).items()})
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    per_step = tpw.LAUNCHES_PER_CALL * len(pcl_layers(net))
+    want = per_step * steps if cuda and mode in ("auto", "two_pass") else 0
+    launches = (tpw.launches, tpw.bwd_launches)
+    if launches != (want, want) or fw.launches or fw.bwd_launches:
+        raise AssertionError(f"pcl_warp {mode} training: two_pass_warp "
+                             f"launches {launches}, expected {want} each; "
+                             f"fused {fw.launches}, {fw.bwd_launches}")
+    if not all(math.isfinite(v) for x in logs for v in x.values()):
+        raise AssertionError(f"{mode}: non-finite logs {logs}")
+    timed = sorted(times[1:])
+    p50 = timed[len(timed) // 2]
+    busy = kernels = None
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(batches[0])
+            torch.cuda.synchronize()
+        rows = device_rows(prof, 1)
+        busy, kernels = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    label = mode + "".join(f", {k} {v}" for k, v in model.items())
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    log(f"  [{card}] pcl_warp {label}: {steps} steps at batch {bsz}, losses "
+        + " ".join(f"{x['total_loss']:.5g}" for x in logs)
+        + f"; two_pass_warp launches {launches} (expected {want} each); step "
+        f"p50 {p50:.3f} ms (steps 2-{steps}){unit}"
+        + (f"; device busy {busy:.3f} ms per step, {kernels} kernels; peak "
+           f"{peak / 2**30:.3f} GiB" if cuda else ""))
+    return {"steps": steps, "losses": [x["total_loss"] for x in logs],
+            "last_logs": logs[-1], "p50_ms": p50, "busy_ms": busy,
+            "kernels_per_step": kernels, "peak_bytes": peak,
+            "two_pass_launches": launches}
+
+
+def serve_options(device, args, card: str):
+    """Phase 17b: the flagship with norm group and decoder_upsample resize
+    (seeded random weights, rotating heads) serves batch 8 once at full
+    width: finite depths, the two-pass warp's 2 launches per PCL."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.inference import Predictor
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+
+    cfg = flagship_config(args.init_features, args.height, args.width,
+                          norm="group", decoder_upsample="resize")
+    gen = torch.Generator().manual_seed(args.seed + 11)
+    pred = Predictor(cfg, batch_size=args.batch, device=device, generator=gen)
+    rotate_pcl_heads(pred.model, gen)
+    rgb = np.random.default_rng(args.seed + 11).uniform(
+        0, 1, (args.batch, args.height, args.width, 3)).astype(np.float32)
+    tpw.launches = 0
+    depth = pred.predict(rgb)
+    want = tpw.LAUNCHES_PER_CALL * len(pcl_layers(pred.model)) \
+        if device.type == "cuda" else 0
+    ok = np.isfinite(depth).all() and depth.min() > 0 and \
+        depth.max() < cfg.model.max_depth
+    log(f"  norm group, decoder_upsample resize: served batch {args.batch}, "
+        f"depths in [{depth.min():.4f}, {depth.max():.4f}] m, two_pass_warp "
+        f"launches {tpw.launches} (expected {want})")
+    if not ok or tpw.launches != want:
+        raise AssertionError("group/resize serving failed")
+    return {"depth_min": float(depth.min()), "depth_max": float(depth.max()),
+            "two_pass_launches": tpw.launches}
+
+
+def gather_times(device, args, card: str):
+    """Phase 18b: the gather warp's device time per level, its forward at
+    the serving batch and forward plus backward at the training batch
+    (torch.profiler), bf16, the rotation theta; summed over the five
+    levels, per forward and per train step."""
+    import torch
+
+    from cadepth_tpu_torch.ops.grid_sample import gather_affine_warp
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(args.seed + 12)
+    rows = {}
+    for (level, shape), (_, tshape) in zip(
+            decoder_shapes(args.batch, args.height, args.width,
+                           args.init_features),
+            decoder_shapes(args.train_batch, args.height, args.width,
+                           args.init_features)):
+        theta = torch.tensor(THETAS["rotation"], device=device)
+        img = torch.randn(shape, device=device, generator=gen) \
+            .to(torch.bfloat16)
+        timg = img[:tshape[0]].clone().requires_grad_(True)
+        tth = theta.expand(tshape[0], 2, 3).clone().requires_grad_(True)
+        grad = torch.randn(tshape, device=device, generator=gen) \
+            .to(torch.bfloat16)
+        bth = theta.expand(shape[0], 2, 3).contiguous()
+
+        def step():
+            with torch.enable_grad():
+                out = gather_affine_warp(timg, tth)
+                torch.autograd.grad(out, (timg, tth), grad)
+
+        n = max(args.timing_iters // 5, 2)
+        fwd = device_ms(lambda: gather_affine_warp(img, bth), n)[0] \
+            if cuda else None
+        both = device_ms(step, n)[0] if cuda else None
+        rows[level] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
+        log(f"  [{card}] {level} gather warp: forward {shape} "
+            + (f"{fwd:.4f} ms device" if fwd is not None else "not measured")
+            + f"; forward + backward {tshape} "
+            + (f"{both:.4f} ms device" if both is not None
+               else "not measured"))
+    total = {k: (None if any(r[k] is None for r in rows.values())
+                 else sum(r[k] for r in rows.values()))
+             for k in ("fwd_ms", "fwd_bwd_ms")}
+    if cuda:
+        log(f"  [{card}] gather warp over the five levels: "
+            f"{total['fwd_ms']:.4f} ms per forward (batch {args.batch}), "
+            f"{total['fwd_bwd_ms']:.4f} ms per train step (batch "
+            f"{args.train_batch})")
+    return rows, total
 
 
 def main(argv=None) -> int:
@@ -1401,7 +1866,7 @@ def main(argv=None) -> int:
     if rehearsal:
         device = torch.device("cpu")
         args.init_features, args.height, args.width, args.batch = 8, 64, 64, 4
-        args.timing_iters, args.bench_iters = 4, 3
+        args.timing_iters, args.bench_iters, args.mode_bench_iters = 4, 3, 3
         args.train_batch, args.train_steps, args.train_time_steps = 4, 3, 3
         card = "cpu rehearsal"
     else:
@@ -1412,7 +1877,8 @@ def main(argv=None) -> int:
         device = torch.device("cuda")
         args.init_features, args.height, args.width, args.batch = \
             64, 240, 320, 8
-        args.timing_iters, args.bench_iters = 100, 50
+        args.timing_iters, args.bench_iters, args.mode_bench_iters = \
+            100, 50, 20
         args.train_batch, args.train_steps, args.train_time_steps = 4, 10, 20
         card = card_info()
     sys.path.insert(0, str(ROOT))
@@ -1486,7 +1952,7 @@ def main(argv=None) -> int:
             device, args, weights, request)
         f_rows, f_total, f_bench, f_prof = fused_serve_times(device, args,
                                                              card, fused)
-    del fused, weights
+    del fused
 
     phase("12. training with pcl_warp fused")
     ftr = train(device, args, "fused")
@@ -1499,6 +1965,50 @@ def main(argv=None) -> int:
     loss_rows = loss_times(device, args, card, floss["inputs"])
     f_train_out = train_times(device, args, card, ftr,
                               steps=args.train_steps)
+    del ftr["model"], ftr["step"]
+
+    with torch.no_grad():
+        phase("15. banded affine warp kernel against plain")
+        banded_worst = check_banded(
+            device, decoder_shapes(args.batch, args.height, args.width,
+                                   args.init_features), args.seed + 13)
+
+        phase("16. serving with pcl_warp gather, auto and separable")
+        modes, banded = serve_modes(device, args, card, weights, request)
+    del weights
+
+    phase("17. training with pcl_warp gather, auto and separable; remat; "
+          "norm group and decoder_upsample resize")
+    mode_train = {"gather": train_mode(device, args, card, "gather",
+                                       args.train_steps)}
+    remat = train_mode(device, args, card, "gather", args.train_steps,
+                       remat="highres")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(remat["losses"], mode_train["gather"]["losses"]))
+    log(f"  remat highres against no remat: losses max rel diff {rel:.3g} "
+        f"(rtol {TRAIN_RTOL})" + (
+            f"; peak {remat['peak_bytes'] / 2**30:.3f} GiB against "
+            f"{mode_train['gather']['peak_bytes'] / 2**30:.3f} GiB"
+            if remat["peak_bytes"] else ""))
+    if not rel <= TRAIN_RTOL:
+        raise AssertionError(f"remat changed the losses by {rel}")
+    remat["vs_no_remat_max_rel"] = rel
+    mode_train["gather_remat_highres"] = remat
+    for mode in ("auto", "separable"):
+        mode_train[mode] = train_mode(device, args, card, mode, 3)
+    mode_train["group_resize"] = train_mode(
+        device, args, card, "two_pass", 3, norm="group",
+        decoder_upsample="resize")
+    with torch.no_grad():
+        group_serve = serve_options(device, args, card)
+
+        phase("18. banded affine warp and gather warp times")
+        from cadepth_tpu_torch.ops import banded_affine_warp as baw
+        b_rows, b_total = level_times(
+            device, args, card, "banded_affine_warp", baw.banded_affine_warp,
+            baw.banded_affine_warp_plain, baw, ("banded_affine_kernel",),
+            flops_per_elem=8)
+    g_rows, g_total = gather_times(device, args, card)
 
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
@@ -1638,7 +2148,35 @@ def main(argv=None) -> int:
         "at": f"{loss_rows[name]['shape']} f32",
     } for name, line, count, err, rel in (
         ("fused_loss_stats", 49, "launches", "stats_abs", "stats_err"),
-        ("fused_loss_grad", 91, "bwd_launches", "grad_abs", "grad_err"))],
+        ("fused_loss_grad", 91, "bwd_launches", "grad_abs", "grad_err"))] + [{
+        "name": "banded_affine_warp",
+        "route": "cuda",
+        "source": "cadepth_tpu_torch/csrc/banded_affine_warp.cu",
+        "replaces": f"{AFFINE_KERNEL}:76",
+        "replaces_all": [f"{AFFINE_KERNEL}:76 _warp_kernel",
+                         f"{AFFINE_KERNEL}:153 pallas_affine_warp"],
+        "launches": banded["launches"],
+        "launches_per_forward": banded["per_forward"],
+        "max_abs_err": max(max(banded_worst.values()),
+                           banded["max_abs_err"]),
+        "max_abs_err_by_dtype": banded_worst,
+        "vs_gather_max_rel_err": banded["vs_gather_max_rel_err"],
+        "ms": b_rows["dec1"]["kernel_ms"],
+        "ms_how": "torch.profiler device time of the launch",
+        "wall_ms": b_rows["dec1"]["kernel_wall_ms"],
+        "plain_ms": b_rows["dec1"]["plain_ms"],
+        "bound_ms": b_rows["dec1"]["bound_ms"],
+        "bound_by": b_rows["dec1"]["bound_by"],
+        "library_ms": b_rows["dec1"]["library_ms"],
+        "library": "F.grid_sample(F.affine_grid(theta))",
+        "at": f"dec1 {b_rows['dec1']['shape']} bf16",
+        "per_forward_ms": b_total["kernel_ms"],
+        "per_forward_bound_ms": b_total["bound_ms"],
+        "levels": {k: {m: r[m] for m in ("kernel_ms", "kernel_wall_ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms")}
+                   for k, r in b_rows.items()},
+    }],
         "train": dict(
         train_out, steps=len(tr["logs"]),
         forward_launches=tr["launches"], grad_copies=tr["grad_copies"],
@@ -1663,6 +2201,11 @@ def main(argv=None) -> int:
         kernel_vs_plain_max_rel=ftr["kernel_vs_plain_rel"],
         kernel_vs_kernel_max_rel=ftr["kernel_vs_kernel_rel"]),
         "fused_loss": {k: v for k, v in floss.items() if k != "inputs"},
+        "pcl_modes": {"serve": modes, "train": mode_train,
+                      "group_resize_serve": group_serve,
+                      "gather_warp": {"levels": g_rows,
+                                      "per_forward_ms": g_total["fwd_ms"],
+                                      "per_step_ms": g_total["fwd_bwd_ms"]}},
         "card": card}
     log(json.dumps(kernels))
     log(card_info())

@@ -36,4 +36,6 @@ def test_the_warp_libraries_share_their_header():
              for s in _build.CSRC.glob("*.cu")}
     assert names == {"two_pass_warp": ["two_pass_warp.cu", "warp_common.cuh"],
                      "fused_warp": ["fused_warp.cu", "warp_common.cuh"],
+                     "banded_affine_warp": ["banded_affine_warp.cu",
+                                            "warp_common.cuh"],
                      "fused_loss": ["fused_loss.cu"]}

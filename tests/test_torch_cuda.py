@@ -18,6 +18,7 @@ import torch
 
 from cadepth_tpu_torch.config import config_from_dict
 from cadepth_tpu_torch.inference import Predictor
+from cadepth_tpu_torch.ops import banded_affine_warp as baw
 from cadepth_tpu_torch.ops import fused_loss as fl
 from cadepth_tpu_torch.ops import fused_warp as fw
 from cadepth_tpu_torch.ops import two_pass_warp as warp_mod
@@ -412,3 +413,91 @@ def test_fused_loss_kernels_match_plain_on_card():
     si, rep = fl.silog_reproj_losses(x, gt, k4)
     (si + rep).backward()
     assert x.grad.dtype == torch.bfloat16 and float(si) == 0.0
+
+
+def _rotation(rad):
+    c, s_ = float(np.cos(rad)), float(np.sin(rad))
+    return [[c, -s_, 0.0], [s_, c, 0.0]]
+
+
+@pytest.mark.cuda
+def test_banded_affine_kernel_matches_plain_on_card():
+    """Odd shapes, C = 3 and channel counts that do not fill 16-byte
+    vectors, in band and out of band (0.35 and 0.6 rad): f32 bit-equal,
+    bf16 at 2e-2; one launch per call."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    thetas = dict(THETAS, rot_035=_rotation(0.35), rot_06=_rotation(0.6),
+                  oob_translate=[[1, 0, 0.9], [0, 1, 0.9]])
+    for shape in SHAPES + [(1, 48, 64, 16), (2, 33, 47, 5)]:
+        img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        for name, th in thetas.items():
+            theta = torch.from_numpy(np.tile(np.asarray(th, np.float32)[None],
+                                             (shape[0], 1, 1))).cuda()
+            for dtype, atol in ((torch.float32, 0.0), (torch.bfloat16, 2e-2)):
+                x = img.to(dtype)
+                before = baw.launches
+                got = baw.banded_affine_warp(x, theta)
+                torch.cuda.synchronize()
+                assert baw.launches == before + baw.LAUNCHES_PER_CALL
+                want = baw.banded_affine_warp_plain(x, theta)
+                assert got.dtype == dtype and got.shape == x.shape
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= atol, (shape, name, dtype, err)
+
+
+@pytest.mark.cuda
+def test_banded_affine_kernel_is_deterministic_and_refuses_what_it_does_not_take():
+    _need_card()
+    x = torch.randn(2, 24, 32, 8, device="cuda").to(torch.bfloat16)
+    theta = torch.tensor(_rotation(0.2), device="cuda").expand(2, 2, 3) \
+        .contiguous()
+    first = baw.banded_affine_warp(x, theta)
+    for _ in range(3):
+        assert torch.equal(baw.banded_affine_warp(x, theta), first)
+    with pytest.raises(ValueError, match="contiguous"):
+        baw.banded_affine_warp(x.transpose(1, 2), theta)
+    with pytest.raises(TypeError, match="float32 or"):
+        baw.banded_affine_warp(x.half(), theta)
+    with pytest.raises(RuntimeError, match="forward only"):
+        baw.banded_affine_warp(x.float().requires_grad_(True), theta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gather", "auto", "separable"])
+def test_pcl_modes_train_step_on_card_matches_cpu(mode):
+    """One f32 train step of the small flagship in each plain-PyTorch PCL
+    mode, on the card (TF32 off) and on the CPU from the same weights:
+    the losses at rtol 1e-4 (the bound of chip_smoke.py phase 8)."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config_from_dict({
+        "model": {"architecture": "geometry_aware", "init_features": 4,
+                  "pcl_warp": mode, "norm": "group",
+                  "decoder_upsample": "resize", "remat": "highres"},
+        "data": {"input_height": 32, "input_width": 32},
+        "training": {"use_amp": False, "batch_size": 4}})
+    rng = np.random.default_rng(7)
+    batch = {"rgb": rng.uniform(0, 1, (4, 32, 32, 3)).astype(np.float32),
+             "depth": rng.uniform(0.3, 9.5, (4, 32, 32, 1)).astype(np.float32)}
+    k = np.tile(np.eye(3, dtype=np.float32), (4, 1, 1))
+    k[:, 0, 0] = k[:, 1, 1] = rng.uniform(16, 48, 4)
+    k[:, 0, 2] = k[:, 1, 2] = 16.0
+    batch["intrinsics"] = k
+    batch["k4"] = np.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2], k[:, 1, 2]],
+                           -1)
+    logs = []
+    for dev in ("cpu", "cuda"):
+        model, loss_fn = ts.build_model_and_loss(
+            cfg, device=dev, generator=torch.Generator().manual_seed(3))
+        step = ts.make_train_step(
+            cfg, model, loss_fn,
+            ts.build_optimizer(cfg.optimization, model.parameters()),
+            build_lr_schedule(cfg.optimization, 1, 10))
+        logs.append({k_: float(v) for k_, v in step(
+            {k_: torch.from_numpy(v).to(dev) for k_, v in batch.items()})
+            .items()})
+    for key in logs[0]:
+        if key.endswith("loss"):
+            np.testing.assert_allclose(logs[1][key], logs[0][key], rtol=1e-4,
+                                       err_msg=key)

@@ -43,6 +43,7 @@ from torch_port_common import init_random, jax_variables, load_port, nchw, nhwc
 
 F32 = jnp.float32
 ATOL = 1e-4
+WARP_MODES = ["two_pass", "pallas", "fused", "gather", "auto", "separable"]
 
 
 def _k4(rng, b, h, w):
@@ -123,7 +124,7 @@ def test_build_affine_matrix_matches():
         np.asarray(jax_pcl._build_affine_matrix(jnp.asarray(p))), atol=1e-7)
 
 
-@pytest.mark.parametrize("warp_mode", ["two_pass", "pallas", "fused"])
+@pytest.mark.parametrize("warp_mode", WARP_MODES)
 def test_pcl_matches(warp_mode):
     rng = np.random.default_rng(4)
     x = rng.normal(size=(2, 14, 20, 16)).astype(np.float32)
@@ -144,12 +145,6 @@ def test_pcl_matches(warp_mode):
     np.testing.assert_allclose(float(record["pcl_max_rot"][0]), rot, rtol=1e-5)
     # the warp really moved the features
     assert np.abs(got - x).max() > 0.1
-
-
-@pytest.mark.parametrize("warp_mode", ["gather", "auto", "separable"])
-def test_pcl_unported_modes_name_the_roadmap(warp_mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PerspectiveCorrectionLayer(8, warp_mode=warp_mode)
 
 
 @pytest.mark.parametrize("with_rays", [True, False])
@@ -188,7 +183,7 @@ def test_encoder_block_matches():
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-@pytest.mark.parametrize("warp_mode", ["two_pass", "pallas", "fused"])
+@pytest.mark.parametrize("warp_mode", WARP_MODES)
 def test_decoder_block_matches(warp_mode):
     """Upsample -> PCL -> pad to an odd skip -> [skip, x] -> conv -> CBAM."""
     rng = np.random.default_rng(7)

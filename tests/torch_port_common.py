@@ -22,6 +22,12 @@ from cadepth_tpu_torch import convert
 from cadepth_tpu_torch.training import train_state as ts
 from cadepth_tpu_torch.training.schedule import build_lr_schedule
 
+# pytest-xdist runs the tests in several worker processes at once, and
+# PyTorch's default of one intra-op thread per core in each of them
+# oversubscribes the CPU; the port's tests use small tensors, so each
+# process takes one thread.
+torch.set_num_threads(1)
+
 # fc_transform bias [sx, sy, tx, ty, rot, shear] of a PCL head that
 # zooms, shifts, rotates and shears (the identity head warps nothing).
 PCL_BIAS = np.array([1.04, 0.95, 0.03, -0.02, 0.04, 0.03], np.float32)
