@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernels `_fwd_v_banded_kernel` (launched by
 // `_fused_fwd_passes`) and `_bwd_v_banded_kernel` (launched by
-// `_fused_trainable_bwd`) of cadepth_tpu/ops/pallas/fused_warp.py. Their
-// H passes, `_pass_h_kernel` and `_bwd_h_kernel`, are the two-pass
-// warp's: this file launches pass_h_kernel and bwd_pass_kernel<..., true>
-// of warp_common.cuh with border = 0.
+// `_fused_trainable_bwd`) of cadepth_tpu/ops/pallas/fused_warp.py, and
+// their H passes, `_pass_h_kernel` and `_bwd_h_kernel` of
+// cadepth_tpu/ops/pallas/two_pass_warp.py: this file launches
+// pass_h_kernel and bwd_pass_kernel<..., true> of warp_common.cuh with
+// border = 0.
 //
 // The function is the two-pass warp's (two_pass_warp.cu) with a banded
 // V pass. Output rows are cut into tiles of `it` rows and columns into
@@ -36,7 +37,7 @@
 // use the unrounded derivative.
 //
 // Design: one thread per (b, output row, x, 16-byte channel vector), as
-// in two_pass_warp.cu, looping over the kb rows of ITS cell's band (the
+// in pass_h_kernel and bwd_pass_kernel, looping over the kb rows of ITS cell's band (the
 // TPU kernel's loop, one grid cell per thread group); each thread
 // computes its cell's band base from the cell's corners. A tap whose
 // weight is 0 loads nothing (the product is +-0). The partials are

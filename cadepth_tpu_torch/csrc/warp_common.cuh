@@ -1,8 +1,10 @@
-// Device code shared by the warp kernels of two_pass_warp.cu and
-// fused_warp.cu: the line coefficients, the two-tap blend, pass H
-// (pass_h_kernel) and the transposed passes of the backward
-// (bwd_pass_kernel). Both libraries compile it from this header; the
-// build hashes it with each source that includes it (ops/_build.py).
+// Device code of the warp kernels. Shared by two_pass_warp.cu and
+// fused_warp.cu: the line coefficients, the two-tap blend and the
+// transposed passes' candidate search (span). Launched by fused_warp.cu
+// alone: pass H (pass_h_kernel) and the transposed pass H of its
+// backward (bwd_pass_kernel); the two-pass warp has kernels of its own.
+// Both libraries compile it from this header; the build hashes it with
+// each source that includes it (ops/_build.py).
 //
 // Numerics: the coefficients with the same f32 operations and
 // f32-rounded constants as affine_pixel_coeffs and warp_coeffs
@@ -162,8 +164,10 @@ pass_h_kernel(const T* __restrict__ v, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// Backward (replaces `_bwd_h_kernel` and `_bwd_v_kernel` of the TPU
-// module, launched by `_trainable_bwd`). Given the cotangent G of `out`:
+// Backward of the banded warp's passes (fused_warp.cu launches the H
+// pass; it replaces `_bwd_h_kernel` of the TPU module). The two-pass
+// warp's transposed passes (two_pass_warp.cu) compute the same
+// functions with span below. Given the cotangent G of `out`:
 //
 //   d_v[b,i,x,c]   = sum_j tent(h'(j,i) - x) * G[b,i,j,c]        (bwd H)
 //   d_img[b,y,x,c] = sum_i tent(g'(x,i) - y) * d_v[b,i,x,c]      (bwd V)
@@ -177,7 +181,8 @@ pass_h_kernel(const T* __restrict__ v, T* __restrict__ out,
 // where dt is the tent's derivative with JAX's kink conventions
 // (abs'(0) = +1, a max tie of weight 0.5: -1 at 0, -/+0.5 at +/-1) and
 // dc the clamp's (1 inside, 0.5 on a bound, 0 outside; 1 for zeros
-// padding). The host chains them to d_theta through warp_coeffs.
+// padding). The banded warp's host sums them and chains them to d_theta
+// through warp_coeffs.
 //
 // Gather form, no scatter and no atomics: a thread owns one 16-byte
 // channel vector of one pixel of the transposed pass's OUTPUT (d_v in bwd
@@ -198,34 +203,52 @@ pass_h_kernel(const T* __restrict__ v, T* __restrict__ out,
 //
 // What bounds it: memory, as for the forward. The least traffic is G, V
 // and img read once and d_img written once; the two launches also write
-// and read d_v, 1.5 times that. Shared-memory staging and one fused pass
-// are later work.
+// and read d_v, 1.5 times that.
 
 // Indices k in [lo, hi] (within [0, n-1]) whose position s*k + u can come
 // within 1 of `target` after the padding's clamp to [0, size-1]: a
-// superset, widened by `mag` (the sum of the magnitudes of the terms the
-// f32 position adds), which bounds its rounding error.
+// superset. The f32 position is off s*k + u by a few ulps of `mag` (the
+// sum of the magnitudes of the terms it adds), which 1e-5 (mag + 2) / |s|
+// indices cover many times over; half an index more covers the double
+// arithmetic here. The slope's reciprocal is taken once (slope_of), so a
+// block that shares s takes it once. Every index outside the range has
+// |pos - target| > 1, so a pass that tests each candidate with its f32
+// position visits the same taps, in the same order, as one that tests
+// every index.
 struct Range {
   int lo, hi;
 };
 
-__device__ __forceinline__ Range candidates(float s, double u, double mag,
-                                            int target, int size, int n,
-                                            bool border) {
+struct Slope {
+  double inv, slack_per_mag;
+  bool flat;  // s is 0 (or NaN): test every index
+};
+
+__device__ __forceinline__ Slope slope_of(float s) {
+  Slope sl;
+  const double as = fabs((double)s);
+  sl.flat = !(as > 0.0);
+  sl.inv = 1.0 / (double)s;
+  sl.slack_per_mag = 1e-5 / as;
+  return sl;
+}
+
+__device__ __forceinline__ Range span(const Slope& sl, double u, double mag,
+                                      int target, int size, int n,
+                                      bool border) {
+  Range r;
+  if (sl.flat) {
+    r.lo = 0;
+    r.hi = n - 1;
+    return r;
+  }
   double lo = target - 1.0, hi = target + 1.0;
   if (border) {
     if (target <= 1) lo = -INFINITY;         // clamped up to 0
     if (target >= size - 2) hi = INFINITY;   // clamped down to size-1
   }
-  Range r;
-  const double as = fabs((double)s);
-  if (!(as > 0.0)) {  // a flat (or NaN) line: test every index
-    r.lo = 0;
-    r.hi = n - 1;
-    return r;
-  }
-  const double k1 = (lo - u) / s, k2 = (hi - u) / s;
-  const double slack = 2.0 + 1e-5 * (mag + 2.0) / as;
+  const double k1 = (lo - u) * sl.inv, k2 = (hi - u) * sl.inv;
+  const double slack = 0.5 + (mag + 2.0) * sl.slack_per_mag;
   const double kmin = fmax(fmin(k1, k2) - slack, 0.0);
   const double kmax = fmin(fmax(k1, k2) + slack, n - 1.0);
   if (!(kmin <= kmax)) {
@@ -319,8 +342,8 @@ bwd_pass_kernel(const T* __restrict__ cot, const T* __restrict__ own,
       const int n = H_PASS ? W : H;
       const double mag = fabs((double)slope) * n + fabs((double)fixed) +
                          fabs((double)tail);
-      const Range rg = candidates(slope, (double)fixed + (double)tail, mag,
-                                  target, size, n, border != 0);
+      const Range rg = span(slope_of(slope), (double)fixed + (double)tail,
+                            mag, target, size, n, border != 0);
       for (int m = rg.lo; m <= rg.hi; ++m) {
         const float sm = __fmul_rn(slope, (float)m);
         const float pos = H_PASS ? __fadd_rn(__fadd_rn(sm, fixed), tail)

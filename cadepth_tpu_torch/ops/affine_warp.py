@@ -292,7 +292,8 @@ def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
     pass H, stored in ``img.dtype``; ``d_img`` by the transposed pass V
     from that stored ``d_v``; both with f32 tent weights and f32 sums.
     ``d_theta`` (f32) chains six per-batch partials through
-    :func:`warp_coeffs`: ``(sum c*j, i*sum c, sum c)`` of the pass-H
+    :func:`warp_coeffs` (:func:`chain_theta_closed`, the theta kernel's
+    arithmetic): ``(sum c*j, i*sum c, sum c)`` of the pass-H
     line and ``(x*sum c, sum c*i, sum c)`` of the pass-V line, where
     ``c`` is the channel dot product times the tent's derivative at each
     tap, with JAX's kink conventions (:func:`_dtent`,
@@ -315,19 +316,69 @@ def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
     partials = torch.cat([part_h, torch.stack([
         (c_g * xs).sum((1, 2)), (c_g * ii).sum((1, 2)), c_g.sum((1, 2)),
     ], dim=-1)], dim=-1)                                      # (B, 6)
-    return d_img.to(img.dtype), chain_theta(theta, partials, h, w,
-                                             align_corners)
+    return d_img.to(img.dtype), chain_theta_closed(theta, partials, h, w,
+                                                    align_corners)
 
 
 def chain_theta(theta: torch.Tensor, partials: torch.Tensor, height: int,
                 width: int, align_corners: bool) -> torch.Tensor:
     """d_theta (B, 2, 3) f32 from the (B, 6) partials of the loss with
-    respect to the six line coefficients [A, B, C, p, q, r]."""
+    respect to the six line coefficients [A, B, C, p, q, r], by autograd
+    through :func:`warp_coeffs` (the banded warp's chain, and the
+    reference of :func:`chain_theta_closed`)."""
     with torch.enable_grad():
         th = theta.detach().to(torch.float32).requires_grad_(True)
         co = warp_coeffs(th, height, width, align_corners)
         (d_theta,) = torch.autograd.grad(co, th, partials)
     return d_theta
+
+
+def chain_theta_closed(theta: torch.Tensor, partials: torch.Tensor,
+                       height: int, width: int,
+                       align_corners: bool) -> torch.Tensor:
+    """:func:`chain_theta` written out: the derivative of
+    :func:`warp_coeffs` applied to the (B, 6) partials, in the f32
+    operation order of the two-pass warp's theta kernel
+    (``csrc/two_pass_warp.cu: chain_theta``), so the two share their
+    arithmetic.
+
+    p = D / A_safe reaches the loss directly and through q = E - p B and
+    r = F - p C, so its gradient is ``gp = (s_p - s_q B) - s_r C``; A
+    takes ``s_a - gp p / A_safe`` where A_safe = A and ``s_a`` where the
+    clamp holds A_safe at +-1e-3 (no gradient through it, as
+    :func:`safe_divisor`'s ``where``). B = (t01 w) / h and D = (t10 h) / w
+    scale their gradients by w/h and h/w; C and F are affine in theta
+    with the constants of :func:`affine_pixel_coeffs`. The constants are
+    f32 tensors and every division is by a tensor (the card's division
+    by a Python float multiplies by its reciprocal).
+    """
+    t = theta.to(torch.float32)
+    s_a, s_b, s_c, s_p, s_q, s_r = partials.to(torch.float32).unbind(-1)
+    _, b, c, p, _, _ = warp_coeffs(t, height, width,
+                                   align_corners).unbind(-1)
+    a = t[:, 0, 0]
+    a_safe = safe_divisor(a)
+    h, w = float(height), float(width)
+    if align_corners:
+        w, h = w - 1.0, h - 1.0
+    k = {name: t.new_tensor(value) for name, value in (
+        ("w", w), ("h", h), ("hw", w / 2.0), ("hh", h / 2.0))}
+    gp = (s_p - s_q * b) - s_r * c
+    ga = torch.where(a.abs() < 1e-3, s_a, s_a - gp * p / a_safe)
+    gb = s_b - s_q * p
+    gc = s_c - s_r * p
+    gd = gp / a_safe
+    bw = gb / k["h"] * k["w"]
+    dh = gd / k["w"] * k["h"]
+    gcs = gc * k["hw"]
+    gfs = s_r * k["hh"]
+    if align_corners:
+        rows = [ga - gcs, bw - gcs, gcs, dh - gfs, s_q - gfs, gfs]
+    else:
+        kx, ky = t.new_tensor(1.0 / w - 1.0), t.new_tensor(1.0 / h - 1.0)
+        rows = [ga + gcs * kx, bw + gcs * ky, gcs,
+                dh + gfs * kx, s_q + gfs * ky, gfs]
+    return torch.stack(rows, dim=-1).reshape(-1, 2, 3)
 
 
 # -- the separable warp -------------------------------------------------------

@@ -4,22 +4,25 @@ Replaces ``cadepth_tpu/ops/pallas/two_pass_warp.py``: the forward
 (``_pass_v_kernel`` and ``_pass_h_kernel``, and the XLA form of
 ``cadepth_tpu/ops/affine_warp.py: two_pass_affine_warp``) and the
 backward of ``pallas_two_pass_warp_trainable`` (``_trainable_bwd``:
-``_bwd_h_kernel`` and ``_bwd_v_kernel``).
+``_bwd_h_kernel``, ``_bwd_v_kernel`` and the chain to d_theta).
 
 :func:`two_pass_warp` is differentiable in ``img`` and ``theta`` while
-grad mode is on: it goes through :class:`TwoPassWarp`, which keeps
-``img``, V (pass V's result, which the forward writes anyway) and
-``theta`` for the backward. Under ``torch.no_grad`` or
-``torch.inference_mode`` it launches the forward alone, as serving does.
+grad mode is on and either requires grad: it goes through
+:class:`TwoPassWarp`, whose forward also stores V (pass V's result) for
+the backward. Otherwise, as under ``torch.no_grad`` or
+``torch.inference_mode`` while serving, it launches the forward alone,
+which keeps V in shared memory and writes none.
 
-For a CUDA tensor the forward and the backward launch their kernels (two
-launches each) or raise; for a CPU tensor they compute the plain
-versions, :func:`~cadepth_tpu_torch.ops.affine_warp.
-two_pass_affine_warp_plain_fwd` and ``two_pass_affine_warp_plain_bwd``.
-``launches`` and ``bwd_launches`` count kernel launches, so a run can
-show that its warps went through the kernels; ``grad_copies`` counts the
-backward calls whose incoming gradient was not contiguous NHWC and was
-copied before the launch.
+For a CUDA tensor the forward launches its kernel (one launch) and the
+backward its three (the transposed passes, then the sum of their theta
+partials and the chain to d_theta on the card), or raise; for a CPU
+tensor they compute the plain versions, :func:`~cadepth_tpu_torch.ops.
+affine_warp.two_pass_affine_warp_plain_fwd` and
+``two_pass_affine_warp_plain_bwd``. ``launches`` and ``bwd_launches``
+count kernel launches, so a run can show that its warps went through the
+kernels; ``v_stores`` counts the forward launches that also stored V;
+``grad_copies`` counts the backward calls whose incoming gradient was not
+contiguous NHWC and was copied before the launch.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from torch.autograd.function import once_differentiable
 
 from cadepth_tpu_torch.ops import _build
 from cadepth_tpu_torch.ops.affine_warp import (
-    chain_theta,
     check_warp_args,
     two_pass_affine_warp_plain_bwd,
     two_pass_affine_warp_plain_fwd,
@@ -41,12 +43,20 @@ from cadepth_tpu_torch.ops.affine_warp import (
 # Kernel launches since the counts were last set to 0.
 launches = 0
 bwd_launches = 0
-LAUNCHES_PER_CALL = 2
-BWD_LAUNCHES_PER_CALL = 2
+LAUNCHES_PER_CALL = 1
+BWD_LAUNCHES_PER_CALL = 3
+# Forward launches that also stored V (training; serving stores none).
+v_stores = 0
 # Backward calls that copied a non-contiguous incoming gradient.
 grad_copies = 0
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+# Shared memory one block may use on the card (227 KB), and the most a
+# block's row chunk takes: the 48 KB a kernel gets without asking
+# (csrc/two_pass_warp.cu says why this size).
+SMEM_MAX = 232448
+SMEM_TARGET = 48 * 1024
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 
@@ -55,16 +65,65 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("two_pass_warp")
     if lib.cadepth_two_pass_warp_fwd.argtypes is None:
         lib.cadepth_two_pass_warp_fwd.argtypes = \
-            [_VP] * 4 + [_INT] * 7 + [_VP]
+            [_VP] * 4 + [_INT] * 10 + [_VP]
         lib.cadepth_two_pass_warp_fwd.restype = _INT
         lib.cadepth_two_pass_warp_bwd.argtypes = \
-            [_VP] * 8 + [_INT] * 7 + [_VP]
+            [_VP] * 8 + [_INT] * 10 + [_VP]
         lib.cadepth_two_pass_warp_bwd.restype = _INT
-        lib.cadepth_two_pass_warp_bwd_stride.argtypes = [_INT, _INT]
-        lib.cadepth_two_pass_warp_bwd_stride.restype = _INT
         lib.cadepth_cuda_error_string.argtypes = [_INT]
         lib.cadepth_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def vector_width(channels: int, dtype: torch.dtype,
+                 aligned: bool = True) -> int:
+    """Channels a kernel thread moves at once: one 16-byte vector (4 f32
+    or 8 bf16) where ``channels`` is a multiple of it and the buffers are
+    16-byte aligned, else 1."""
+    per = 16 // ITEMSIZE[dtype]
+    return per if aligned and channels % per == 0 else 1
+
+
+def fwd_plan(width: int, channels: int, dtype: torch.dtype,
+             aligned: bool = True) -> Tuple[int, int]:
+    """(c_chunk, smem_bytes): the channels one block of the forward (and
+    of the transposed pass H) holds for a whole row of ``width`` pixels
+    in shared memory, and the bytes that takes.
+
+    The chunk halves, in whole vectors (:func:`vector_width`), from all
+    ``channels`` until the row's chunk fits :data:`SMEM_TARGET`; a row
+    whose single vector per pixel exceeds :data:`SMEM_MAX` raises. The
+    plan depends on the shape alone, so the backward's block partials,
+    and d_theta's bits, are the same on every card.
+    """
+    size = ITEMSIZE[dtype]
+    vec = vector_width(channels, dtype, aligned)
+    least = width * vec * size
+    if least > SMEM_MAX:
+        raise ValueError(
+            f"two_pass_warp keeps a row of {width} pixels in shared memory; "
+            f"one vector of {vec} {str(dtype).split('.')[1]} channels per "
+            f"pixel takes {least} bytes, over the {SMEM_MAX} bytes a block "
+            "may use on the card")
+
+    chunk = channels
+    while width * chunk * size > SMEM_TARGET and chunk > vec:
+        chunk = max(vec, -(-(chunk // 2) // vec) * vec)
+    return chunk, width * chunk * size
+
+
+def _plan(img: torch.Tensor, *others: torch.Tensor) -> Tuple[int, int, int]:
+    """(vec, c_chunk, smem_bytes) of a launch over ``img`` and the other
+    buffers of its shape and dtype, checked against the kernel's int32
+    block count."""
+    bsz, h, w, ch = img.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (img,) + others)
+    vec = vector_width(ch, img.dtype, aligned)
+    c_chunk, smem = fwd_plan(w, ch, img.dtype, aligned)
+    if c_chunk and bsz * h * -(-ch // c_chunk) >= 2 ** 31:
+        raise ValueError(f"img shape {tuple(img.shape)} needs more than "
+                         "2^31 blocks")
+    return vec, c_chunk, smem
 
 
 def check_card_args(img: torch.Tensor, theta: torch.Tensor,
@@ -93,26 +152,29 @@ def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def _forward(img: torch.Tensor, theta: torch.Tensor, padding_mode: str,
-             align_corners: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, V): the plain version on the CPU, the kernel on the card."""
-    global launches
+             align_corners: bool, keep_v: bool):
+    """(out, V): the plain version on the CPU (V always), the kernel on
+    the card (V only where ``keep_v``, else None)."""
+    global launches, v_stores
     if img.device.type == "cpu":
         return two_pass_affine_warp_plain_fwd(img, theta, padding_mode,
                                               align_corners)
     check_card_args(img, theta)
     bsz, h, w, ch = img.shape
     theta = theta.to(torch.float32).contiguous()
-    v = torch.empty_like(img)
     out = torch.empty_like(img)
+    v = torch.empty_like(img) if keep_v else None
+    plan = _plan(img, out, *([v] if keep_v else []))
     lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_two_pass_warp_fwd(
-            img.data_ptr(), v.data_ptr(), out.data_ptr(), theta.data_ptr(),
-            bsz, h, w, ch, DTYPE_CODE[img.dtype],
-            int(padding_mode == "border"), int(align_corners), stream)
+            img.data_ptr(), v.data_ptr() if keep_v else None, out.data_ptr(),
+            theta.data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
+            int(padding_mode == "border"), int(align_corners), *plan, stream)
     raise_on(lib, err, "two_pass_warp forward")
     launches += LAUNCHES_PER_CALL
+    v_stores += int(keep_v)
     return out, v
 
 
@@ -123,9 +185,10 @@ def two_pass_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
     """(d_img, d_theta) of the warp, given the forward's ``img``, V and
     ``theta`` and the contiguous cotangent ``grad_out`` of its output.
 
-    On the card: the two backward kernels, then a sum of their per-block
-    theta partials and the chain through the line coefficients. On the
-    CPU: :func:`two_pass_affine_warp_plain_bwd`.
+    On the card: the two transposed passes and the theta kernel, which
+    sums their per-block partials and chains them to d_theta; the host
+    allocates and launches, nothing else. On the CPU:
+    :func:`two_pass_affine_warp_plain_bwd`.
     """
     global bwd_launches
     check_warp_args(img, theta, padding_mode)
@@ -140,23 +203,23 @@ def two_pass_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
                              f"tensor of img's shape {tuple(img.shape)}")
     bsz, h, w, ch = img.shape
     th = theta.to(torch.float32).contiguous()
-    lib = _library()
-    stride = lib.cadepth_two_pass_warp_bwd_stride(w, ch)
     d_v = torch.empty_like(img)
     d_img = torch.empty_like(img)
-    part = torch.empty(2, bsz, h * stride, 3, dtype=torch.float32,
-                       device=img.device)
+    plan = _plan(img, v, grad_out, d_v, d_img)
+    blocks = bsz * h * (-(-ch // plan[1]) if plan[1] else 0)
+    part = torch.empty(2 * blocks * 3, dtype=torch.float32, device=img.device)
+    d_theta = torch.empty(bsz, 2, 3, dtype=torch.float32, device=img.device)
+    lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_two_pass_warp_bwd(
             grad_out.data_ptr(), v.data_ptr(), img.data_ptr(), th.data_ptr(),
-            d_v.data_ptr(), d_img.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
-            int(padding_mode == "border"), int(align_corners), stream)
+            d_v.data_ptr(), d_img.data_ptr(), part.data_ptr(),
+            d_theta.data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
+            int(padding_mode == "border"), int(align_corners), *plan, stream)
     raise_on(lib, err, "two_pass_warp backward")
     bwd_launches += BWD_LAUNCHES_PER_CALL
-    partials = torch.cat([part[0].sum(1), part[1].sum(1)], dim=-1)  # (B, 6)
-    return d_img, chain_theta(th, partials, h, w, align_corners)
+    return d_img, d_theta
 
 
 class TwoPassWarp(torch.autograd.Function):
@@ -164,7 +227,8 @@ class TwoPassWarp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, img, theta, padding_mode, align_corners):
-        out, v = _forward(img, theta, padding_mode, align_corners)
+        out, v = _forward(img, theta, padding_mode, align_corners,
+                          keep_v=True)
         ctx.save_for_backward(img, v, theta)
         ctx.padding_mode = padding_mode
         ctx.align_corners = align_corners
@@ -197,6 +261,6 @@ def two_pass_warp(img: torch.Tensor, theta: torch.Tensor,
     differentiable while grad mode is on.
     """
     check_warp_args(img, theta, padding_mode)
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() and (img.requires_grad or theta.requires_grad):
         return TwoPassWarp.apply(img, theta, padding_mode, align_corners)
-    return _forward(img, theta, padding_mode, align_corners)[0]
+    return _forward(img, theta, padding_mode, align_corners, keep_v=False)[0]

@@ -9,35 +9,42 @@ Phases, each fatal on failure:
 1. the card: name and power limit from nvidia-smi; TF32 off for the f32
    comparisons;
 2. build: every kernel under cadepth_tpu_torch/csrc, compiled by nvcc;
-3. kernel against plain: the two-pass warp kernel against its plain
-   PyTorch version at the five decoder shapes of the flagship (B=8,
-   240x320, init_features 64), f32 and bf16, five thetas, both paddings;
+3. kernel against plain: the two-pass warp's one-launch forward, without
+   V (serving) and storing V (training), against its plain PyTorch
+   version at the five decoder shapes of the flagship (B=8, 240x320,
+   init_features 64), f32 and bf16, five thetas and four general ones
+   (90 degree rotation, zoom 0.3 and 3, a singular map with q = 0), both
+   paddings, both align_corners;
 4. serving: a Predictor over the flagship at full width (f=64, 240x320,
    batch 8, bf16 over fp32 parameters, seeded random weights with a
    rotating PCL head) answers N=8, N=3 and a stream of 4 requests; the
-   warp's launch count must be exactly 2 per PCL per forward; the depths
-   must be finite, inside (0, max_depth), and agree with the same model
-   run with the plain warp on the card; a small f32 model on the card must
-   agree with the same model on the CPU;
-5. times: per decoder level the kernel (CUDA events), its bound, the
-   plain version and F.grid_sample's time; the Predictor's latency at
-   batch 8 and batch 1; peak device memory;
-6. backward against plain: the warp's two backward kernels against the
-   plain backward at the five decoder shapes at the training batch (B=4),
-   f32 and bf16, five thetas (the exact identity among them), both
-   paddings;
+   warp's launch count must be exactly 1 per PCL per forward, with no V
+   stored; the depths must be finite, inside (0, max_depth), and agree
+   with the same model run with the plain warp on the card; a small f32
+   model on the card must agree with the same model on the CPU;
+5. times: per decoder level the serving forward (no V; CUDA events and
+   its device time), its bound, the plain version and F.grid_sample's
+   time; the Predictor's latency at batch 8 and batch 1; peak device
+   memory;
+6. backward against plain: the warp's three backward kernels (two
+   transposed passes, then the theta partials' sum and the chain to
+   d_theta on the card) against the plain backward at the five decoder
+   shapes at the training batch (B=4), f32 and bf16, phase 3's thetas
+   (the exact identity among them), both paddings, both align_corners;
+   two runs give the same bits;
 7. training: the flagship as geometry_aware_full ships it (f=64,
    240x320, batch 4, bf16 over fp32 parameters, AdamW, clip 1.0, the
    step schedule with warmup) takes 10 steps on seeded batches, then an
-   eval step; logs finite, parameters and BN statistics moved, exactly 10
-   forward and 10 backward warp launches per step, and the same steps
-   with the plain warp give the same logs;
+   eval step; logs finite, parameters and BN statistics moved, exactly 5
+   forward launches (each storing V) and 15 backward launches per step,
+   and the same steps with the plain warp give the same logs;
 8. a small f32 model takes 3 train steps on the card and on the CPU from
    the same weights and batches;
-9. training times: per decoder level the backward kernels (device time),
-   their bound, the plain backward and the backward of F.grid_sample;
-   the train step's p50/p95 and images/s, the device's busy share over 3
-   profiled steps, peak device memory;
+9. training times: per decoder level the training forward (storing V),
+   the backward call (its three kernels, and the two passes alone),
+   their bounds, the backward call's host time, the plain backward and
+   the backward of F.grid_sample; the train step's p50/p95 and images/s,
+   the device's busy share over 3 profiled steps, peak device memory;
 10. the banded ("fused") warp's kernels against its plain versions: the
    forward (V and the output) at the five decoder shapes at B=8, the
    backward at B=4, f32 and bf16, the five thetas and a 0.2 rad rotation
@@ -103,6 +110,14 @@ THETAS = {
     "rotation": [[0.999, -0.03, 0.02], [0.03, 0.999, 0.01]],
     "shear": [[1.0, 0.1, 0.0], [0.05, 1.0, 0.0]],
 }
+# the two-pass warp's checks also take thetas whose transposed passes
+# visit a whole row or column (|A| or |q| near 0) or next to nothing
+GENERAL_THETAS = {
+    "rotation_90": [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0]],
+    "zoom_0.3": [[0.3, 0.0, 0.05], [0.0, 0.3, -0.05]],
+    "zoom_3": [[3.0, 0.0, 0.1], [0.0, 3.0, -0.1]],
+    "q_zero": [[1.0, 0.5, 0.0], [0.5, 0.25, 0.0]],
+}
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}  # bf16: a few ulps at |x| ~ 4
 # backward, kernel vs plain: d_img at these atols times max(1, max|d_img|)
 # (d_v's f32 sums run in another order, so a bf16 d_v can round the other
@@ -135,6 +150,10 @@ LOSS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 TPU_KERNEL = "cadepth_tpu/ops/pallas/two_pass_warp.py"
+# the two-pass warp's kernels (substrings of their names in a profile)
+TWO_PASS_FWD_KEYS = ("two_pass_fwd_kernel",)
+TWO_PASS_BWD_KEYS = ("two_pass_bwd_h_kernel", "two_pass_bwd_v_kernel",
+                     "two_pass_theta_kernel")
 FUSED_KERNEL = "cadepth_tpu/ops/pallas/fused_warp.py"
 LOSS_KERNEL = "cadepth_tpu/ops/pallas/fused_loss.py"
 AFFINE_KERNEL = "cadepth_tpu/ops/pallas/affine_warp.py"
@@ -255,14 +274,32 @@ class Timer:
         return (time.perf_counter() - t0) * 1000.0 / iters
 
 
+def two_pass_thetas(device, b: int, gen):
+    """(name, theta) of the two-pass checks: THETAS and GENERAL_THETAS."""
+    import torch
+
+    out = []
+    for tname, th in dict(THETAS, **GENERAL_THETAS).items():
+        theta = torch.tensor(th, device=device).expand(b, 2, 3).contiguous()
+        if tname == "identity_noise":
+            theta = theta + 0.01 * torch.randn(b, 2, 3, device=device,
+                                               generator=gen)
+        out.append((tname, theta))
+    return out
+
+
 def check_kernel(device, shapes, seed: int):
-    """Phase 3: the kernel against its plain version. Returns the max
-    error per dtype."""
+    """Phase 3: the one-launch forward against its plain version, as
+    served (no V) and as trained (V stored, and equal to the plain V).
+    Returns the max error per dtype."""
     import torch
 
     from cadepth_tpu_torch.ops import two_pass_warp as warp
-    from cadepth_tpu_torch.ops.affine_warp import two_pass_affine_warp_plain
+    from cadepth_tpu_torch.ops.affine_warp import (
+        two_pass_affine_warp_plain_fwd,
+    )
 
+    cuda = device.type == "cuda"
     gen = torch.Generator(device=device).manual_seed(seed)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for level, shape in shapes:
@@ -272,32 +309,38 @@ def check_kernel(device, shapes, seed: int):
             name = str(dtype).split(".")[1]
             img = img32.to(dtype)
             for pad in ("zeros", "border"):
-                errs = []
-                for tname, th in THETAS.items():
-                    theta = torch.tensor(th, device=device).expand(b, 2, 3) \
-                        .contiguous()
-                    if tname == "identity_noise":
-                        theta = theta + 0.01 * torch.randn(
-                            b, 2, 3, device=device, generator=gen)
-                    before = warp.launches
-                    got = warp.two_pass_warp(img, theta, pad, False)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize()
-                        if warp.launches != before + warp.LAUNCHES_PER_CALL:
-                            raise AssertionError("two_pass_warp did not count "
-                                                 "its launches")
-                    want = two_pass_affine_warp_plain(img, theta, pad, False)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    if not err <= ATOL[name]:
-                        raise AssertionError(
-                            f"kernel vs plain {level} {tuple(shape)} {name} "
-                            f"{pad} {tname}: max err {err} > {ATOL[name]}")
-                    errs.append(f"{tname}={err:.3g}")
-                    worst[name] = max(worst[name], err)
-                log(f"  {level} {tuple(shape)} {name:8s} {pad:6s} max|err| "
-                    + " ".join(errs) + f"  (atol {ATOL[name]})")
+                for ac in (False, True):
+                    errs = []
+                    for tname, theta in two_pass_thetas(device, b, gen):
+                        before, stores = warp.launches, warp.v_stores
+                        got = warp.two_pass_warp(img, theta, pad, ac)
+                        out, v = warp._forward(img, theta, pad, ac,
+                                               keep_v=True)
+                        if cuda:
+                            torch.cuda.synchronize()
+                            if warp.launches != \
+                                    before + 2 * warp.LAUNCHES_PER_CALL or \
+                                    warp.v_stores != stores + 1:
+                                raise AssertionError(
+                                    "two_pass_warp did not count its "
+                                    "launches and V stores")
+                        want, want_v = two_pass_affine_warp_plain_fwd(
+                            img, theta, pad, ac)
+                        if cuda:
+                            torch.cuda.synchronize()
+                        err = max((a.float() - w.float()).abs().max().item()
+                                  for a, w in ((got, want), (out, want),
+                                               (v, want_v)))
+                        if not err <= ATOL[name]:
+                            raise AssertionError(
+                                f"kernel vs plain {level} {tuple(shape)} "
+                                f"{name} {pad} align_corners={ac} {tname}: "
+                                f"max err {err} > {ATOL[name]}")
+                        errs.append(f"{tname}={err:.3g}")
+                        worst[name] = max(worst[name], err)
+                    log(f"  {level} {tuple(shape)} {name:8s} {pad:6s} "
+                        f"ac={int(ac)} max|err| (served, trained, V) "
+                        + " ".join(errs) + f"  (atol {ATOL[name]})")
     return worst
 
 
@@ -348,7 +391,7 @@ def serve(device, args):
     stream = [(rgb8[j:j + m], k[j:j + m]) for j in rows]
 
     # the main path, counted
-    warp.launches = 0
+    warp.launches = warp.v_stores = 0
     depth8 = pred.predict(rgb8, k)
     depth3 = pred.predict(rgb3, k[:3])
     streamed = list(pred.predict_stream(iter(stream), depth=2))
@@ -357,9 +400,11 @@ def serve(device, args):
     per_forward = warp.LAUNCHES_PER_CALL * len(pcls)
     expected = per_forward * forwards if device.type == "cuda" else 0
     log(f"  main path: {forwards} forwards, two_pass_warp launches "
-        f"{launches} (expected {expected} = {per_forward} per forward)")
-    if launches != expected:
-        raise AssertionError(f"launch count {launches} != {expected}")
+        f"{launches} (expected {expected} = {per_forward} per forward), "
+        f"V stored by {warp.v_stores} of them (expected 0)")
+    if launches != expected or warp.v_stores:
+        raise AssertionError(f"launch count {launches} != {expected}, or "
+                             f"{warp.v_stores} launches stored V")
     want_shapes = [s for _, s in decoder_shapes(bsz, h, w, f)]
     got_shapes = [s for s, _, _ in seen[:len(pcls)]]
     if got_shapes != [tuple(s) for s in want_shapes]:
@@ -513,7 +558,7 @@ def device_rows(prof, calls: int):
 
 
 def profile_forward(pred, card: str, forwards: int = 3,
-                    warp_keys=("pass_v_kernel", "pass_h_kernel"),
+                    warp_keys=TWO_PASS_FWD_KEYS,
                     warp_name: str = "two_pass_warp"):
     """Where a batch's forward spends the card's time: device time by
     kernel and the device's busy share of the wall time; the warp is the
@@ -561,7 +606,7 @@ def times(device, args, pred, card: str):
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     rows, total = level_times(device, args, card, "two_pass_warp",
                               warp.two_pass_warp, two_pass_affine_warp_plain,
-                              warp, ("pass_v_kernel", "pass_h_kernel"))
+                              warp, TWO_PASS_FWD_KEYS)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     bench = pred.benchmark(iterations=args.bench_iters, warmup=5)
@@ -683,9 +728,9 @@ def synthetic_batch(rng, batch: int, height: int, width: int, device):
 
 
 def check_backward(device, shapes, seed: int):
-    """Phase 6: the backward kernels against the plain backward. Returns
-    the worst errors: d_img per dtype, and d_theta over its largest
-    |entry|."""
+    """Phase 6: the backward kernels against the plain backward, and two
+    runs of them against each other (the same bits). Returns the worst
+    errors: d_img per dtype, and d_theta over its largest |entry|."""
     import torch
 
     from cadepth_tpu_torch.ops import two_pass_warp as warp
@@ -694,6 +739,7 @@ def check_backward(device, shapes, seed: int):
         two_pass_affine_warp_plain_fwd,
     )
 
+    cuda = device.type == "cuda"
     gen = torch.Generator(device=device).manual_seed(seed)
     worst = {"float32": 0.0, "bfloat16": 0.0, "d_theta": 0.0}
     for level, shape in shapes:
@@ -704,40 +750,51 @@ def check_backward(device, shapes, seed: int):
             name = str(dtype).split(".")[1]
             img, grad = img32.to(dtype), grad32.to(dtype)
             for pad in ("zeros", "border"):
-                errs = []
-                for tname, th in THETAS.items():
-                    theta = torch.tensor(th, device=device).expand(b, 2, 3) \
-                        .contiguous()
-                    if tname == "identity_noise":
-                        theta = theta + 0.01 * torch.randn(
-                            b, 2, 3, device=device, generator=gen)
-                    _, v = two_pass_affine_warp_plain_fwd(img, theta, pad)
-                    before = warp.bwd_launches
-                    got = warp.two_pass_warp_bwd(img, v, theta, grad, pad)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize()
-                        if warp.bwd_launches != \
-                                before + warp.BWD_LAUNCHES_PER_CALL:
-                            raise AssertionError("two_pass_warp_bwd did not "
-                                                 "count its launches")
-                    want = two_pass_affine_warp_plain_bwd(img, v, theta,
-                                                          grad, pad)
-                    scale = max(1.0, want[0].float().abs().max().item())
-                    err = (got[0].float() - want[0].float()).abs().max().item()
-                    t_err = ((got[1] - want[1]).abs().max()
-                             / want[1].abs().max().clamp_min(1e-12)).item()
-                    if not (err <= BWD_ATOL[name] * scale
-                            and t_err <= THETA_ATOL[name]):
-                        raise AssertionError(
-                            f"backward kernel vs plain {level} {tuple(shape)} "
-                            f"{name} {pad} {tname}: d_img err {err} (atol "
-                            f"{BWD_ATOL[name]} x {scale:.3g}), d_theta err "
-                            f"{t_err} (atol {THETA_ATOL[name]})")
-                    errs.append(f"{tname}={err:.3g}/{t_err:.2g}")
-                    worst[name] = max(worst[name], err)
-                    worst["d_theta"] = max(worst["d_theta"], t_err)
-                log(f"  {level} {tuple(shape)} {name:8s} {pad:6s} "
-                    "max|d_img err|/rel d_theta err " + " ".join(errs))
+                for ac in (False, True):
+                    errs = []
+                    for tname, theta in two_pass_thetas(device, b, gen):
+                        _, v = two_pass_affine_warp_plain_fwd(img, theta, pad,
+                                                              ac)
+                        before = warp.bwd_launches
+                        got = warp.two_pass_warp_bwd(img, v, theta, grad, pad,
+                                                     ac)
+                        if cuda:
+                            torch.cuda.synchronize()
+                            if warp.bwd_launches != \
+                                    before + warp.BWD_LAUNCHES_PER_CALL:
+                                raise AssertionError("two_pass_warp_bwd did "
+                                                     "not count its launches")
+                        want = two_pass_affine_warp_plain_bwd(img, v, theta,
+                                                              grad, pad, ac)
+                        scale = max(1.0, want[0].float().abs().max().item())
+                        err = (got[0].float() - want[0].float()).abs().max() \
+                            .item()
+                        t_err = ((got[1] - want[1]).abs().max()
+                                 / want[1].abs().max().clamp_min(1e-12)).item()
+                        if not (err <= BWD_ATOL[name] * scale
+                                and t_err <= THETA_ATOL[name]):
+                            raise AssertionError(
+                                f"backward kernel vs plain {level} "
+                                f"{tuple(shape)} {name} {pad} align_corners="
+                                f"{ac} {tname}: d_img err {err} (atol "
+                                f"{BWD_ATOL[name]} x {scale:.3g}), d_theta "
+                                f"err {t_err} (atol {THETA_ATOL[name]})")
+                        if tname == "rotation" and not ac:
+                            again = warp.two_pass_warp_bwd(img, v, theta, grad,
+                                                           pad, ac)
+                            if not (torch.equal(again[0], got[0])
+                                    and torch.equal(again[1], got[1])):
+                                raise AssertionError(
+                                    f"backward {level} {name} {pad}: two runs "
+                                    "differ")
+                        errs.append(f"{tname}={err:.3g}/{t_err:.2g}")
+                        worst[name] = max(worst[name], err)
+                        worst["d_theta"] = max(worst["d_theta"], t_err)
+                    log(f"  {level} {tuple(shape)} {name:8s} {pad:6s} "
+                        f"ac={int(ac)} max|d_img err|/rel d_theta err "
+                        + " ".join(errs))
+    log("  the rotation's backward, run twice at each level, dtype and "
+        "padding: the same bits")
     return worst
 
 
@@ -830,23 +887,31 @@ def train(device, args, mode: str = "two_pass", steps=None):
     # the main path, counted
     for m in (warp, other):
         m.launches = m.bwd_launches = m.grad_copies = 0
+    tpw.v_stores = 0
     logs, step = run(kernel_warp)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches, bwd_launches = warp.launches, warp.bwd_launches
-    grad_copies = warp.grad_copies
+    grad_copies, v_stores = warp.grad_copies, tpw.v_stores
     logs = [{k: float(v) for k, v in x.items()} for x in logs]
-    per_step = warp.LAUNCHES_PER_CALL * len(pcl_layers(model))
+    n_pcl = len(pcl_layers(model))
+    per_step = warp.LAUNCHES_PER_CALL * n_pcl
+    bwd_per_step = warp.BWD_LAUNCHES_PER_CALL * n_pcl
     cuda = device.type == "cuda"
     want = per_step * steps if cuda else 0
-    log(f"  main path: {steps} train steps, {name} launches {launches}, "
-        f"{name}_bwd launches {bwd_launches} (expected {want} each = "
-        f"{per_step} per step); {grad_copies} of "
-        f"{len(pcl_layers(model)) * steps} backward calls copied "
+    want_bwd = bwd_per_step * steps if cuda else 0
+    # the two-pass forward stores V once per training call
+    want_v = n_pcl * steps if cuda and mode != "fused" else 0
+    log(f"  main path: {steps} train steps, {name} launches {launches} "
+        f"(expected {want} = {per_step} per step), {name}_bwd launches "
+        f"{bwd_launches} (expected {want_bwd} = {bwd_per_step} per step); "
+        f"two_pass_warp V stores {v_stores} (expected {want_v}); "
+        f"{grad_copies} of {n_pcl * steps} backward calls copied "
         "a non-contiguous incoming gradient")
-    if launches != want or bwd_launches != want:
-        raise AssertionError(f"launch counts {launches}, {bwd_launches} != "
-                             f"{want}")
+    if launches != want or bwd_launches != want_bwd or v_stores != want_v:
+        raise AssertionError(f"launch counts {launches}, {bwd_launches}, "
+                             f"V stores {v_stores} != {want}, {want_bwd}, "
+                             f"{want_v}")
     if other.launches or other.bwd_launches:
         raise AssertionError(f"pcl_warp {mode} launched the other warp's "
                              "kernels")
@@ -905,12 +970,14 @@ def train(device, args, mode: str = "two_pass", steps=None):
     for pcl in pcl_layers(model):
         pcl.warp = kernel_warp
     fwd_keys = ("fused_v_kernel", "pass_h_kernel") if mode == "fused" \
-        else ("pass_v_kernel", "pass_h_kernel")
-    bwd_keys = ("bwd_pass_kernel", "fused_bwd_v_kernel")
+        else TWO_PASS_FWD_KEYS
+    bwd_keys = ("bwd_pass_kernel", "fused_bwd_v_kernel") if mode == "fused" \
+        else TWO_PASS_BWD_KEYS
     return {"model": model, "loss_fn": loss_fn, "cfg": cfg, "step": step,
             "fwd_keys": fwd_keys, "bwd_keys": bwd_keys, "name": name,
             "batches": batches, "launches": launches,
             "bwd_launches": bwd_launches, "per_step": per_step,
+            "bwd_per_step": bwd_per_step, "v_stores": v_stores,
             "grad_copies": grad_copies, "logs": logs, "eval": ev,
             "kernel_vs_plain_rel": plain, "kernel_vs_kernel_rel": again}
 
@@ -966,8 +1033,10 @@ def cross_device_train(device, args):
 def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
     """Phase 9a (and 14a): per decoder level at the training batch, the
     backward kernels of ``name`` ("two_pass_warp" or "fused_warp"), their
-    bound, the plain backward and the backward of
-    F.grid_sample(F.affine_grid(theta)), bf16."""
+    bound, the backward call's host time (the host clock over back-to-back
+    calls, without a synchronize), the plain backward and the backward of
+    F.grid_sample(F.affine_grid(theta)), bf16; for the two-pass warp also
+    the training forward, which stores V."""
     import torch
     import torch.nn.functional as F
 
@@ -985,7 +1054,7 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
     else:
         counted, plain_fwd = warp, two_pass_affine_warp_plain_fwd
         kernel, plain = warp.two_pass_warp_bwd, two_pass_affine_warp_plain_bwd
-        keys = ("bwd_pass_kernel",)
+        keys = TWO_PASS_BWD_KEYS
     cuda = device.type == "cuda"
     timer = Timer(device)
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
@@ -1031,7 +1100,16 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
             if call == "kernel" and cuda and counted.bwd_launches == before:
                 raise AssertionError(f"timing loop did not launch the "
                                      f"{name} backward kernels")
+            if call == "kernel":
+                # the host's time per call: enqueueing back-to-back calls
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                row["kernel_host_ms"] = (time.perf_counter() - t0) * 1e3 / n
+                if cuda:
+                    torch.cuda.synchronize()
             row[f"{call}_ms"] = row.setdefault("kernel_call_ms", None)
+            row.setdefault("passes_ms", None)
             if cuda:
                 expect = dict(kernels=keys,
                               launches=counted.BWD_LAUNCHES_PER_CALL) \
@@ -1039,12 +1117,31 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
                 total, per_kernel = device_ms(fn, n, **expect)
                 row[f"{call}_ms"] = total
                 if call == "kernel":
-                    # the two launches alone, and the whole call (with the
-                    # partials' sum and the chain to d_theta)
+                    # the backward's kernels (the two-pass warp's theta
+                    # kernel among them), the transposed passes alone, and
+                    # the whole call (the fused warp's with the partials'
+                    # sum and the chain to d_theta in PyTorch)
                     row["kernel_ms"] = sum(
                         ms for key, ms in per_kernel.items()
                         if any(k in key for k in keys))
+                    row["passes_ms"] = sum(
+                        ms for key, ms in per_kernel.items()
+                        if any(k in key for k in keys[:2]))
                     row["kernel_call_ms"] = total
+        if name == "two_pass_warp":
+            # the training forward: the one launch, storing V; reads img,
+            # writes out and V
+            fwd_bytes = 3 * elems * img.element_size()
+            row["train_fwd_bound_ms"] = max(fwd_bytes / HBM_BYTES_PER_S,
+                                            6 * elems / F32_FLOPS_PER_S) * 1e3
+
+            def fwd():
+                return warp._forward(img, theta, "zeros", False, keep_v=True)
+
+            row["train_fwd_wall_ms"] = timer(fwd, args.timing_iters, 2)
+            row["train_fwd_ms"] = device_ms(
+                fwd, args.timing_iters, kernels=TWO_PASS_FWD_KEYS,
+                launches=warp.LAUNCHES_PER_CALL)[0] if cuda else None
         rows[level] = row
 
         def fmt(call):
@@ -1054,16 +1151,32 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
                 f" / {row[f'{call}_wall_ms']:.4f} ms wall"
         share = (f", {row['bound_ms'] / row['kernel_ms']:.1%} of bound"
                  if row["kernel_ms"] else "")
-        call = (f" ({row['kernel_call_ms']:.4f} ms device with the partials' "
-                "sum and the d_theta chain)" if row.get("kernel_call_ms")
-                else "")
+        call = (f" (passes {row['passes_ms']:.4f} ms, "
+                f"{row['bound_ms'] / row['passes_ms']:.1%} of bound; the "
+                f"whole call {row['kernel_call_ms']:.4f} ms device)"
+                if row.get("kernel_call_ms") else "")
         log(f"  [{card}] {level} {shape} bf16 {name} backward: kernels "
-            f"{fmt('kernel')}{call}; bound {row['bound_ms'] * 1e3:.1f} us "
+            f"{fmt('kernel')}{call}; host {row['kernel_host_ms']:.4f} ms per "
+            f"call; bound {row['bound_ms'] * 1e3:.1f} us "
             f"({row['bound_by']}, {bytes_moved / 1e6:.1f} MB; the two "
-            f"launches move {row['two_launch_bytes'] / 1e6:.1f} MB){share}; "
+            f"passes move {row['two_launch_bytes'] / 1e6:.1f} MB){share}; "
             f"plain {fmt('plain')}; grid_sample backward {fmt('library')}"
             f"{unit}")
+        if "train_fwd_wall_ms" in row:
+            dev = row["train_fwd_ms"]
+            log(f"  [{card}] {level} {shape} bf16 {name} training forward "
+                "(V stored): " + (f"{dev:.4f} ms device, "
+                                  f"{row['train_fwd_bound_ms'] / dev:.1%} of "
+                                  if dev else "device not measured, ")
+                + f"bound {row['train_fwd_bound_ms'] * 1e3:.1f} us (3 maps)"
+                f" / {row['train_fwd_wall_ms']:.4f} ms wall{unit}")
     return rows
+
+
+def level_sum(rows, key: str):
+    """``key`` summed over the five levels' rows, None if one lacks it."""
+    vals = [r.get(key) for r in rows.values()]
+    return None if any(v is None for v in vals) else sum(vals)
 
 
 def train_times(device, args, card: str, tr, steps=None):
@@ -1550,7 +1663,7 @@ def set_head_rotation(model, rad: float) -> None:
 def serve_modes(device, args, card: str, weights, request):
     """Phase 16: the flagship with pcl_warp gather, auto and separable,
     phase 4's weights, served at full width (batch 8). The warp kernels
-    launched per forward (auto: the two-pass warp's 2 per PCL; gather and
+    launched per forward (auto: the two-pass warp's 1 per PCL; gather and
     separable: none); auto equal to phase 4's two-pass depths with the
     shipped heads and equal to gather with the heads turned past its bound;
     the banded affine warp on the gather forward's five PCL inputs, counted
@@ -1671,7 +1784,7 @@ def serve_modes(device, args, card: str, weights, request):
 
     for mode, pred in preds.items():
         bench = pred.benchmark(iterations=args.mode_bench_iters, warmup=3)
-        keys = ("pass_v_kernel", "pass_h_kernel") if mode == "auto" else ()
+        keys = TWO_PASS_FWD_KEYS if mode == "auto" else ()
         prof = profile_forward(
             pred, card, warp_keys=keys, warp_name="two_pass_warp" if keys
             else "warp kernels (none)") if cuda else None
@@ -1734,12 +1847,13 @@ def train_mode(device, args, card: str, mode: str, steps: int, **model):
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1000.0)
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    per_step = tpw.LAUNCHES_PER_CALL * len(pcl_layers(net))
-    want = per_step * steps if cuda and mode in ("auto", "two_pass") else 0
+    calls = len(pcl_layers(net)) * steps \
+        if cuda and mode in ("auto", "two_pass") else 0
+    want = (tpw.LAUNCHES_PER_CALL * calls, tpw.BWD_LAUNCHES_PER_CALL * calls)
     launches = (tpw.launches, tpw.bwd_launches)
-    if launches != (want, want) or fw.launches or fw.bwd_launches:
+    if launches != want or fw.launches or fw.bwd_launches:
         raise AssertionError(f"pcl_warp {mode} training: two_pass_warp "
-                             f"launches {launches}, expected {want} each; "
+                             f"launches {launches}, expected {want}; "
                              f"fused {fw.launches}, {fw.bwd_launches}")
     if not all(math.isfinite(v) for x in logs for v in x.values()):
         raise AssertionError(f"{mode}: non-finite logs {logs}")
@@ -1758,7 +1872,7 @@ def train_mode(device, args, card: str, mode: str, steps: int, **model):
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     log(f"  [{card}] pcl_warp {label}: {steps} steps at batch {bsz}, losses "
         + " ".join(f"{x['total_loss']:.5g}" for x in logs)
-        + f"; two_pass_warp launches {launches} (expected {want} each); step "
+        + f"; two_pass_warp launches {launches} (expected {want}); step "
         f"p50 {p50:.3f} ms (steps 2-{steps}){unit}"
         + (f"; device busy {busy:.3f} ms per step, {kernels} kernels; peak "
            f"{peak / 2**30:.3f} GiB" if cuda else ""))
@@ -1771,7 +1885,7 @@ def train_mode(device, args, card: str, mode: str, steps: int, **model):
 def serve_options(device, args, card: str):
     """Phase 17b: the flagship with norm group and decoder_upsample resize
     (seeded random weights, rotating heads) serves batch 8 once at full
-    width: finite depths, the two-pass warp's 2 launches per PCL."""
+    width: finite depths, the two-pass warp's 1 launch per PCL."""
     import numpy as np
     import torch
 
@@ -1936,6 +2050,11 @@ def main(argv=None) -> int:
 
     phase("9. training times")
     bwd_rows = bwd_times(device, args, card)
+    log(f"  [{card}] two_pass_warp over the five levels per train step: "
+        + ", ".join(f"{k} {v:.4f} ms" for k in (
+            "train_fwd_ms", "train_fwd_bound_ms", "kernel_ms", "passes_ms",
+            "bound_ms", "kernel_host_ms")
+            if (v := level_sum(bwd_rows, k)) is not None))
     train_out = train_times(device, args, card, tr)
     del tr["model"], tr["step"]
 
@@ -2026,10 +2145,16 @@ def main(argv=None) -> int:
                          f"{TPU_KERNEL}:125 _pass_h_kernel"],
         "launches": launches,
         "launches_per_forward": per_forward,
+        "launches_in_training": tr["launches"],
+        "v_stores_in_training": tr["v_stores"],
         "max_abs_err": max(worst.values()),
         "max_abs_err_by_dtype": worst,
         "ms": dec1["kernel_ms"],
-        "ms_how": "torch.profiler device time of both launches per call",
+        "ms_how": "torch.profiler device time of the one launch per call, "
+                  "as served (V kept in shared memory, none stored)",
+        "train_fwd_ms": bwd_dec1["train_fwd_ms"],
+        "train_fwd_at": f"dec1 {bwd_dec1['shape']} bf16, V stored",
+        "train_fwd_bound_ms": bwd_dec1["train_fwd_bound_ms"],
         "wall_ms": dec1["kernel_wall_ms"],
         "plain_ms": dec1["plain_ms"],
         "bound_ms": dec1["bound_ms"],
@@ -2052,13 +2177,21 @@ def main(argv=None) -> int:
         "replaces_all": [f"{TPU_KERNEL}:194 _bwd_h_kernel",
                          f"{TPU_KERNEL}:246 _bwd_v_kernel"],
         "launches": tr["bwd_launches"],
-        "launches_per_step": tr["per_step"],
+        "launches_per_step": tr["bwd_per_step"],
         "max_abs_err": max(bwd_worst["float32"], bwd_worst["bfloat16"]),
         "max_abs_err_by_dtype": bwd_worst,
         "ms": bwd_dec1["kernel_ms"],
-        "ms_how": "torch.profiler device time of both backward launches "
-                  "per call",
+        "ms_how": "torch.profiler device time of the three backward "
+                  "launches per call: both transposed passes, and the sum "
+                  "of their theta partials with the chain to d_theta",
+        "passes_ms": bwd_dec1["passes_ms"],
+        "per_step_ms": level_sum(bwd_rows, "kernel_ms"),
+        "per_step_passes_ms": level_sum(bwd_rows, "passes_ms"),
+        "per_step_bound_ms": level_sum(bwd_rows, "bound_ms"),
+        "per_step_train_fwd_ms": level_sum(bwd_rows, "train_fwd_ms"),
+        "per_step_host_ms": level_sum(bwd_rows, "kernel_host_ms"),
         "call_ms": bwd_dec1["kernel_call_ms"],
+        "host_ms": bwd_dec1["kernel_host_ms"],
         "wall_ms": bwd_dec1["kernel_wall_ms"],
         "plain_ms": bwd_dec1["plain_ms"],
         "bound_ms": bwd_dec1["bound_ms"],
@@ -2068,8 +2201,10 @@ def main(argv=None) -> int:
         "library_ms": bwd_dec1["library_ms"],
         "library": "backward of F.grid_sample(F.affine_grid(theta))",
         "at": f"dec1 {bwd_dec1['shape']} bf16",
-        "levels": {k: {m: r[m] for m in ("kernel_ms", "kernel_call_ms",
-                                         "kernel_wall_ms", "plain_ms",
+        "levels": {k: {m: r[m] for m in ("kernel_ms", "passes_ms",
+                                         "kernel_call_ms", "kernel_host_ms",
+                                         "kernel_wall_ms", "train_fwd_ms",
+                                         "train_fwd_bound_ms", "plain_ms",
                                          "library_ms", "bound_ms")}
                    for k, r in bwd_rows.items()},
     }, {
@@ -2078,8 +2213,7 @@ def main(argv=None) -> int:
         "source": "cadepth_tpu_torch/csrc/fused_warp.cu",
         "replaces": f"{FUSED_KERNEL}:110",
         "replaces_all": [f"{FUSED_KERNEL}:110 _fwd_v_banded_kernel",
-                         f"{TPU_KERNEL}:125 _pass_h_kernel (pass H, shared "
-                         "with two_pass_warp)"],
+                         f"{TPU_KERNEL}:125 _pass_h_kernel (pass H)"],
         "launches": f_launches,
         "launches_per_forward": f_per_forward,
         "launches_in_training": ftr["launches"],
@@ -2106,8 +2240,8 @@ def main(argv=None) -> int:
         "source": "cadepth_tpu_torch/csrc/fused_warp.cu",
         "replaces": f"{FUSED_KERNEL}:150",
         "replaces_all": [f"{FUSED_KERNEL}:150 _bwd_v_banded_kernel",
-                         f"{TPU_KERNEL}:194 _bwd_h_kernel (shared with "
-                         "two_pass_warp_bwd)"],
+                         f"{TPU_KERNEL}:194 _bwd_h_kernel (transposed "
+                         "pass H)"],
         "launches": ftr["bwd_launches"],
         "launches_per_step": ftr["per_step"],
         "max_abs_err": max(fbwd_worst["float32"], fbwd_worst["bfloat16"]),

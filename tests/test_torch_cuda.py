@@ -37,10 +37,23 @@ THETAS = {
     "shear": [[1.0, 0.1, 0.0], [0.05, 1.0, 0.0]],
     "a_tiny": [[4e-4, 0.1, 0.05], [0.2, 0.9, 0.0]],
 }
+# thetas whose transposed passes visit a whole row or column (|A| or |q|
+# near 0) or none of it: a 90 degree rotation (A = 0, clamped), zooms
+# out and in, a singular map with q = E - p B = 0
+GENERAL = {
+    "rotation_90": [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0]],
+    "zoom_0.3": [[0.3, 0.0, 0.05], [0.0, 0.3, -0.05]],
+    "zoom_3": [[3.0, 0.0, 0.1], [0.0, 3.0, -0.1]],
+    "q_zero": [[1.0, 0.5, 0.0], [0.5, 0.25, 0.0]],
+}
+TWO_PASS_THETAS = dict(THETAS, **GENERAL)
 # odd sizes, channel counts that do and do not fill 16-byte vectors, and
 # the flagship's dec5 map (at the serving and the training batch)
 SHAPES = [(2, 24, 32, 8), (3, 15, 20, 16), (2, 14, 20, 32), (1, 7, 9, 3),
           (2, 5, 6, 12), (8, 14, 20, 1024), (4, 14, 20, 1024)]
+# the flagship's five decoder maps (f=64, 240x320) at batch 2
+LEVELS = [(2, 2 * (240 >> k), 2 * (320 >> k), 64 << (k - 1))
+          for k in (5, 4, 3, 2, 1)]
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -58,11 +71,12 @@ def test_kernel_matches_plain_on_card():
     rng = np.random.default_rng(0)
     for shape in SHAPES:
         img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
-        for name, th in THETAS.items():
+        for name, th in TWO_PASS_THETAS.items():
             theta = np.tile(np.asarray(th, np.float32)[None], (shape[0], 1, 1))
             theta = torch.from_numpy(
                 theta + rng.normal(scale=0.01, size=theta.shape)
-                .astype(np.float32) * (name != "a_tiny")).cuda()
+                .astype(np.float32) * (name in THETAS and name != "a_tiny")
+            ).cuda()
             for dtype, atol in ATOL.items():
                 x = img.to(dtype)
                 for pad in ("zeros", "border"):
@@ -76,6 +90,40 @@ def test_kernel_matches_plain_on_card():
                         assert got.dtype == dtype and got.shape == x.shape
                         err = (got.float() - want.float()).abs().max().item()
                         assert err <= atol, (shape, name, dtype, pad, ac, err)
+
+
+@pytest.mark.cuda
+def test_one_launch_forward_is_bit_equal_at_the_decoder_levels():
+    """The one-launch forward, serving (no V) and training (V stored),
+    equals the plain version exactly (max err 0, up to the sign of a
+    zero) at the flagship's five decoder maps, f32 and bf16, every theta,
+    both paddings and both align_corners; the stored V equals the plain
+    V; serving stores none."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    for shape in LEVELS:
+        img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        for name, th in TWO_PASS_THETAS.items():
+            theta = torch.from_numpy(np.tile(np.asarray(th, np.float32)[None],
+                                             (shape[0], 1, 1))).cuda()
+            for dtype in ATOL:
+                x = img.to(dtype)
+                for pad in ("zeros", "border"):
+                    for ac in (False, True):
+                        what = (shape, name, dtype, pad, ac)
+                        want, want_v = two_pass_affine_warp_plain_fwd(
+                            x, theta, pad, ac)
+                        stores = warp_mod.v_stores
+                        served, none = warp_mod._forward(x, theta, pad, ac,
+                                                         keep_v=False)
+                        assert none is None and warp_mod.v_stores == stores
+                        out, v = warp_mod._forward(x, theta, pad, ac,
+                                                   keep_v=True)
+                        assert warp_mod.v_stores == stores + 1
+                        for got, ref in ((served, want), (out, want),
+                                         (v, want_v)):
+                            err = (got.float() - ref.float()).abs().max()
+                            assert err.item() == 0.0, (what, err.item())
 
 
 @pytest.mark.cuda
@@ -93,9 +141,10 @@ def test_kernel_refuses_what_it_does_not_take():
 def _bwd_case(shape, name, dtype, rng):
     """(img, theta, grad_out, v) on the card for one backward check."""
     img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
-    theta = np.tile(np.asarray(THETAS[name], np.float32)[None],
+    theta = np.tile(np.asarray(TWO_PASS_THETAS[name], np.float32)[None],
                     (shape[0], 1, 1))
-    if name not in ("identity", "a_tiny"):  # identity: the exact kinks
+    # identity: the exact kinks; the general thetas exact too
+    if name in THETAS and name not in ("identity", "a_tiny"):
         theta = theta + rng.normal(scale=0.01, size=theta.shape) \
             .astype(np.float32)
     theta = torch.from_numpy(theta).cuda()
@@ -113,8 +162,8 @@ def test_backward_kernel_matches_plain_on_card():
     (bf16: a one-ulp difference of a bf16 d_v moves the g partials)."""
     _need_card()
     rng = np.random.default_rng(1)
-    for shape in SHAPES:
-        for name in THETAS:
+    for shape in SHAPES + LEVELS[:2]:
+        for name in TWO_PASS_THETAS:
             for dtype, atol in ATOL.items():
                 x, theta, grad = _bwd_case(shape, name, dtype, rng)
                 for pad in ("zeros", "border"):
@@ -165,11 +214,14 @@ def test_autograd_function_launches_the_backward_kernels():
         im = torch.from_numpy(img).to(dev).requires_grad_(True)
         th = torch.from_numpy(theta).to(dev).requires_grad_(True)
         warp_mod.launches = warp_mod.bwd_launches = warp_mod.grad_copies = 0
+        warp_mod.v_stores = 0
         out = warp_mod.two_pass_warp(im, th).permute(0, 3, 1, 2)
         torch.sin(out.contiguous()).sum().backward()
         if dev == "cuda":
-            assert warp_mod.launches == warp_mod.LAUNCHES_PER_CALL
+            assert warp_mod.launches == warp_mod.LAUNCHES_PER_CALL == 1
+            assert warp_mod.v_stores == 1
             assert warp_mod.bwd_launches == warp_mod.BWD_LAUNCHES_PER_CALL
+            assert warp_mod.BWD_LAUNCHES_PER_CALL <= 3
             assert warp_mod.grad_copies == 1
         grads.append((im.grad.cpu(), th.grad.cpu()))
     torch.testing.assert_close(grads[1][0], grads[0][0], atol=1e-5, rtol=0)
@@ -215,7 +267,8 @@ def test_three_train_steps_on_card_match_cpu():
                 {k: torch.from_numpy(a).to(dev) for k, a in b.items()})
                 .items()})
             if dev == "cuda":
-                assert warp_mod.bwd_launches == 5 * 2
+                assert warp_mod.bwd_launches == \
+                    5 * warp_mod.BWD_LAUNCHES_PER_CALL
         runs.append((logs, {k: v.cpu() for k, v in
                             model.state_dict().items()}))
     (cpu_logs, cpu_sd), (gpu_logs, gpu_sd) = runs
@@ -262,9 +315,10 @@ def test_predictor_on_card_matches_cpu():
     card = Predictor(cfg, cpu.model.state_dict(), batch_size=3, device="cuda")
     rgb = np.random.default_rng(1).uniform(0, 1, (2, 64, 96, 3)) \
         .astype(np.float32)
-    warp_mod.launches = 0
+    warp_mod.launches = warp_mod.v_stores = 0
     got = card.predict(rgb)
     assert warp_mod.launches == 5 * warp_mod.LAUNCHES_PER_CALL
+    assert warp_mod.v_stores == 0
     np.testing.assert_allclose(got, cpu.predict(rgb), atol=1e-3)
 
 
