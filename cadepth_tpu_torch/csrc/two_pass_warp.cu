@@ -1,11 +1,12 @@
 // Two-pass affine warp, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernels `_pass_v_kernel` and `_pass_h_kernel` of
-// cadepth_tpu/ops/pallas/two_pass_warp.py (launched by
-// `_pallas_warp_fwd_passes`), the XLA einsum form `two_pass_affine_warp`
-// of cadepth_tpu/ops/affine_warp.py, and the backward `_trainable_bwd`
-// of the same TPU module (`_bwd_h_kernel`, `_bwd_v_kernel` and the chain
-// of their partials to d_theta). They compute
+// Replaces the TPU kernels of passes V and H (`_pass_v_kernel` :80 and
+// its pass-H twin :125) of cadepth_tpu/ops/pallas/two_pass_warp.py
+// (launched by `_pallas_warp_fwd_passes`), the XLA einsum form
+// `two_pass_affine_warp` of cadepth_tpu/ops/affine_warp.py, and the
+// backward `_trainable_bwd` of the same TPU module (`_bwd_h_kernel`,
+// `_bwd_v_kernel` and the chain of their partials to d_theta). They
+// compute
 //
 //   V[b,i,x,c]   = sum_y tent(g(x,i) - y) * img[b,y,x,c],  g = p*x + q*i + r
 //   out[b,i,j,c] = sum_x tent(h(j,i) - x) * V[b,i,x,c],    h = A*j + B*i + C
@@ -13,10 +14,10 @@
 //
 // with A..F the pixel-space coefficients of the torch-convention theta
 // (cadepth_tpu_torch/ops/affine_warp.py: affine_pixel_coeffs, warp_coeffs).
-// The line coefficients, the two-tap blend and the transposed passes'
-// candidate search (span) live in warp_common.cuh, which the banded warp
-// (fused_warp.cu) shares; pass_h_kernel and bwd_pass_kernel there are
-// the banded warp's, not launched from this file.
+// The line coefficients, the two-tap blend, pass H out of shared memory,
+// the transposed pass H (two_pass_bwd_h_kernel), the candidate search
+// (span) and the theta kernel live in warp_common.cuh, which the banded
+// warp (fused_warp.cu) shares.
 //
 // What bounds it on this card: memory. Each output element costs two
 // multiply-adds against the 2 to 4 bytes it reads, so the card's
@@ -93,13 +94,14 @@
 // its threads' partials in a fixed order and writes one triple. Then
 // two_pass_theta_kernel, one block per batch element, sums the triples
 // of its batch element in a fixed order (in double) and applies the
-// closed-form derivative of the line coefficients (chain_theta below,
-// ops/affine_warp.py: chain_theta_closed) on the card: no float atomics,
-// so two runs give the same bits, and the host launches the three
-// kernels and nothing else. The passes move 6 maps (G, V, img and d_v
-// read, d_v and d_img written) where the bound counts 4: d_v goes
-// through device memory (a single launch would need d_v's rows for every
-// output row, and at |q| near 0 those are the whole column). Each pass
+// closed-form derivative of the line coefficients (chain_to_theta of
+// warp_common.cuh, ops/affine_warp.py: chain_theta_closed) on the card:
+// no float atomics, so two runs give the same bits, and the host
+// launches the three kernels and nothing else. The passes move 6 maps
+// (G, V, img and d_v read, d_v and d_img written) where the bound counts
+// 4: d_v goes through device memory (a single launch would need d_v's
+// rows for every output row, and at |q| near 0 those are the whole
+// column). Each pass
 // reaches about 60 % of the card's bandwidth on its own traffic: a
 // thread has one item's loads in flight, and the passes are held to 64
 // registers so that four 256-thread blocks share an SM. More loads in
@@ -110,26 +112,6 @@
 #include "warp_common.cuh"
 
 namespace {
-
-constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
-
-// The channel chunk of one block: rows (b, i) in order, chunks inner, so
-// neighbouring blocks work on the same or neighbouring rows.
-struct Chunk {
-  int64_t row;  // b * H + i
-  int b, i, c_lo, cc;  // cc channels from c_lo
-};
-
-__device__ __forceinline__ Chunk chunk_of(int H, int C, int c_chunk, int n_chunks) {
-  Chunk ch;
-  ch.row = blockIdx.x / n_chunks;
-  const int k = (int)(blockIdx.x - ch.row * n_chunks);
-  ch.b = (int)(ch.row / H);
-  ch.i = (int)(ch.row - (int64_t)ch.b * H);
-  ch.c_lo = k * c_chunk;
-  ch.cc = min(c_chunk, C - ch.c_lo);
-  return ch;
-}
 
 // Forward: pass V into shared memory, pass H out of it; V also to `v`
 // when it is not null.
@@ -164,111 +146,7 @@ two_pass_fwd_kernel(const T* __restrict__ img, T* __restrict__ v,
   }
   __syncthreads();
 
-  const float bi = __fmul_rn(l.b, (float)ch.i);
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int j = item / cvn;
-    const int c = (item - j * cvn) * VEC;
-    const float hp = __fadd_rn(__fadd_rn(__fmul_rn(l.a, (float)j), bi), l.c);
-    const Taps t = two_taps<T>(hp, W, border != 0);
-    blend<T, VEC>(out + row_at + (int64_t)j * C + c, vrow + t.i0 * ch.cc + c,
-                  vrow + t.i1 * ch.cc + c, t);
-  }
-}
-
-// One visit of a transposed pass: the forward outputs m in `rg` whose
-// position reaches `target` add their cotangent vector (cot + m * step)
-// to acc with the tent weight; t = <cot, mine> * dtent * dclip of each
-// adds to t_sum, and t * m to tm_sum. The position of m is the
-// forward's: bwd H ((A*m) + (B*i)) + C, bwd V ((p*x) + (q*m)) + r.
-template <typename T, int VEC, bool H_PASS>
-__device__ __forceinline__ void visit(const T* __restrict__ cot, int64_t step,
-                                      const float* mine, float* acc, Range rg,
-                                      float slope, float fixed, float tail,
-                                      int target, float hi, int border,
-                                      float& tm_sum, float& t_sum) {
-  using P = Pack<T, VEC>;
-  for (int m = rg.lo; m <= rg.hi; ++m) {
-    const float sm = __fmul_rn(slope, (float)m);
-    const float pos = H_PASS ? __fadd_rn(__fadd_rn(sm, fixed), tail)
-                             : __fadd_rn(__fadd_rn(fixed, sm), tail);
-    const float pp = border ? fminf(fmaxf(pos, 0.0f), hi) : pos;
-    const float diff = __fsub_rn(pp, (float)target);
-    const float ad = fabsf(diff);
-    if (!(ad <= 1.0f)) continue;
-    const P cv = *reinterpret_cast<const P*>(cot + (int64_t)m * step);
-    const float wgt = fmaxf(__fsub_rn(1.0f, ad), 0.0f);
-    float dot = 0.0f;
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) {
-      const float gv = to_f32(cv.v[q]);
-      acc[q] = fmaf(wgt, gv, acc[q]);
-      dot = fmaf(gv, mine[q], dot);
-    }
-    float dt = ad < 1.0f ? 1.0f : 0.5f;
-    if (diff >= 0.0f) dt = -dt;
-    if (border) dt *= (pos > 0.0f && pos < hi) ? 1.0f
-                      : (pos == 0.0f || pos == hi) ? 0.5f : 0.0f;
-    const float t = dot * dt;
-    tm_sum += t * (float)m;
-    t_sum += t;
-  }
-}
-
-// Bwd H: block (b, i, chunk); G's row chunk staged in shared memory;
-// thread pixel x, loop over j; own = V, writes d_v and the block's triple
-// (s_a, s_b, s_c) to part[blockIdx.x].
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads, 4)
-two_pass_bwd_h_kernel(const T* __restrict__ grad, const T* __restrict__ v,
-                      T* __restrict__ d_v, float* __restrict__ part,
-                      const float* __restrict__ theta, Consts k, int H, int W,
-                      int C, int c_chunk, int n_chunks, int border) {
-  using P = Pack<T, VEC>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* grow = reinterpret_cast<T*>(smem_raw);  // G[b, i, :, chunk], pixel stride cc
-  const Chunk ch = chunk_of(H, C, c_chunk, n_chunks);
-  const int cvn = ch.cc / VEC;
-  const int items = W * cvn;
-  const int64_t row_at = ch.row * W * C + ch.c_lo;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int x = item / cvn;
-    const int c = (item - x * cvn) * VEC;
-    *reinterpret_cast<P*>(grow + x * ch.cc + c) =
-        *reinterpret_cast<const P*>(grad + row_at + (int64_t)x * C + c);
-  }
-  __syncthreads();
-
-  const Lines l = lines(theta + 6 * ch.b, k);
-  const float fixed = __fmul_rn(l.b, (float)ch.i);
-  const double mag = fabs((double)l.a) * W + fabs((double)fixed) + fabs((double)l.c);
-  const Slope sl = slope_of(l.a);
-  const float hi = (float)(W - 1);
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int x = item / cvn;
-    const int c = (item - x * cvn) * VEC;
-    const int64_t at = row_at + (int64_t)x * C + c;
-    const P own = *reinterpret_cast<const P*>(v + at);
-    float mine[VEC], acc[VEC];
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) {
-      mine[q] = to_f32(own.v[q]);
-      acc[q] = 0.0f;
-    }
-    const Range rg = span(sl, (double)fixed + (double)l.c, mag, x, W, W,
-                          border != 0);
-    float tj = 0.0f, t = 0.0f;
-    visit<T, VEC, true>(grow + c, ch.cc, mine, acc, rg, l.a, fixed, l.c, x,
-                        hi, border, tj, t);
-    s0 += tj;
-    s1 += t * (float)ch.i;
-    s2 += t;
-    P res;
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) res.v[q] = from_f32<T>(acc[q]);
-    *reinterpret_cast<P*>(d_v + at) = res;
-  }
-  block_sum3(s0, s1, s2, part + (int64_t)blockIdx.x * 3);
+  pass_h_row<T, VEC>(out + row_at, vrow, l, ch.i, W, C, ch.cc, border != 0);
 }
 
 // Bwd V: block (b, y, chunk); thread pixel x, loop over i reading d_v's
@@ -318,98 +196,6 @@ two_pass_bwd_v_kernel(const T* __restrict__ d_v, const T* __restrict__ img,
   block_sum3(s0, s1, s2, part + (int64_t)blockIdx.x * 3);
 }
 
-// d_theta of one batch element from the six sums (s_a, s_b, s_c, s_p,
-// s_q, s_r): the derivative of warp_coeffs written out, in the f32
-// operation order of ops/affine_warp.py: chain_theta_closed. A_safe's
-// clamp passes no gradient where |A| < 1e-3, as safe_divisor's where.
-__device__ void chain_theta(const float* __restrict__ th, const Consts& k,
-                            const float* s, float* __restrict__ d) {
-  const Lines l = lines(th, k);
-  const float t00 = th[0];
-  const bool live = !(fabsf(t00) < 1e-3f);
-  const float a_safe = live ? t00 : (t00 < 0.0f ? -1e-3f : 1e-3f);
-  // p reaches the loss directly and through q = E - p*B and r = F - p*C
-  const float gp = __fsub_rn(__fsub_rn(s[3], __fmul_rn(s[4], l.b)),
-                             __fmul_rn(s[5], l.c));
-  // p = D / A_safe: dp/dA = -p / A_safe where A_safe = A
-  const float ga = live ? __fsub_rn(s[0], __fdiv_rn(__fmul_rn(gp, l.p), a_safe))
-                        : s[0];
-  const float gb = __fsub_rn(s[1], __fmul_rn(s[4], l.p));
-  const float gc = __fsub_rn(s[2], __fmul_rn(s[5], l.p));
-  const float gd = __fdiv_rn(gp, a_safe);
-  // B = (t01 * w) / h, D = (t10 * h) / w, C and F scale their sums by hw, hh
-  const float bw = __fmul_rn(__fdiv_rn(gb, k.h), k.w);
-  const float dh = __fmul_rn(__fdiv_rn(gd, k.w), k.h);
-  const float gcs = __fmul_rn(gc, k.hw);
-  const float gfs = __fmul_rn(s[5], k.hh);
-  if (k.align_corners) {
-    d[0] = __fsub_rn(ga, gcs);
-    d[1] = __fsub_rn(bw, gcs);
-    d[2] = gcs;
-    d[3] = __fsub_rn(dh, gfs);
-    d[4] = __fsub_rn(s[4], gfs);
-    d[5] = gfs;
-  } else {
-    d[0] = __fadd_rn(ga, __fmul_rn(gcs, k.kx));
-    d[1] = __fadd_rn(bw, __fmul_rn(gcs, k.ky));
-    d[2] = gcs;
-    d[3] = __fadd_rn(dh, __fmul_rn(gfs, k.kx));
-    d[4] = __fadd_rn(s[4], __fmul_rn(gfs, k.ky));
-    d[5] = gfs;
-  }
-}
-
-__device__ __forceinline__ double warp_sum_d(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// One block per batch element b: the per-block triples of both passes
-// (`per_b` each) summed in a fixed order, then chained to d_theta[b].
-__global__ void __launch_bounds__(kThreads)
-two_pass_theta_kernel(const float* __restrict__ part_h,
-                      const float* __restrict__ part_v, int per_b,
-                      const float* __restrict__ theta, Consts k,
-                      float* __restrict__ d_theta) {
-  __shared__ double sh[6][kThreads / 32];
-  const int b = blockIdx.x;
-  const float* ph = part_h + (int64_t)b * per_b * 3;
-  const float* pv = part_v + (int64_t)b * per_b * 3;
-  double s[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int t = threadIdx.x; t < per_b; t += blockDim.x) {
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      s[m] += (double)ph[t * 3 + m];
-      s[3 + m] += (double)pv[t * 3 + m];
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < 6; ++m) {
-    s[m] = warp_sum_d(s[m]);
-    if (lane == 0) sh[m][warp] = s[m];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sums[6];
-    for (int m = 0; m < 6; ++m) {
-      double t = 0.0;
-      for (int w = 0; w < kThreads / 32; ++w) t += sh[m][w];
-      sums[m] = (float)t;
-    }
-    chain_theta(theta + 6 * b, k, sums, d_theta + 6 * b);
-  }
-}
-
-// Lets `kernel` take `smem` bytes of dynamic shared memory.
-template <typename K>
-cudaError_t allow_smem(K kernel, int smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-}
-
 template <typename T, int VEC>
 cudaError_t launch_fwd(const void* img, void* v, void* out, const float* theta,
                        const Consts& k, int blocks, int H, int W, int C,
@@ -446,19 +232,6 @@ cudaError_t launch_bwd(const void* grad, const void* v, const void* img,
   two_pass_theta_kernel<<<B, kThreads, 0, stream>>>(
       part_h, part_v, H * n_chunks, theta, k, d_theta);
   return cudaGetLastError();
-}
-
-// What the wrapper planned, checked against what the kernels take: VEC
-// 1 or one 16-byte vector (with C and every pointer aligned to it), the
-// chunk a positive multiple of VEC, its row in `smem` bytes, and fewer
-// than 2^31 blocks. Returns the block count, or 0 where the plan is bad.
-int64_t plan_blocks(int B, int H, int W, int C, int size, int vec,
-                    int c_chunk, int smem, bool aligned) {
-  if (vec != 1 && (vec * size != 16 || C % vec != 0 || !aligned)) return 0;
-  if (c_chunk <= 0 || c_chunk % vec != 0) return 0;
-  if ((int64_t)W * c_chunk * size != smem) return 0;
-  const int64_t blocks = (int64_t)B * H * ((C + c_chunk - 1) / c_chunk);
-  return blocks < ((int64_t)1 << 31) ? blocks : 0;
 }
 
 }  // namespace

@@ -1,10 +1,12 @@
-// Device code of the warp kernels. Shared by two_pass_warp.cu and
-// fused_warp.cu: the line coefficients, the two-tap blend and the
-// transposed passes' candidate search (span). Launched by fused_warp.cu
-// alone: pass H (pass_h_kernel) and the transposed pass H of its
-// backward (bwd_pass_kernel); the two-pass warp has kernels of its own.
-// Both libraries compile it from this header; the build hashes it with
-// each source that includes it (ops/_build.py).
+// Device code of the warp kernels, shared by two_pass_warp.cu and
+// fused_warp.cu (banded_affine_warp.cu takes the small helpers): the line
+// coefficients, the two-tap blend, pass H out of a row in shared memory
+// (pass_h_row), the per-row channel chunks of a launch (Chunk), the
+// transposed passes' candidate search (span), the transposed pass H
+// (two_pass_bwd_h_kernel, the same function for both warps) and the sum
+// of the theta partials with the chain to d_theta
+// (two_pass_theta_kernel). Each library compiles it from this header;
+// the build hashes it with each source that includes it (ops/_build.py).
 //
 // Numerics: the coefficients with the same f32 operations and
 // f32-rounded constants as affine_pixel_coeffs and warp_coeffs
@@ -24,7 +26,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRowBlocks = 65535;  // gridDim.y limit
+constexpr int kMaxRowBlocks = 65535;       // gridDim.y limit
+constexpr int kDefaultSmem = 48 * 1024;    // dynamic shared memory without opt-in
+constexpr int kMaxSmem = 232448;           // the most a block may use (227 KB)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -136,38 +140,50 @@ __device__ __forceinline__ void blend(T* __restrict__ dst, const T* __restrict__
   *reinterpret_cast<P*>(dst) = out;
 }
 
-// Pass H: block row (b, i); threads over (j, channel vector) of the row.
+// The channel chunk of one block of a per-row launch: rows (b, i) in
+// order, chunks inner, so neighbouring blocks work on the same or
+// neighbouring rows. The wrappers plan the chunk (ops/two_pass_warp.py:
+// fwd_plan, ops/fused_warp.py: fused_plan).
+struct Chunk {
+  int64_t row;  // b * H + i
+  int b, i, c_lo, cc;  // cc channels from c_lo
+};
+
+__device__ __forceinline__ Chunk chunk_of(int H, int C, int c_chunk, int n_chunks) {
+  Chunk ch;
+  ch.row = blockIdx.x / n_chunks;
+  const int k = (int)(blockIdx.x - ch.row * n_chunks);
+  ch.b = (int)(ch.row / H);
+  ch.i = (int)(ch.row - (int64_t)ch.b * H);
+  ch.c_lo = k * c_chunk;
+  ch.cc = min(c_chunk, C - ch.c_lo);
+  return ch;
+}
+
+// Pass H of one output row i from V's row chunk `vrow` in shared memory
+// (pixel stride cc): out_row[j, c] for the block's cc channels, out_row
+// pointing at the row's first pixel and chunk (pixel stride C). The
+// caller synchronises the block after writing vrow.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-pass_h_kernel(const T* __restrict__ v, T* __restrict__ out,
-              const float* __restrict__ theta, Consts k, int B, int H, int W,
-              int C, int border) {
-  const int cv_count = C / VEC;
-  const int row_items = W * cv_count;
-  for (int row = blockIdx.y; row < B * H; row += gridDim.y) {
-    const int b = row / H;
-    const int i = row - b * H;
-    const Lines l = lines(theta + 6 * b, k);
-    const float bi = __fmul_rn(l.b, (float)i);
-    const T* src_row = v + (int64_t)row * W * C;
-    T* dst_row = out + (int64_t)row * W * C;
-    for (int item = blockIdx.x * blockDim.x + threadIdx.x; item < row_items;
-         item += gridDim.x * blockDim.x) {
-      const int j = item / cv_count;
-      const int c0 = (item - j * cv_count) * VEC;
-      const float hp = __fadd_rn(__fadd_rn(__fmul_rn(l.a, (float)j), bi), l.c);
-      const Taps t = two_taps<T>(hp, W, border != 0);
-      blend<T, VEC>(dst_row + (int64_t)j * C + c0, src_row + (int64_t)t.i0 * C + c0,
-                    src_row + (int64_t)t.i1 * C + c0, t);
-    }
+__device__ __forceinline__ void pass_h_row(T* __restrict__ out_row,
+                                           const T* __restrict__ vrow,
+                                           const Lines& l, int i, int W, int C,
+                                           int cc, bool border) {
+  const int cvn = cc / VEC;
+  const int items = W * cvn;
+  const float bi = __fmul_rn(l.b, (float)i);
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int j = item / cvn;
+    const int c = (item - j * cvn) * VEC;
+    const float hp = __fadd_rn(__fadd_rn(__fmul_rn(l.a, (float)j), bi), l.c);
+    const Taps t = two_taps<T>(hp, W, border);
+    blend<T, VEC>(out_row + (int64_t)j * C + c, vrow + t.i0 * cc + c,
+                  vrow + t.i1 * cc + c, t);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward of the banded warp's passes (fused_warp.cu launches the H
-// pass; it replaces `_bwd_h_kernel` of the TPU module). The two-pass
-// warp's transposed passes (two_pass_warp.cu) compute the same
-// functions with span below. Given the cotangent G of `out`:
+// Backward. Given the cotangent G of `out`:
 //
 //   d_v[b,i,x,c]   = sum_j tent(h'(j,i) - x) * G[b,i,j,c]        (bwd H)
 //   d_img[b,y,x,c] = sum_i tent(g'(x,i) - y) * d_v[b,i,x,c]      (bwd V)
@@ -181,29 +197,22 @@ pass_h_kernel(const T* __restrict__ v, T* __restrict__ out,
 // where dt is the tent's derivative with JAX's kink conventions
 // (abs'(0) = +1, a max tie of weight 0.5: -1 at 0, -/+0.5 at +/-1) and
 // dc the clamp's (1 inside, 0.5 on a bound, 0 outside; 1 for zeros
-// padding). The banded warp's host sums them and chains them to d_theta
-// through warp_coeffs.
+// padding). Bwd H is the same function for the two-pass and the banded
+// warp (their pass H is the same); bwd V differs (the banded one reads a
+// band of d_v's rows), so each warp has its own.
 //
 // Gather form, no scatter and no atomics: a thread owns one 16-byte
-// channel vector of one pixel of the transposed pass's OUTPUT (d_v in bwd
-// H, d_img in bwd V) and loops over the outputs j (or i) of the forward
-// pass that reach it. Those form one interval, since a position is linear
-// in j (in i) and the clamp is monotone; the interval is solved in double,
-// widened for the f32 rounding of the positions, and each candidate is
-// then tested with the forward's own f32 position arithmetic, so a tap
-// counts exactly when the reference's tent (and its derivative, which is
-// non-zero on the closed interval |pos - x| <= 1: three taps at an
-// integer position) says so. Where the slope is tiny (|A| or |q| near 0)
-// the interval covers the whole row. The same visit gives the partials:
-// the thread's own vector (V in bwd H, img in bwd V) dotted with the
-// visited cotangent vector is its share of the channel dot product.
-// Per-thread partials are summed over the block in a fixed order and
-// written per (row, block); the host sums those (a deterministic
-// reduction), so two runs give the same bits.
-//
-// What bounds it: memory, as for the forward. The least traffic is G, V
-// and img read once and d_img written once; the two launches also write
-// and read d_v, 1.5 times that.
+// channel vector of one pixel of the transposed pass's OUTPUT and visits
+// the forward outputs j (or i) that reach it. Those form one interval,
+// since a position is linear in j (in i) and the clamp is monotone
+// (span); each candidate is then tested with the forward's own f32
+// position, so a tap counts exactly when the plain version's tent (and
+// its derivative, non-zero on the closed interval |pos - x| <= 1) says
+// so. The visit dots the thread's own vector (V in bwd H, img in bwd V)
+// with the visited cotangent vector: its share of the channel dot
+// product. Each block sums its threads' partials in a fixed order and
+// writes one triple; two_pass_theta_kernel then sums the triples of each
+// batch element in a fixed order, so two runs give the same bits.
 
 // Indices k in [lo, hi] (within [0, n-1]) whose position s*k + u can come
 // within 1 of `target` after the padding's clamp to [0, size-1]: a
@@ -292,97 +301,183 @@ __device__ __forceinline__ void block_sum3(float s0, float s1, float s2,
   __syncthreads();
 }
 
-// One transposed pass. H_PASS: rows (b, i), thread pixel x, loop over j;
-// cot = G, own = V, d_own = d_v, partials (s_a, s_b, s_c). Otherwise:
-// rows (b, y), thread pixel x, loop over i; cot = d_v, own = img,
-// d_own = d_img, partials (s_p, s_q, s_r). `partials` holds, for each
-// row, `stride` triples; block x writes triple x, block 0 zeroes the
-// tail.
+// One visit of a transposed pass: the forward outputs m in `rg` whose
+// position reaches `target` add their cotangent vector (cot + m * step)
+// to acc with the tent weight; t = <cot, mine> * dtent * dclip of each
+// adds to t_sum, and t * m to tm_sum. The position of m is the
+// forward's: bwd H ((A*m) + (B*i)) + C, bwd V ((p*x) + (q*m)) + r.
 template <typename T, int VEC, bool H_PASS>
-__global__ void __launch_bounds__(kThreads)
-bwd_pass_kernel(const T* __restrict__ cot, const T* __restrict__ own,
-                T* __restrict__ d_own, float* __restrict__ partials,
-                int stride, const float* __restrict__ theta, Consts k, int B,
-                int H, int W, int C, int border) {
+__device__ __forceinline__ void visit(const T* __restrict__ cot, int64_t step,
+                                      const float* mine, float* acc, Range rg,
+                                      float slope, float fixed, float tail,
+                                      int target, float hi, int border,
+                                      float& tm_sum, float& t_sum) {
   using P = Pack<T, VEC>;
-  const int cv_count = C / VEC;
-  const int row_items = W * cv_count;
-  const int size = H_PASS ? W : H;
-  const float hi = (float)(size - 1);
-  const int item = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int row = blockIdx.y; row < B * H; row += gridDim.y) {
-    const int b = row / H;
-    const int r = row - b * H;  // i in bwd H, y in bwd V
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-    if (item < row_items) {
-      const Lines l = lines(theta + 6 * b, k);
-      const int x = item / cv_count;
-      const int c0 = (item - x * cv_count) * VEC;
-      const int64_t at = ((int64_t)row * W + x) * C + c0;
-      const P mine = *reinterpret_cast<const P*>(own + at);
-      float mine_f[VEC], acc[VEC];
+  for (int m = rg.lo; m <= rg.hi; ++m) {
+    const float sm = __fmul_rn(slope, (float)m);
+    const float pos = H_PASS ? __fadd_rn(__fadd_rn(sm, fixed), tail)
+                             : __fadd_rn(__fadd_rn(fixed, sm), tail);
+    const float pp = border ? fminf(fmaxf(pos, 0.0f), hi) : pos;
+    const float diff = __fsub_rn(pp, (float)target);
+    const float ad = fabsf(diff);
+    if (!(ad <= 1.0f)) continue;
+    const P cv = *reinterpret_cast<const P*>(cot + (int64_t)m * step);
+    const float wgt = fmaxf(__fsub_rn(1.0f, ad), 0.0f);
+    float dot = 0.0f;
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) {
-        mine_f[q] = to_f32(mine.v[q]);
-        acc[q] = 0.0f;
-      }
-      // the forward's position of loop index m is
-      //   bwd H: ((A*m) + (B*i)) + C         bwd V: ((p*x) + (q*m)) + r
-      float fixed, slope, tail;
-      if (H_PASS) {
-        fixed = __fmul_rn(l.b, (float)r);
-        slope = l.a;
-        tail = l.c;
-      } else {
-        fixed = __fmul_rn(l.p, (float)x);
-        slope = l.q;
-        tail = l.r;
-      }
-      const int target = H_PASS ? x : r;
-      const int n = H_PASS ? W : H;
-      const double mag = fabs((double)slope) * n + fabs((double)fixed) +
-                         fabs((double)tail);
-      const Range rg = span(slope_of(slope), (double)fixed + (double)tail,
-                            mag, target, size, n, border != 0);
-      for (int m = rg.lo; m <= rg.hi; ++m) {
-        const float sm = __fmul_rn(slope, (float)m);
-        const float pos = H_PASS ? __fadd_rn(__fadd_rn(sm, fixed), tail)
-                                 : __fadd_rn(__fadd_rn(fixed, sm), tail);
-        const float pp = border ? fminf(fmaxf(pos, 0.0f), hi) : pos;
-        const float diff = __fsub_rn(pp, (float)target);
-        const float ad = fabsf(diff);
-        if (!(ad <= 1.0f)) continue;
-        const int64_t src = H_PASS ? ((int64_t)row * W + m) * C + c0
-                                   : (((int64_t)b * H + m) * W + x) * C + c0;
-        const P cv = *reinterpret_cast<const P*>(cot + src);
-        const float wgt = fmaxf(__fsub_rn(1.0f, ad), 0.0f);
-        float dot = 0.0f;
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) {
-          const float gv = to_f32(cv.v[q]);
-          acc[q] = __fadd_rn(acc[q], __fmul_rn(wgt, gv));
-          dot = __fadd_rn(dot, __fmul_rn(gv, mine_f[q]));
-        }
-        float dt = ad < 1.0f ? 1.0f : 0.5f;
-        if (diff >= 0.0f) dt = -dt;
-        if (border) dt *= (pos > 0.0f && pos < hi) ? 1.0f
-                          : (pos == 0.0f || pos == hi) ? 0.5f : 0.0f;
-        const float t = dot * dt;
-        s0 += t * (float)(H_PASS ? m : x);
-        s1 += t * (float)(H_PASS ? r : m);
-        s2 += t;
-      }
-      P out;
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) out.v[q] = from_f32<T>(acc[q]);
-      *reinterpret_cast<P*>(d_own + at) = out;
+    for (int q = 0; q < VEC; ++q) {
+      const float gv = to_f32(cv.v[q]);
+      acc[q] = fmaf(wgt, gv, acc[q]);
+      dot = fmaf(gv, mine[q], dot);
     }
-    float* dst = partials + ((int64_t)row * stride) * 3;
-    block_sum3(s0, s1, s2, dst + blockIdx.x * 3);
-    if (blockIdx.x == 0) {
-      for (int t = gridDim.x * 3 + threadIdx.x; t < stride * 3; t += blockDim.x)
-        dst[t] = 0.0f;
+    float dt = ad < 1.0f ? 1.0f : 0.5f;
+    if (diff >= 0.0f) dt = -dt;
+    if (border) dt *= (pos > 0.0f && pos < hi) ? 1.0f
+                      : (pos == 0.0f || pos == hi) ? 0.5f : 0.0f;
+    const float t = dot * dt;
+    tm_sum += t * (float)m;
+    t_sum += t;
+  }
+}
+
+// Bwd H: block (b, i, chunk); G's row chunk staged in shared memory;
+// thread pixel x, loop over j; own = V, writes d_v and the block's triple
+// (s_a, s_b, s_c) to part[blockIdx.x].
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 4)
+two_pass_bwd_h_kernel(const T* __restrict__ grad, const T* __restrict__ v,
+                      T* __restrict__ d_v, float* __restrict__ part,
+                      const float* __restrict__ theta, Consts k, int H, int W,
+                      int C, int c_chunk, int n_chunks, int border) {
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* grow = reinterpret_cast<T*>(smem_raw);  // G[b, i, :, chunk], pixel stride cc
+  const Chunk ch = chunk_of(H, C, c_chunk, n_chunks);
+  const int cvn = ch.cc / VEC;
+  const int items = W * cvn;
+  const int64_t row_at = ch.row * W * C + ch.c_lo;
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int x = item / cvn;
+    const int c = (item - x * cvn) * VEC;
+    *reinterpret_cast<P*>(grow + x * ch.cc + c) =
+        *reinterpret_cast<const P*>(grad + row_at + (int64_t)x * C + c);
+  }
+  __syncthreads();
+
+  const Lines l = lines(theta + 6 * ch.b, k);
+  const float fixed = __fmul_rn(l.b, (float)ch.i);
+  const double mag = fabs((double)l.a) * W + fabs((double)fixed) + fabs((double)l.c);
+  const Slope sl = slope_of(l.a);
+  const float hi = (float)(W - 1);
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int x = item / cvn;
+    const int c = (item - x * cvn) * VEC;
+    const int64_t at = row_at + (int64_t)x * C + c;
+    const P own = *reinterpret_cast<const P*>(v + at);
+    float mine[VEC], acc[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      mine[q] = to_f32(own.v[q]);
+      acc[q] = 0.0f;
     }
+    const Range rg = span(sl, (double)fixed + (double)l.c, mag, x, W, W,
+                          border != 0);
+    float tj = 0.0f, t = 0.0f;
+    visit<T, VEC, true>(grow + c, ch.cc, mine, acc, rg, l.a, fixed, l.c, x,
+                        hi, border, tj, t);
+    s0 += tj;
+    s1 += t * (float)ch.i;
+    s2 += t;
+    P res;
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) res.v[q] = from_f32<T>(acc[q]);
+    *reinterpret_cast<P*>(d_v + at) = res;
+  }
+  block_sum3(s0, s1, s2, part + (int64_t)blockIdx.x * 3);
+}
+
+// d_theta of one batch element from the six sums (s_a, s_b, s_c, s_p,
+// s_q, s_r): the derivative of warp_coeffs written out, in the f32
+// operation order of ops/affine_warp.py: chain_theta_closed. A_safe's
+// clamp passes no gradient where |A| < 1e-3, as safe_divisor's where.
+__device__ void chain_to_theta(const float* __restrict__ th, const Consts& k,
+                            const float* s, float* __restrict__ d) {
+  const Lines l = lines(th, k);
+  const float t00 = th[0];
+  const bool live = !(fabsf(t00) < 1e-3f);
+  const float a_safe = live ? t00 : (t00 < 0.0f ? -1e-3f : 1e-3f);
+  // p reaches the loss directly and through q = E - p*B and r = F - p*C
+  const float gp = __fsub_rn(__fsub_rn(s[3], __fmul_rn(s[4], l.b)),
+                             __fmul_rn(s[5], l.c));
+  // p = D / A_safe: dp/dA = -p / A_safe where A_safe = A
+  const float ga = live ? __fsub_rn(s[0], __fdiv_rn(__fmul_rn(gp, l.p), a_safe))
+                        : s[0];
+  const float gb = __fsub_rn(s[1], __fmul_rn(s[4], l.p));
+  const float gc = __fsub_rn(s[2], __fmul_rn(s[5], l.p));
+  const float gd = __fdiv_rn(gp, a_safe);
+  // B = (t01 * w) / h, D = (t10 * h) / w, C and F scale their sums by hw, hh
+  const float bw = __fmul_rn(__fdiv_rn(gb, k.h), k.w);
+  const float dh = __fmul_rn(__fdiv_rn(gd, k.w), k.h);
+  const float gcs = __fmul_rn(gc, k.hw);
+  const float gfs = __fmul_rn(s[5], k.hh);
+  if (k.align_corners) {
+    d[0] = __fsub_rn(ga, gcs);
+    d[1] = __fsub_rn(bw, gcs);
+    d[2] = gcs;
+    d[3] = __fsub_rn(dh, gfs);
+    d[4] = __fsub_rn(s[4], gfs);
+    d[5] = gfs;
+  } else {
+    d[0] = __fadd_rn(ga, __fmul_rn(gcs, k.kx));
+    d[1] = __fadd_rn(bw, __fmul_rn(gcs, k.ky));
+    d[2] = gcs;
+    d[3] = __fadd_rn(dh, __fmul_rn(gfs, k.kx));
+    d[4] = __fadd_rn(s[4], __fmul_rn(gfs, k.ky));
+    d[5] = gfs;
+  }
+}
+
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One block per batch element b: the per-block triples of both passes
+// (`per_b` each) summed in a fixed order, then chained to d_theta[b].
+__global__ void __launch_bounds__(kThreads)
+two_pass_theta_kernel(const float* __restrict__ part_h,
+                      const float* __restrict__ part_v, int per_b,
+                      const float* __restrict__ theta, Consts k,
+                      float* __restrict__ d_theta) {
+  __shared__ double sh[6][kThreads / 32];
+  const int b = blockIdx.x;
+  const float* ph = part_h + (int64_t)b * per_b * 3;
+  const float* pv = part_v + (int64_t)b * per_b * 3;
+  double s[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int t = threadIdx.x; t < per_b; t += blockDim.x) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      s[m] += (double)ph[t * 3 + m];
+      s[3 + m] += (double)pv[t * 3 + m];
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < 6; ++m) {
+    s[m] = warp_sum_d(s[m]);
+    if (lane == 0) sh[m][warp] = s[m];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sums[6];
+    for (int m = 0; m < 6; ++m) {
+      double t = 0.0;
+      for (int w = 0; w < kThreads / 32; ++w) t += sh[m][w];
+      sums[m] = (float)t;
+    }
+    chain_to_theta(theta + 6 * b, k, sums, d_theta + 6 * b);
   }
 }
 
@@ -408,5 +503,27 @@ Consts make_consts(int H, int W, int align_corners) {
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// What a wrapper planned, checked against what the per-row kernels take:
+// VEC 1 or one 16-byte vector (with C and every pointer aligned to it),
+// the chunk a positive multiple of VEC, its row in `smem` bytes, and
+// fewer than 2^31 blocks. Returns the block count, or 0 where the plan
+// is bad.
+int64_t plan_blocks(int B, int H, int W, int C, int size, int vec,
+                    int c_chunk, int smem, bool aligned) {
+  if (vec != 1 && (vec * size != 16 || C % vec != 0 || !aligned)) return 0;
+  if (c_chunk <= 0 || c_chunk % vec != 0) return 0;
+  if ((int64_t)W * c_chunk * size != smem) return 0;
+  const int64_t blocks = (int64_t)B * H * ((C + c_chunk - 1) / c_chunk);
+  return blocks < ((int64_t)1 << 31) ? blocks : 0;
+}
 
 }  // namespace

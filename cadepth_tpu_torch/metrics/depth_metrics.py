@@ -64,7 +64,10 @@ def compute_depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
         "rmse": torch.sqrt(mmean(diff * diff)),
         "rmse_log": torch.sqrt(mmean(log_diff * log_diff)),
         "mae": mmean(abs_diff),
-        "log10": mmean(log_diff.abs() / math.log(10.0)),
+        # a tensor divisor: PyTorch's CUDA division by a Python float
+        # multiplies by its reciprocal, which can differ by an ulp from
+        # the division the CPU and JAX compute
+        "log10": mmean(log_diff.abs() / g.new_tensor(math.log(10.0))),
         "delta_1.25": mmean((ratio < 1.25).float()),
         "delta_1.25^2": mmean((ratio < 1.25 ** 2).float()),
         "delta_1.25^3": mmean((ratio < 1.25 ** 3).float()),

@@ -320,27 +320,16 @@ def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
                                                     align_corners)
 
 
-def chain_theta(theta: torch.Tensor, partials: torch.Tensor, height: int,
-                width: int, align_corners: bool) -> torch.Tensor:
-    """d_theta (B, 2, 3) f32 from the (B, 6) partials of the loss with
-    respect to the six line coefficients [A, B, C, p, q, r], by autograd
-    through :func:`warp_coeffs` (the banded warp's chain, and the
-    reference of :func:`chain_theta_closed`)."""
-    with torch.enable_grad():
-        th = theta.detach().to(torch.float32).requires_grad_(True)
-        co = warp_coeffs(th, height, width, align_corners)
-        (d_theta,) = torch.autograd.grad(co, th, partials)
-    return d_theta
-
-
 def chain_theta_closed(theta: torch.Tensor, partials: torch.Tensor,
                        height: int, width: int,
                        align_corners: bool) -> torch.Tensor:
-    """:func:`chain_theta` written out: the derivative of
-    :func:`warp_coeffs` applied to the (B, 6) partials, in the f32
-    operation order of the two-pass warp's theta kernel
-    (``csrc/two_pass_warp.cu: chain_theta``), so the two share their
-    arithmetic.
+    """d_theta (B, 2, 3) f32 from the (B, 6) partials of the loss with
+    respect to the six line coefficients [A, B, C, p, q, r]: the
+    derivative of :func:`warp_coeffs` written out, in the f32 operation
+    order of the warp kernels' theta kernel (``csrc/warp_common.cuh:
+    chain_to_theta``), so the plain backward and the kernels share their
+    arithmetic (``tests/test_torch_warp_chain.py`` holds it to autograd
+    through :func:`warp_coeffs` and to JAX's chain).
 
     p = D / A_safe reaches the loss directly and through q = E - p B and
     r = F - p C, so its gradient is ``gp = (s_p - s_q B) - s_r C``; A

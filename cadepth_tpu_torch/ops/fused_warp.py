@@ -6,7 +6,8 @@ Replaces ``cadepth_tpu/ops/pallas/fused_warp.py``: the forward
 ``_pass_h_kernel``; ``pallas_fused_warp`` and the forward of
 ``pallas_fused_warp_trainable``) and its backward
 ``_fused_trainable_bwd`` (the two-pass ``_bwd_h_kernel``, then
-``_bwd_v_banded_kernel``), the PCL's ``warp_mode="fused"``.
+``_bwd_v_banded_kernel``, and the chain to d_theta), the PCL's
+``warp_mode="fused"``.
 
 The function is the two-pass warp's (``ops/affine_warp.py``) with a
 banded pass V. Output rows are cut into tiles of ``it`` rows and columns
@@ -19,13 +20,17 @@ written with other expressions); outside it the taps beyond the band
 are dropped, and the port drops the same ones. Zeros padding only.
 
 :func:`fused_warp` is differentiable in ``img`` and ``theta`` while grad
-mode is on, through :class:`FusedWarp`; under ``torch.no_grad`` or
-``torch.inference_mode`` it launches the forward alone. For a CUDA tensor
-the forward and the backward launch their kernels (two launches each)
-or raise; for a CPU tensor they compute the plain versions,
-:func:`fused_warp_plain_fwd` and :func:`fused_warp_plain_bwd`, which
-visit the same band rows as the kernels. ``launches``, ``bwd_launches``
-and ``grad_copies`` count as in ``ops/two_pass_warp.py``.
+mode is on and either requires grad, through :class:`FusedWarp`, whose
+forward also stores V for the backward; otherwise (serving) it launches
+the forward alone, which keeps V in shared memory and writes none. For
+a CUDA tensor the forward launches its kernel (one launch) and the
+backward its three (the transposed passes, then the sum of their theta
+partials and the chain to d_theta on the card), or raise; for a CPU
+tensor they compute the plain versions, :func:`fused_warp_plain_fwd` and
+:func:`fused_warp_plain_bwd`, which visit the same band rows as the
+kernels. ``launches``, ``bwd_launches``, ``v_stores`` and
+``grad_copies`` count as in ``ops/two_pass_warp.py``; the launch plan
+(:func:`fused_plan`) depends on the shape alone.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from torch.autograd.function import once_differentiable
 from cadepth_tpu_torch.ops import _build
 from cadepth_tpu_torch.ops.affine_warp import (
     _dtent,
-    chain_theta,
+    chain_theta_closed,
     check_warp_args,
     plain_pass_h,
     plain_pass_h_bwd,
@@ -48,8 +53,11 @@ from cadepth_tpu_torch.ops.affine_warp import (
 )
 from cadepth_tpu_torch.ops.two_pass_warp import (
     DTYPE_CODE,
+    ITEMSIZE,
     check_card_args,
+    fwd_plan,
     raise_on,
+    vector_width,
 )
 
 # Preferred output-row tile and column strip (the reference's defaults).
@@ -59,10 +67,20 @@ WT_PREF = 64
 # Kernel launches since the counts were last set to 0.
 launches = 0
 bwd_launches = 0
-LAUNCHES_PER_CALL = 2
-BWD_LAUNCHES_PER_CALL = 2
+LAUNCHES_PER_CALL = 1
+BWD_LAUNCHES_PER_CALL = 3
+# Forward launches that also stored V (training; serving stores none).
+v_stores = 0
 # Backward calls that copied a non-contiguous incoming gradient.
 grad_copies = 0
+
+# Threads of a kernel block (kThreads of csrc/warp_common.cuh), and the
+# fewest blocks a launch is planned to have where splitting the channels
+# allows it: about two for each of an H100's 132 SMs. A constant, not
+# the card's SM count, so the plan, the block partials and d_theta's
+# bits are the same on every card.
+THREADS = 256
+MIN_BLOCKS = 256
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -111,6 +129,49 @@ def check_fused_args(img: torch.Tensor, theta: torch.Tensor,
             "border clamping makes the banded adjoint unbounded at the "
             f"edges. Got: {padding_mode}")
     check_warp_args(img, theta, padding_mode)
+
+
+def fused_plan(batch: int, height: int, width: int, channels: int,
+               dtype: torch.dtype, aligned: bool = True
+               ) -> Tuple[int, int, int]:
+    """(vec, c_chunk, smem_bytes) of the banded kernels' launches over a
+    (batch, height, width, channels) map: the channels a thread moves
+    (:func:`~cadepth_tpu_torch.ops.two_pass_warp.vector_width`), the
+    channels one block holds for a whole row, and the bytes of that row
+    chunk in shared memory.
+
+    The chunk starts from the two-pass forward's
+    (:func:`~cadepth_tpu_torch.ops.two_pass_warp.fwd_plan`) and halves
+    again, in whole vectors, while the launch has fewer than
+    :data:`MIN_BLOCKS` blocks and the halved chunk still gives each of a
+    block's :data:`THREADS` threads two items (a pixel's vector each) of
+    the row: the flagship's small decoder levels (a few rows of many
+    channels) otherwise leave most SMs idle, and blocks of fewer items
+    spend more of their time on their set-up and their barrier. A rule of
+    the shape alone.
+    """
+    size = ITEMSIZE[dtype]
+    vec = vector_width(channels, dtype, aligned)
+    chunk, _ = fwd_plan(width, channels, dtype, aligned)
+    while chunk and batch * height * -(-channels // chunk) < MIN_BLOCKS:
+        half = max(vec, -(-(chunk // 2) // vec) * vec)
+        if half == chunk or width * (half // vec) < 2 * THREADS:
+            break
+        chunk = half
+    return vec, chunk, width * chunk * size
+
+
+def _plan(img: torch.Tensor, *others: torch.Tensor) -> Tuple[int, int, int]:
+    """:func:`fused_plan` of a launch over ``img`` and the other buffers
+    of its shape and dtype (one channel a thread where one is not 16-byte
+    aligned), checked against the kernel's int32 block count."""
+    bsz, h, w, ch = img.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (img,) + others)
+    plan = fused_plan(bsz, h, w, ch, img.dtype, aligned)
+    if plan[1] and bsz * h * -(-ch // plan[1]) >= 2 ** 31:
+        raise ValueError(f"img shape {tuple(img.shape)} needs more than "
+                         "2^31 blocks")
+    return plan
 
 
 # -- plain versions -----------------------------------------------------------
@@ -191,7 +252,9 @@ def fused_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
     from the base that the cell's corners give, with the tent at
     ``diff = (p*x + (q*i + r)) - y`` (rounded to bf16 for bf16 features)
     and the partials ``<d_v, img> * dtent(diff) * (x, i, 1)`` (JAX's kink
-    conventions), chained with pass H's to d_theta.
+    conventions), chained with pass H's to d_theta by
+    :func:`~cadepth_tpu_torch.ops.affine_warp.chain_theta_closed`, the
+    theta kernel's f32 arithmetic.
     """
     check_fused_args(img, theta, "zeros")
     bsz, h, w, _ = img.shape
@@ -234,8 +297,8 @@ def fused_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
     part_v = torch.stack([(c_r * xs).sum((1, 2)), c_q.sum((1, 2)),
                           c_r.sum((1, 2))], dim=-1)
     partials = torch.cat([part_h, part_v], dim=-1)             # (B, 6)
-    return d_img.to(img.dtype), chain_theta(theta, partials, h, w,
-                                            align_corners)
+    return d_img.to(img.dtype), chain_theta_closed(theta, partials, h, w,
+                                                   align_corners)
 
 
 # -- kernels ------------------------------------------------------------------
@@ -243,38 +306,39 @@ def fused_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.library("fused_warp")
     if lib.cadepth_fused_warp_fwd.argtypes is None:
-        lib.cadepth_fused_warp_fwd.argtypes = [_VP] * 4 + [_INT] * 9 + [_VP]
+        lib.cadepth_fused_warp_fwd.argtypes = [_VP] * 4 + [_INT] * 12 + [_VP]
         lib.cadepth_fused_warp_fwd.restype = _INT
-        lib.cadepth_fused_warp_bwd.argtypes = [_VP] * 8 + [_INT] * 9 + [_VP]
+        lib.cadepth_fused_warp_bwd.argtypes = [_VP] * 8 + [_INT] * 12 + [_VP]
         lib.cadepth_fused_warp_bwd.restype = _INT
-        lib.cadepth_fused_warp_bwd_stride.argtypes = [_INT, _INT]
-        lib.cadepth_fused_warp_bwd_stride.restype = _INT
         lib.cadepth_cuda_error_string.argtypes = [_INT]
         lib.cadepth_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _forward(img: torch.Tensor, theta: torch.Tensor, align_corners: bool
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, V): the plain version on the CPU, the kernels on the card."""
-    global launches
+def _forward(img: torch.Tensor, theta: torch.Tensor, align_corners: bool,
+             keep_v: bool):
+    """(out, V): the plain version on the CPU (V always), the kernel on
+    the card (V only where ``keep_v``, else None)."""
+    global launches, v_stores
     if img.device.type == "cpu":
         return fused_warp_plain_fwd(img, theta, align_corners)
     check_card_args(img, theta, "fused_warp")
     bsz, h, w, ch = img.shape
     it, wt, kb, _ = fused_tiles(h, w)
     theta = theta.to(torch.float32).contiguous()
-    v = torch.empty_like(img)
     out = torch.empty_like(img)
+    v = torch.empty_like(img) if keep_v else None
+    plan = _plan(img, out, *([v] if keep_v else []))
     lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_fused_warp_fwd(
-            img.data_ptr(), v.data_ptr(), out.data_ptr(), theta.data_ptr(),
-            bsz, h, w, ch, DTYPE_CODE[img.dtype], int(align_corners), it, wt,
-            kb, stream)
+            img.data_ptr(), v.data_ptr() if keep_v else None, out.data_ptr(),
+            theta.data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
+            int(align_corners), it, wt, kb, *plan, stream)
     raise_on(lib, err, "fused_warp forward")
     launches += LAUNCHES_PER_CALL
+    v_stores += int(keep_v)
     return out, v
 
 
@@ -285,9 +349,10 @@ def fused_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
     V and ``theta`` and the contiguous cotangent ``grad_out`` of its
     output.
 
-    On the card: the two backward kernels, then a sum of their per-block
-    theta partials and the chain through the line coefficients. On the
-    CPU: :func:`fused_warp_plain_bwd`.
+    On the card: the two transposed passes and the theta kernel, which
+    sums their per-block partials and chains them to d_theta; the host
+    allocates and launches, nothing else. On the CPU:
+    :func:`fused_warp_plain_bwd`.
     """
     global bwd_launches
     check_fused_args(img, theta, "zeros")
@@ -302,23 +367,23 @@ def fused_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
     bsz, h, w, ch = img.shape
     it, wt, _, kb = fused_tiles(h, w)
     th = theta.to(torch.float32).contiguous()
-    lib = _library()
-    stride = lib.cadepth_fused_warp_bwd_stride(w, ch)
     d_v = torch.empty_like(img)
     d_img = torch.empty_like(img)
-    part = torch.empty(2, bsz, h * stride, 3, dtype=torch.float32,
-                       device=img.device)
+    plan = _plan(img, v, grad_out, d_v, d_img)
+    blocks = bsz * h * (-(-ch // plan[1]) if plan[1] else 0)
+    part = torch.empty(2 * blocks * 3, dtype=torch.float32, device=img.device)
+    d_theta = torch.empty(bsz, 2, 3, dtype=torch.float32, device=img.device)
+    lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_fused_warp_bwd(
             grad_out.data_ptr(), v.data_ptr(), img.data_ptr(), th.data_ptr(),
-            d_v.data_ptr(), d_img.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
-            int(align_corners), it, wt, kb, stream)
+            d_v.data_ptr(), d_img.data_ptr(), part.data_ptr(),
+            d_theta.data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
+            int(align_corners), it, wt, kb, *plan, stream)
     raise_on(lib, err, "fused_warp backward")
     bwd_launches += BWD_LAUNCHES_PER_CALL
-    partials = torch.cat([part[0].sum(1), part[1].sum(1)], dim=-1)  # (B, 6)
-    return d_img, chain_theta(th, partials, h, w, align_corners)
+    return d_img, d_theta
 
 
 class FusedWarp(torch.autograd.Function):
@@ -326,7 +391,7 @@ class FusedWarp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, img, theta, align_corners):
-        out, v = _forward(img, theta, align_corners)
+        out, v = _forward(img, theta, align_corners, keep_v=True)
         ctx.save_for_backward(img, v, theta)
         ctx.align_corners = align_corners
         return out
@@ -359,6 +424,6 @@ def fused_warp(img: torch.Tensor, theta: torch.Tensor,
     differentiable while grad mode is on.
     """
     check_fused_args(img, theta, padding_mode)
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() and (img.requires_grad or theta.requires_grad):
         return FusedWarp.apply(img, theta, align_corners)
-    return _forward(img, theta, align_corners)[0]
+    return _forward(img, theta, align_corners, keep_v=False)[0]

@@ -37,7 +37,9 @@ Phases, each fatal on failure:
    step schedule with warmup) takes 10 steps on seeded batches, then an
    eval step; logs finite, parameters and BN statistics moved, exactly 5
    forward launches (each storing V) and 15 backward launches per step,
-   and the same steps with the plain warp give the same logs;
+   and the same steps with the plain warp give the same logs; the depth
+   metrics of the eval step's inputs on the card against the CPU (log10
+   with equal bits on single pixels);
 8. a small f32 model takes 3 train steps on the card and on the CPU from
    the same weights and batches;
 9. training times: per decoder level the training forward (storing V),
@@ -46,25 +48,30 @@ Phases, each fatal on failure:
    the backward of F.grid_sample; the train step's p50/p95 and images/s,
    the device's busy share over 3 profiled steps, peak device memory;
 10. the banded ("fused") warp's kernels against its plain versions: the
-   forward (V and the output) at the five decoder shapes at B=8, the
-   backward at B=4, f32 and bf16, the five thetas and a 0.2 rad rotation
-   that lies outside the band at dec1;
+   one-launch forward, served and storing V, equal to the plain forward
+   (max err 0) at the five decoder shapes at B=8; the backward's three
+   kernels at B=4 against the plain backward on a CPU copy of the same
+   tensors (two runs print the same errors), run twice for the same
+   bits; f32 and bf16, the five thetas and a 0.2 rad rotation that lies
+   outside the band at dec1;
 11. serving with pcl_warp fused: a Predictor over phase 4's weights
-   answers N=8 and N=3; exactly 2 fused_warp launches per PCL per forward
-   and no other warp launch; the depths agree with the same model run
-   with the plain banded warp and with phase 4's two-pass depths (every
+   answers N=8 and N=3; exactly 1 fused_warp launch per PCL per forward,
+   no V stored and no other warp launch; the depths agree with the same
+   model run with the plain banded warp and with phase 4's two-pass
+   depths (every
    served theta is in band, where the two are one function); per level
    the forward kernels' time, bound, plain and F.grid_sample time; the
    fused Predictor's latency at batch 8;
 12. training with pcl_warp fused: 10 full-width steps at batch 4 with
-   exactly 10 forward and 10 backward fused_warp launches per step (none
-   of the two-pass warp), then the same steps with the plain banded warp;
+   exactly 5 forward launches (each storing V) and 15 backward fused_warp
+   launches per step (none of the two-pass warp), then the same steps
+   with the plain banded warp;
 13. the fused depth-loss op on phase 12's predicted depth and gt: its
    statistics and gradient kernels launched once each on that path,
    against their plain versions and against scale_invariant_loss +
    reprojection_loss;
-14. fused times: the banded backward per level, the loss kernels, the
-   fused train step;
+14. fused times: the banded backward and training forward per level,
+   the loss kernels, the fused train step;
 15. the banded affine warp's kernel (the port of pallas_affine_warp)
    against its plain version at the five decoder shapes, f32 and bf16,
    tests/test_pallas.py's four thetas and, at dec1, a 0.35 rad rotation
@@ -155,6 +162,14 @@ TWO_PASS_FWD_KEYS = ("two_pass_fwd_kernel",)
 TWO_PASS_BWD_KEYS = ("two_pass_bwd_h_kernel", "two_pass_bwd_v_kernel",
                      "two_pass_theta_kernel")
 FUSED_KERNEL = "cadepth_tpu/ops/pallas/fused_warp.py"
+# the banded warp's kernels (its transposed pass H and theta kernel are
+# the two-pass warp's, launched from its own library)
+FUSED_FWD_KEYS = ("fused_fwd_kernel",)
+FUSED_BWD_KEYS = ("two_pass_bwd_h_kernel", "fused_bwd_v_kernel",
+                  "two_pass_theta_kernel")
+# compute_depth_metrics, card against CPU: f32 sums over the pixels in
+# another order
+METRICS_RTOL = 1e-5
 LOSS_KERNEL = "cadepth_tpu/ops/pallas/fused_loss.py"
 AFFINE_KERNEL = "cadepth_tpu/ops/pallas/affine_warp.py"
 # the banded affine warp's checks: tests/test_pallas.py's four thetas
@@ -495,8 +510,9 @@ def device_ms(fn, iters: int, kernels=(), launches: int = 0,
     Where ``kernels`` (substrings of kernel names) is given, fn() makes
     ``launches`` launches of those kernels a call, and their time per
     call is their mean over the launches the profile holds times
-    ``launches``: a profile that lost records (one of 200 is lost in
-    some profiles) would otherwise read short by their share. A profile
+    ``launches``: a profile that lost records would otherwise read short
+    by their share (spin kernels at the ends of each profile take the
+    records the profiler drops there). A profile
     holding fewer than 90 % of ``iters * launches`` of them, or more, is
     taken again, and after ``attempts`` such profiles the call raises."""
     import torch
@@ -507,10 +523,22 @@ def device_ms(fn, iters: int, kernels=(), launches: int = 0,
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the profiler drops a few records at the ends of a session
+            # (up to 11 of 100 launches a profile, with no gap between
+            # those it held): 32 spin kernels on either side, left out
+            # below, take the loss
+            for _ in range(32):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = device_events(prof)
+            for _ in range(32):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof)
+                  if "spin_kernel" not in e[2]]
         counts = {key: count for _, count, key in events
                   if any(k in key for k in kernels)}
         seen = sum(counts.values())
@@ -886,13 +914,12 @@ def train(device, args, mode: str = "two_pass", steps=None):
 
     # the main path, counted
     for m in (warp, other):
-        m.launches = m.bwd_launches = m.grad_copies = 0
-    tpw.v_stores = 0
+        m.launches = m.bwd_launches = m.grad_copies = m.v_stores = 0
     logs, step = run(kernel_warp)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches, bwd_launches = warp.launches, warp.bwd_launches
-    grad_copies, v_stores = warp.grad_copies, tpw.v_stores
+    grad_copies, v_stores = warp.grad_copies, warp.v_stores
     logs = [{k: float(v) for k, v in x.items()} for x in logs]
     n_pcl = len(pcl_layers(model))
     per_step = warp.LAUNCHES_PER_CALL * n_pcl
@@ -900,19 +927,19 @@ def train(device, args, mode: str = "two_pass", steps=None):
     cuda = device.type == "cuda"
     want = per_step * steps if cuda else 0
     want_bwd = bwd_per_step * steps if cuda else 0
-    # the two-pass forward stores V once per training call
-    want_v = n_pcl * steps if cuda and mode != "fused" else 0
+    # the forward stores V once per training call
+    want_v = n_pcl * steps if cuda else 0
     log(f"  main path: {steps} train steps, {name} launches {launches} "
         f"(expected {want} = {per_step} per step), {name}_bwd launches "
         f"{bwd_launches} (expected {want_bwd} = {bwd_per_step} per step); "
-        f"two_pass_warp V stores {v_stores} (expected {want_v}); "
+        f"{name} V stores {v_stores} (expected {want_v}); "
         f"{grad_copies} of {n_pcl * steps} backward calls copied "
         "a non-contiguous incoming gradient")
     if launches != want or bwd_launches != want_bwd or v_stores != want_v:
         raise AssertionError(f"launch counts {launches}, {bwd_launches}, "
                              f"V stores {v_stores} != {want}, {want_bwd}, "
                              f"{want_v}")
-    if other.launches or other.bwd_launches:
+    if other.launches or other.bwd_launches or other.v_stores:
         raise AssertionError(f"pcl_warp {mode} launched the other warp's "
                              "kernels")
     for i, x in enumerate(logs):
@@ -969,10 +996,8 @@ def train(device, args, mode: str = "two_pass", steps=None):
     again = {k: max(x[k] for x in again) for k in again[0]}
     for pcl in pcl_layers(model):
         pcl.warp = kernel_warp
-    fwd_keys = ("fused_v_kernel", "pass_h_kernel") if mode == "fused" \
-        else TWO_PASS_FWD_KEYS
-    bwd_keys = ("bwd_pass_kernel", "fused_bwd_v_kernel") if mode == "fused" \
-        else TWO_PASS_BWD_KEYS
+    fwd_keys = FUSED_FWD_KEYS if mode == "fused" else TWO_PASS_FWD_KEYS
+    bwd_keys = FUSED_BWD_KEYS if mode == "fused" else TWO_PASS_BWD_KEYS
     return {"model": model, "loss_fn": loss_fn, "cfg": cfg, "step": step,
             "fwd_keys": fwd_keys, "bwd_keys": bwd_keys, "name": name,
             "batches": batches, "launches": launches,
@@ -980,6 +1005,74 @@ def train(device, args, mode: str = "two_pass", steps=None):
             "bwd_per_step": bwd_per_step, "v_stores": v_stores,
             "grad_copies": grad_copies, "logs": logs, "eval": ev,
             "kernel_vs_plain_rel": plain, "kernel_vs_kernel_rel": again}
+
+
+def metrics_card_vs_cpu(tr):
+    """Phase 7b: compute_depth_metrics of the eval step's inputs (the
+    trained model's depth on batch 0 and its gt) on the card against the
+    CPU: every metric at METRICS_RTOL (f32 sums in another order), the
+    pixel count exactly; then log10 with equal bits on single valid
+    pixels (a one-pixel mask, so no sum of many terms differs), on the
+    first 256 valid pixels whose log p - log g the two devices' log
+    functions round alike, so that the division alone is compared. Also
+    counts the pixels on which dividing by the Python float log(10)
+    (which the card computes as a multiply by its reciprocal) gives other
+    bits than the CPU's division."""
+    import math
+
+    import torch
+
+    from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
+    from cadepth_tpu_torch.training import train_state as ts
+
+    cfg, batch = tr["cfg"], tr["batches"][0]
+    with torch.no_grad():
+        pred = ts.make_predict_fn(cfg, tr["model"])(batch).float()
+    gt = batch["depth"].float()
+    lo, hi = cfg.validation.min_depth, cfg.validation.max_depth
+    maps = {"card": (pred, gt), "cpu": (pred.cpu(), gt.cpu())}
+    got = {k: compute_depth_metrics(*m, min_depth=lo, max_depth=hi)
+           for k, m in maps.items()}
+    worst = 0.0
+    for key, want in got["cpu"].items():
+        have = got["card"][key].cpu()
+        if key == "num_valid_pixels":
+            if not torch.equal(have, want):
+                raise AssertionError(f"valid pixels {have} != {want}")
+            continue
+        worst = max(worst, ((have - want).abs()
+                            / want.abs().clamp_min(1e-30)).item())
+
+    valid = ((gt > lo) & (gt < hi)).reshape(-1).nonzero()[:, 0]
+    flat = {k: [t.reshape(-1)[valid.to(t.device)] for t in m]
+            for k, m in maps.items()}
+    ld = {k: torch.log(p.clamp(lo, hi)) - torch.log(g)
+          for k, (p, g) in flat.items()}
+    alike = (ld["card"].cpu() == ld["cpu"]).nonzero()[:256, 0]
+    old = int(((ld["card"].abs() / math.log(10.0)).cpu()
+               != ld["cpu"].abs() / math.log(10.0))[alike].sum())
+    few = {k: [t[alike.to(t.device)] for t in f] for k, f in flat.items()}
+    unequal = 0
+    for at in range(len(alike)):
+        one = {}
+        for k, (p, g) in few.items():
+            mask = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
+            mask[at] = True
+            one[k] = compute_depth_metrics(p, g, mask, lo, hi)["log10"].cpu()
+        unequal += int(not torch.equal(one["card"], one["cpu"]))
+    log(f"  depth metrics of the eval step's inputs {tuple(pred.shape)}, "
+        f"card against CPU: max rel err {worst:.3g} (rtol {METRICS_RTOL}), "
+        f"valid pixels {int(got['cpu']['num_valid_pixels'])} equal; log10 "
+        f"on {len(alike)} single pixels (the first of the {len(valid)} "
+        f"valid ones whose log p - log g both devices round alike): "
+        f"{unequal} unequal (must be 0); dividing by the Python float "
+        f"log(10) would give other bits on {old} of them")
+    if not (worst <= METRICS_RTOL and unequal == 0 and len(alike) > 0):
+        raise AssertionError(f"depth metrics, card against CPU: rel err "
+                             f"{worst}, log10 unequal on {unequal} of "
+                             f"{len(alike)} pixels")
+    return {"max_rel_err": worst, "log10_pixels": len(alike),
+            "log10_unequal": unequal, "python_float_divisor_unequal": old}
 
 
 def cross_device_train(device, args):
@@ -1035,8 +1128,8 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
     backward kernels of ``name`` ("two_pass_warp" or "fused_warp"), their
     bound, the backward call's host time (the host clock over back-to-back
     calls, without a synchronize), the plain backward and the backward of
-    F.grid_sample(F.affine_grid(theta)), bf16; for the two-pass warp also
-    the training forward, which stores V."""
+    F.grid_sample(F.affine_grid(theta)), bf16; and the training forward,
+    which stores V."""
     import torch
     import torch.nn.functional as F
 
@@ -1050,11 +1143,17 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
     if name == "fused_warp":
         counted, plain_fwd = fw, fw.fused_warp_plain_fwd
         kernel, plain = fw.fused_warp_bwd, fw.fused_warp_plain_bwd
-        keys = ("bwd_pass_kernel", "fused_bwd_v_kernel")
+        keys, fwd_keys = FUSED_BWD_KEYS, FUSED_FWD_KEYS
+
+        def train_fwd(img, theta):
+            return fw._forward(img, theta, False, keep_v=True)
     else:
         counted, plain_fwd = warp, two_pass_affine_warp_plain_fwd
         kernel, plain = warp.two_pass_warp_bwd, two_pass_affine_warp_plain_bwd
-        keys = TWO_PASS_BWD_KEYS
+        keys, fwd_keys = TWO_PASS_BWD_KEYS, TWO_PASS_FWD_KEYS
+
+        def train_fwd(img, theta):
+            return warp._forward(img, theta, "zeros", False, keep_v=True)
     cuda = device.type == "cuda"
     timer = Timer(device)
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
@@ -1117,10 +1216,8 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
                 total, per_kernel = device_ms(fn, n, **expect)
                 row[f"{call}_ms"] = total
                 if call == "kernel":
-                    # the backward's kernels (the two-pass warp's theta
-                    # kernel among them), the transposed passes alone, and
-                    # the whole call (the fused warp's with the partials'
-                    # sum and the chain to d_theta in PyTorch)
+                    # the backward's three kernels, the transposed passes
+                    # alone, and the whole call
                     row["kernel_ms"] = sum(
                         ms for key, ms in per_kernel.items()
                         if any(k in key for k in keys))
@@ -1128,20 +1225,19 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
                         ms for key, ms in per_kernel.items()
                         if any(k in key for k in keys[:2]))
                     row["kernel_call_ms"] = total
-        if name == "two_pass_warp":
-            # the training forward: the one launch, storing V; reads img,
-            # writes out and V
-            fwd_bytes = 3 * elems * img.element_size()
-            row["train_fwd_bound_ms"] = max(fwd_bytes / HBM_BYTES_PER_S,
-                                            6 * elems / F32_FLOPS_PER_S) * 1e3
+        # the training forward: the one launch, storing V; reads img,
+        # writes out and V
+        fwd_bytes = 3 * elems * img.element_size()
+        row["train_fwd_bound_ms"] = max(fwd_bytes / HBM_BYTES_PER_S,
+                                        6 * elems / F32_FLOPS_PER_S) * 1e3
 
-            def fwd():
-                return warp._forward(img, theta, "zeros", False, keep_v=True)
+        def fwd():
+            return train_fwd(img, theta)
 
-            row["train_fwd_wall_ms"] = timer(fwd, args.timing_iters, 2)
-            row["train_fwd_ms"] = device_ms(
-                fwd, args.timing_iters, kernels=TWO_PASS_FWD_KEYS,
-                launches=warp.LAUNCHES_PER_CALL)[0] if cuda else None
+        row["train_fwd_wall_ms"] = timer(fwd, args.timing_iters, 2)
+        row["train_fwd_ms"] = device_ms(
+            fwd, args.timing_iters, kernels=fwd_keys,
+            launches=counted.LAUNCHES_PER_CALL)[0] if cuda else None
         rows[level] = row
 
         def fmt(call):
@@ -1162,14 +1258,13 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
             f"passes move {row['two_launch_bytes'] / 1e6:.1f} MB){share}; "
             f"plain {fmt('plain')}; grid_sample backward {fmt('library')}"
             f"{unit}")
-        if "train_fwd_wall_ms" in row:
-            dev = row["train_fwd_ms"]
-            log(f"  [{card}] {level} {shape} bf16 {name} training forward "
-                "(V stored): " + (f"{dev:.4f} ms device, "
-                                  f"{row['train_fwd_bound_ms'] / dev:.1%} of "
-                                  if dev else "device not measured, ")
-                + f"bound {row['train_fwd_bound_ms'] * 1e3:.1f} us (3 maps)"
-                f" / {row['train_fwd_wall_ms']:.4f} ms wall{unit}")
+        dev = row["train_fwd_ms"]
+        log(f"  [{card}] {level} {shape} bf16 {name} training forward "
+            "(V stored): " + (f"{dev:.4f} ms device, "
+                              f"{row['train_fwd_bound_ms'] / dev:.1%} of "
+                              if dev else "device not measured, ")
+            + f"bound {row['train_fwd_bound_ms'] * 1e3:.1f} us (3 maps)"
+            f" / {row['train_fwd_wall_ms']:.4f} ms wall{unit}")
     return rows
 
 
@@ -1272,11 +1367,15 @@ def fused_thetas(device, b: int, gen):
 
 
 def check_fused(device, fwd_shapes, bwd_shapes, seed: int):
-    """Phase 10: the banded warp's kernels against its plain versions: the
-    forward (V and the output) at the serving batch, the backward at the
-    training batch, f32 and bf16, THETAS and an out-of-band rotation.
-    Returns the worst errors: forward per dtype; backward d_img per dtype
-    and d_theta over its largest |entry|."""
+    """Phase 10: the banded warp's kernels against its plain versions, f32
+    and bf16, THETAS and an out-of-band rotation: the one-launch forward
+    at the serving batch, served (no V) and storing V, equal to the plain
+    forward bit for bit; the backward's three kernels at the training
+    batch, run twice for the same bits, against the plain backward
+    computed on a CPU copy of the same tensors (its index_add_ is
+    deterministic there, so two runs print the same errors). Returns the
+    worst errors: forward per dtype; backward d_img per dtype and d_theta
+    over its largest |entry|."""
     import torch
 
     from cadepth_tpu_torch.ops import fused_warp as fw
@@ -1293,33 +1392,45 @@ def check_fused(device, fwd_shapes, bwd_shapes, seed: int):
             name = str(dtype).split(".")[1]
             img, grad = img32.to(dtype), grad32.to(dtype)
             bimg = img[:bshape[0]].contiguous()
+            plans = [fw.fused_plan(*s_, dtype)[:2] for s_ in (shape, bshape)]
             errs = []
             for tname, theta in fused_thetas(device, shape[0], gen):
-                before = fw.launches
-                out, v = fw._forward(img, theta, False)
+                before, stores = fw.launches, fw.v_stores
+                served, _ = fw._forward(img, theta, False, keep_v=False)
+                out, v = fw._forward(img, theta, False, keep_v=True)
                 if cuda:
                     torch.cuda.synchronize()
-                    if fw.launches != before + fw.LAUNCHES_PER_CALL:
+                    if fw.launches != before + 2 * fw.LAUNCHES_PER_CALL or \
+                            fw.v_stores != stores + 1:
                         raise AssertionError("fused_warp did not count its "
-                                             "launches")
+                                             "launches or V stores")
                 want_out, want_v = fw.fused_warp_plain_fwd(img, theta)
-                err = max((out.float() - want_out.float()).abs().max().item(),
-                          (v.float() - want_v.float()).abs().max().item())
-                if not err <= ATOL[name]:
+                err = max((got.float() - want.float()).abs().max().item()
+                          for got, want in ((served, want_out),
+                                            (out, want_out), (v, want_v)))
+                if err != 0.0:
                     raise AssertionError(
                         f"fused kernel vs plain {level} {shape} {name} "
-                        f"{tname}: max err {err} > {ATOL[name]}")
+                        f"{tname}: max err {err}, not 0")
                 fwd[name] = max(fwd[name], err)
                 bth = theta[:bshape[0]].contiguous()
                 bv = want_v[:bshape[0]].contiguous()
                 before = fw.bwd_launches
                 got = fw.fused_warp_bwd(bimg, bv, bth, grad)
+                again = fw.fused_warp_bwd(bimg, bv, bth, grad)
                 if cuda:
                     torch.cuda.synchronize()
-                    if fw.bwd_launches != before + fw.BWD_LAUNCHES_PER_CALL:
+                    if fw.bwd_launches != \
+                            before + 2 * fw.BWD_LAUNCHES_PER_CALL:
                         raise AssertionError("fused_warp_bwd did not count "
                                              "its launches")
-                want = fw.fused_warp_plain_bwd(bimg, bv, bth, grad)
+                if not (torch.equal(again[0], got[0])
+                        and torch.equal(again[1], got[1])):
+                    raise AssertionError(f"fused backward {level} {name} "
+                                         f"{tname}: two runs differ")
+                want = fw.fused_warp_plain_bwd(
+                    *(t.cpu() for t in (bimg, bv, bth, grad)))
+                got = [t.cpu() for t in got]
                 scale = max(1.0, want[0].float().abs().max().item())
                 d_err = (got[0].float() - want[0].float()).abs().max().item()
                 t_err = ((got[1] - want[1]).abs().max()
@@ -1338,8 +1449,10 @@ def check_fused(device, fwd_shapes, bwd_shapes, seed: int):
                 errs.append(f"{tname}{'' if band_ok else '(out of band)'}="
                             f"{err:.3g}|{d_err:.3g}/{t_err:.2g}")
             log(f"  {level} {tuple(shape)}/{bshape[0]} {name:8s} (it, wt, "
-                f"kb_f, kb_b) {band} max|err| fwd|d_img/rel d_theta "
-                + " ".join(errs))
+                f"kb_f, kb_b) {band}, (vec, chunk) {plans[0]}/{plans[1]} "
+                "max|err| fwd|d_img/rel d_theta " + " ".join(errs))
+    log("  the forward served and storing V equals the plain forward (max "
+        "err 0); each backward, run twice, gave the same bits")
     return fwd, bwd
 
 
@@ -1376,6 +1489,7 @@ def serve_fused(device, args, weights, request):
 
     # the main path, counted
     fw.launches = fw.bwd_launches = tpw.launches = tpw.bwd_launches = 0
+    fw.v_stores = 0
     depth8 = fused.predict(rgb8, k)
     depth3 = fused.predict(rgb8[:3], k[:3])
     launches = fw.launches
@@ -1383,13 +1497,15 @@ def serve_fused(device, args, weights, request):
     cuda = device.type == "cuda"
     expected = 2 * per_forward if cuda else 0
     log(f"  main path: 2 forwards, fused_warp launches {launches} (expected "
-        f"{expected} = {per_forward} per forward, 2 per PCL), two_pass_warp "
-        f"launches {tpw.launches}, backward launches "
+        f"{expected} = {per_forward} per forward, {fw.LAUNCHES_PER_CALL} per "
+        f"PCL), V stores {fw.v_stores} (expected 0), two_pass_warp launches "
+        f"{tpw.launches}, backward launches "
         f"{fw.bwd_launches + tpw.bwd_launches}")
-    if launches != expected or tpw.launches or fw.bwd_launches \
-            or tpw.bwd_launches:
-        raise AssertionError("fused serving launched other kernels than 2 "
-                             "fused_warp launches per PCL per forward")
+    if launches != expected or fw.v_stores or tpw.launches \
+            or fw.bwd_launches or tpw.bwd_launches:
+        raise AssertionError("fused serving launched other kernels than "
+                             f"{fw.LAUNCHES_PER_CALL} fused_warp launch per "
+                             "PCL per forward, or stored V")
     shapes = [s for s, _, _ in seen[:len(pcls)]]
     want_shapes = [tuple(s) for _, s in decoder_shapes(
         args.batch, args.height, args.width, args.init_features)]
@@ -1575,15 +1691,13 @@ def fused_serve_times(device, args, card: str, fused):
     cuda = device.type == "cuda"
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     rows, total = level_times(device, args, card, "fused_warp", fw.fused_warp,
-                              fw.fused_warp_plain, fw,
-                              ("fused_v_kernel", "pass_h_kernel"))
+                              fw.fused_warp_plain, fw, FUSED_FWD_KEYS)
     bench = fused.benchmark(iterations=args.bench_iters, warmup=5)
     log(f"  [{card}] fused Predictor batch {args.batch}: p50 "
         f"{bench['p50_ms']:.3f} ms, p95 {bench['p95_ms']:.3f} ms, "
         f"{bench['images_per_sec']:.2f} images/s ({args.bench_iters} "
         f"requests){unit}")
-    prof = profile_forward(fused, card, warp_keys=("fused_v_kernel",
-                                                   "pass_h_kernel"),
+    prof = profile_forward(fused, card, warp_keys=FUSED_FWD_KEYS,
                            warp_name="fused_warp") if cuda else None
     return rows, total, bench, prof
 
@@ -2044,6 +2158,7 @@ def main(argv=None) -> int:
 
     phase("7. training")
     tr = train(device, args)
+    metrics_err = metrics_card_vs_cpu(tr)
 
     phase("8. training, card against CPU")
     cross_train = cross_device_train(device, args)
@@ -2081,6 +2196,11 @@ def main(argv=None) -> int:
 
     phase("14. fused times")
     f_bwd_rows = bwd_times(device, args, card, "fused_warp")
+    log(f"  [{card}] fused_warp over the five levels per train step: "
+        + ", ".join(f"{k} {v:.4f} ms" for k in (
+            "train_fwd_ms", "train_fwd_bound_ms", "kernel_ms", "passes_ms",
+            "bound_ms", "kernel_host_ms")
+            if (v := level_sum(f_bwd_rows, k)) is not None))
     loss_rows = loss_times(device, args, card, floss["inputs"])
     f_train_out = train_times(device, args, card, ftr,
                               steps=args.train_steps)
@@ -2217,10 +2337,15 @@ def main(argv=None) -> int:
         "launches": f_launches,
         "launches_per_forward": f_per_forward,
         "launches_in_training": ftr["launches"],
+        "v_stores_in_training": ftr["v_stores"],
         "max_abs_err": max(fwd_worst.values()),
         "max_abs_err_by_dtype": fwd_worst,
         "ms": f_dec1["kernel_ms"],
-        "ms_how": "torch.profiler device time of both launches per call",
+        "ms_how": "torch.profiler device time of the one launch per call, "
+                  "as served (V kept in shared memory, none stored)",
+        "train_fwd_ms": f_bwd_dec1["train_fwd_ms"],
+        "train_fwd_at": f"dec1 {f_bwd_dec1['shape']} bf16, V stored",
+        "train_fwd_bound_ms": f_bwd_dec1["train_fwd_bound_ms"],
         "wall_ms": f_dec1["kernel_wall_ms"],
         "plain_ms": f_dec1["plain_ms"],
         "bound_ms": f_dec1["bound_ms"],
@@ -2243,22 +2368,34 @@ def main(argv=None) -> int:
                          f"{TPU_KERNEL}:194 _bwd_h_kernel (transposed "
                          "pass H)"],
         "launches": ftr["bwd_launches"],
-        "launches_per_step": ftr["per_step"],
+        "launches_per_step": ftr["bwd_per_step"],
         "max_abs_err": max(fbwd_worst["float32"], fbwd_worst["bfloat16"]),
         "max_abs_err_by_dtype": fbwd_worst,
         "ms": f_bwd_dec1["kernel_ms"],
-        "ms_how": "torch.profiler device time of both backward launches "
-                  "per call",
+        "ms_how": "torch.profiler device time of the three backward "
+                  "launches per call: both transposed passes, and the sum "
+                  "of their theta partials with the chain to d_theta",
+        "passes_ms": f_bwd_dec1["passes_ms"],
+        "per_step_ms": level_sum(f_bwd_rows, "kernel_ms"),
+        "per_step_passes_ms": level_sum(f_bwd_rows, "passes_ms"),
+        "per_step_bound_ms": level_sum(f_bwd_rows, "bound_ms"),
+        "per_step_train_fwd_ms": level_sum(f_bwd_rows, "train_fwd_ms"),
+        "per_step_host_ms": level_sum(f_bwd_rows, "kernel_host_ms"),
         "call_ms": f_bwd_dec1["kernel_call_ms"],
+        "host_ms": f_bwd_dec1["kernel_host_ms"],
         "wall_ms": f_bwd_dec1["kernel_wall_ms"],
         "plain_ms": f_bwd_dec1["plain_ms"],
         "bound_ms": f_bwd_dec1["bound_ms"],
         "bound_by": f_bwd_dec1["bound_by"],
+        "bound_bytes": f_bwd_dec1["bytes"],
+        "two_launch_bytes": f_bwd_dec1["two_launch_bytes"],
         "library_ms": f_bwd_dec1["library_ms"],
         "library": "backward of F.grid_sample(F.affine_grid(theta))",
         "at": f"dec1 {f_bwd_dec1['shape']} bf16",
-        "levels": {k: {m: r[m] for m in ("kernel_ms", "kernel_call_ms",
-                                         "kernel_wall_ms", "plain_ms",
+        "levels": {k: {m: r[m] for m in ("kernel_ms", "passes_ms",
+                                         "kernel_call_ms", "kernel_host_ms",
+                                         "kernel_wall_ms", "train_fwd_ms",
+                                         "train_fwd_bound_ms", "plain_ms",
                                          "library_ms", "bound_ms")}
                    for k, r in f_bwd_rows.items()},
     }] + [{
@@ -2317,7 +2454,7 @@ def main(argv=None) -> int:
         last_logs=tr["logs"][-1], eval=tr["eval"],
         kernel_vs_plain_max_rel=tr["kernel_vs_plain_rel"],
         kernel_vs_kernel_max_rel=tr["kernel_vs_kernel_rel"],
-        card_vs_cpu_f32=cross_train),
+        card_vs_cpu_f32=cross_train, metrics_card_vs_cpu=metrics_err),
         "predictor": {
         "batch": args.batch, "p50_ms": bench["p50_ms"],
         "p95_ms": bench["p95_ms"], "images_per_sec": bench["images_per_sec"],

@@ -18,6 +18,7 @@ import torch
 
 from cadepth_tpu_torch.config import config_from_dict
 from cadepth_tpu_torch.inference import Predictor
+from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
 from cadepth_tpu_torch.ops import banded_affine_warp as baw
 from cadepth_tpu_torch.ops import fused_loss as fl
 from cadepth_tpu_torch.ops import fused_warp as fw
@@ -356,7 +357,7 @@ def test_fused_kernels_match_plain_on_card():
                 for ac in (False, True):
                     what = (shape, name, dtype, ac)
                     before = fw.launches
-                    out, v = fw._forward(x, theta, ac)
+                    out, v = fw._forward(x, theta, ac, keep_v=True)
                     torch.cuda.synchronize()
                     assert fw.launches == before + fw.LAUNCHES_PER_CALL
                     want_out, want_v = fw.fused_warp_plain_fwd(x, theta, ac)
@@ -381,17 +382,56 @@ def test_fused_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_fused_one_launch_forward_is_bit_equal_at_the_decoder_levels():
+    """The one-launch banded forward, serving (no V) and training (V
+    stored), equals fused_warp_plain_fwd exactly (max err 0, up to the
+    sign of a zero) at the flagship's five decoder maps, f32 and bf16,
+    every theta (the 0.2 rad rotation lies outside the band at the larger
+    levels, where both drop the same taps), both align_corners; the
+    stored V equals the plain V; serving stores none."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    for shape in LEVELS:
+        img = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        for name, th in FUSED_THETAS.items():
+            theta = torch.from_numpy(np.tile(np.asarray(th, np.float32)[None],
+                                             (shape[0], 1, 1))).cuda()
+            for dtype in ATOL:
+                x = img.to(dtype)
+                for ac in (False, True):
+                    what = (shape, name, dtype, ac)
+                    want, want_v = fw.fused_warp_plain_fwd(x, theta, ac)
+                    stores, before = fw.v_stores, fw.launches
+                    served, none = fw._forward(x, theta, ac, keep_v=False)
+                    assert none is None and fw.v_stores == stores
+                    out, v = fw._forward(x, theta, ac, keep_v=True)
+                    assert fw.v_stores == stores + 1
+                    assert fw.launches == before + 2 * fw.LAUNCHES_PER_CALL
+                    for got, ref in ((served, want), (out, want),
+                                     (v, want_v)):
+                        err = (got.float() - ref.float()).abs().max()
+                        assert err.item() == 0.0, (what, err.item())
+
+
+@pytest.mark.cuda
 def test_fused_kernels_are_deterministic_and_refuse_border():
+    """Two runs of the forward and of the backward give the same bits, at
+    a map the plan splits into channel chunks (dec5 at B=4) and at one it
+    does not; the backward is three launches a call."""
     _need_card()
     rng = np.random.default_rng(6)
-    x, theta, grad = _fused_case((2, 30, 40, 64), "rotation", torch.bfloat16,
-                                 rng)
-    a = fw._forward(x, theta, False)
-    b = fw._forward(x, theta, False)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    da = fw.fused_warp_bwd(x, a[1], theta, grad)
-    db = fw.fused_warp_bwd(x, a[1], theta, grad)
-    assert torch.equal(da[0], db[0]) and torch.equal(da[1], db[1])
+    for shape in ((2, 30, 40, 64), (4, 14, 20, 1024)):
+        x, theta, grad = _fused_case(shape, "rotation", torch.bfloat16, rng)
+        a = fw._forward(x, theta, False, keep_v=True)
+        b = fw._forward(x, theta, False, keep_v=True)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        before = fw.bwd_launches
+        da = fw.fused_warp_bwd(x, a[1], theta, grad)
+        db = fw.fused_warp_bwd(x, a[1], theta, grad)
+        torch.cuda.synchronize()
+        assert fw.bwd_launches == before + 2 * fw.BWD_LAUNCHES_PER_CALL
+        assert fw.BWD_LAUNCHES_PER_CALL == 3
+        assert torch.equal(da[0], db[0]) and torch.equal(da[1], db[1])
     with pytest.raises(ValueError, match="zeros"):
         fw.fused_warp(x, theta, "border")
 
@@ -408,11 +448,12 @@ def test_fused_function_on_card_matches_cpu():
     for dev in ("cpu", "cuda"):
         im = torch.from_numpy(img).to(dev).requires_grad_(True)
         th = torch.from_numpy(theta).to(dev).requires_grad_(True)
-        fw.launches = fw.bwd_launches = fw.grad_copies = 0
+        fw.launches = fw.bwd_launches = fw.grad_copies = fw.v_stores = 0
         out = fw.fused_warp(im, th).permute(0, 3, 1, 2)
         torch.sin(out.contiguous()).sum().backward()
         if dev == "cuda":
-            assert fw.launches == fw.LAUNCHES_PER_CALL
+            assert fw.launches == fw.LAUNCHES_PER_CALL == 1
+            assert fw.v_stores == 1
             assert fw.bwd_launches == fw.BWD_LAUNCHES_PER_CALL
             assert fw.grad_copies == 1
         grads.append((im.grad.cpu(), th.grad.cpu()))
@@ -555,3 +596,47 @@ def test_pcl_modes_train_step_on_card_matches_cpu(mode):
         if key.endswith("loss"):
             np.testing.assert_allclose(logs[1][key], logs[0][key], rtol=1e-4,
                                        err_msg=key)
+
+
+@pytest.mark.cuda
+def test_depth_metrics_on_card_match_cpu():
+    """compute_depth_metrics on the card against the CPU, same seeded
+    inputs: every metric at rtol 1e-5 (f32 sums over the pixels in
+    another order), the pixel count exactly. Then log10 with equal bits
+    where one pixel is valid, so that no sum of many terms can differ:
+    the card divides |log p - log g| by log(10) as the CPU and JAX do
+    (PyTorch's CUDA division by a Python float would multiply by its
+    reciprocal). The pixels compared are those whose log p - log g the
+    two devices' log functions round alike, so the division alone is
+    held; at least half of them must be."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    pred = rng.uniform(0.05, 12.0, (2, 24, 32, 1)).astype(np.float32)
+    gt = rng.uniform(0.05, 12.0, (2, 24, 32, 1)).astype(np.float32)
+    gt[rng.uniform(0, 1, gt.shape) < 0.1] = 0.0
+    maps = {dev: (torch.from_numpy(pred).to(dev), torch.from_numpy(gt).to(dev))
+            for dev in ("cpu", "cuda")}
+    out = {dev: compute_depth_metrics(*maps[dev]) for dev in maps}
+    for key, want in out["cpu"].items():
+        got = out["cuda"][key].cpu()
+        if key == "num_valid_pixels":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
+                                       msg=key)
+
+    def log_diff(p, g):
+        return torch.log(p.clamp(0.1, 10.0)) - torch.log(g)
+
+    valid = np.flatnonzero((gt > 0.1) & (gt < 10.0))[:128]
+    flat = {dev: [t.reshape(-1)[torch.from_numpy(valid).to(dev)]
+                  for t in maps[dev]] for dev in maps}
+    same = (log_diff(*flat["cpu"]) == log_diff(*flat["cuda"]).cpu()).numpy()
+    assert same.sum() >= len(valid) // 2, (same.sum(), len(valid))
+    for at in valid[same]:
+        mask = np.zeros(gt.shape, bool)
+        mask.reshape(-1)[at] = True
+        got = {dev: compute_depth_metrics(
+            *maps[dev], valid_mask=torch.from_numpy(mask).to(dev))["log10"]
+            .cpu() for dev in maps}
+        assert torch.equal(got["cuda"], got["cpu"]), (at, got)

@@ -1,14 +1,16 @@
-"""The two-pass warp's chain from line-coefficient partials to d_theta.
+"""The warps' chain from line-coefficient partials to d_theta.
 
-The theta kernel of ``csrc/two_pass_warp.cu`` chains the six per-batch
+The theta kernel of ``csrc/warp_common.cuh`` chains the six per-batch
 partials (s_a, s_b, s_c, s_p, s_q, s_r) of the loss with respect to the
 line coefficients [A, B, C, p, q, r] to d_theta in closed form on the
-card; ``chain_theta_closed`` is that closed form in the kernel's f32
-operation order, and the plain backward uses it. Here it is held against
-the autograd form ``chain_theta`` and against the JAX package's chain
-(``jax.vjp`` of ``affine_pixel_coeffs`` and of p, q, r through A_safe,
-as ``cadepth_tpu/ops/pallas/two_pass_warp.py: _trainable_bwd`` chains
-its partials), on partials drawn with numpy from a seed. Tolerance: 1e-6
+card, for the two-pass and the banded warp; ``chain_theta_closed`` is
+that closed form in the kernel's f32 operation order, and both plain
+backwards use it. Here it is held against the autograd form
+``chain_theta`` (``tests/torch_port_common.py``) and against the JAX
+package's chain (``jax.vjp`` of ``affine_pixel_coeffs`` and of p, q, r
+through A_safe, as ``cadepth_tpu/ops/pallas/two_pass_warp.py:
+_trainable_bwd`` chains its partials), on partials drawn with numpy from
+a seed. Tolerance: 1e-6
 times max|d_theta| of each batch element, f32 (the forms differ only in
 the order of a few f32 operations). The thetas cover the identity, a
 small rotation, zooms, a 90 degree rotation (A = 0, clamped), A = +-5e-4
@@ -26,12 +28,9 @@ import numpy as np
 import pytest
 import torch
 
-import torch_port_common  # noqa: F401  (one torch thread per process)
 from cadepth_tpu.ops.affine_warp import affine_pixel_coeffs as jax_coeffs
-from cadepth_tpu_torch.ops.affine_warp import (
-    chain_theta,
-    chain_theta_closed,
-)
+from cadepth_tpu_torch.ops.affine_warp import chain_theta_closed
+from torch_port_common import chain_theta  # also: one torch thread a process
 
 ROT = 0.04
 THETAS = {

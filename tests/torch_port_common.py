@@ -202,3 +202,19 @@ def torch_batch(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def leaves(tree):
     """(path, leaf) pairs of a nested dict, for comparing two trees."""
     return jax.tree_util.tree_leaves_with_path(tree)
+
+
+def chain_theta(theta: torch.Tensor, partials: torch.Tensor, height: int,
+                width: int, align_corners: bool) -> torch.Tensor:
+    """d_theta (B, 2, 3) f32 from the (B, 6) partials of the loss with
+    respect to the six line coefficients [A, B, C, p, q, r], by autograd
+    through the port's ``warp_coeffs``: the reference of the closed form
+    ``chain_theta_closed`` that the plain backwards and the kernels'
+    theta kernel use."""
+    from cadepth_tpu_torch.ops.affine_warp import warp_coeffs
+
+    with torch.enable_grad():
+        th = theta.detach().to(torch.float32).requires_grad_(True)
+        co = warp_coeffs(th, height, width, align_corners)
+        (d_theta,) = torch.autograd.grad(co, th, partials)
+    return d_theta
