@@ -22,19 +22,36 @@
 // divisions and the accurate logf and sqrt (the build sets no fast-math
 // flag), as in the plain versions of cadepth_tpu_torch/ops/fused_loss.py.
 //
-// Design: one pass over pred and gt, a thread per element in a
-// grid-stride loop. The statistics kernel sums its four values per
-// thread, then per block in a fixed order, and writes one row of four
-// per block; the host adds the rows (torch.sum), so there are no float
-// atomics and two runs give the same bits. The number of blocks depends
-// on the element count alone. The gradient kernel reads the cotangents
-// from device memory, so the backward never waits on the host.
+// Statistics, one launch (stats_kernel): a block owns tiles of `rows`
+// rows of one sample (tile i of the B * ceil(H / rows) tiles goes to
+// block i mod blocks, at most kMaxStatsBlocks blocks), so each pixel's
+// sample, row and column come from the tile and the thread; a thread
+// takes Q = 4 neighbouring columns where W % 4 == 0 (a float4 load of
+// pred and of gt where the buffers are 16-byte aligned, four scalar
+// loads where not) and one elsewhere, the same columns in each of its
+// rows. Its xs come once per column and its ys once per row (a thread
+// per element would divide both for each element, after two 64-bit
+// integer divisions of the flat index). Each thread sums its pixels'
+// four values in f32, the block sums its threads in double in a fixed
+// order and writes one row of four partials; after a grid-wide barrier
+// (a cooperative launch: every block is resident at once), block 0 sums
+// the rows in double in a fixed order and writes the four statistics.
+// No float atomics, no counter, no second kernel: the block count and
+// each block's pixels depend on the shape alone (ops/fused_loss.py:
+// stats_plan), so two runs, and two cards, give the same bits, and the
+// partial rows are a scratch buffer of the call's own (nothing carries
+// from one launch to the next). The count is exact below 2^24 pixels.
 //
-// What bounds it: memory, 8 bytes read per element (12 with dpred
+// Gradient (grad_kernel): a thread per element in a grid-stride loop;
+// it reads the cotangents from device memory, so the backward never
+// waits on the host.
+//
+// What bounds them: memory, 8 bytes read per element (12 with dpred
 // written) against ~30 f32 operations and two logs; at the flagship's
 // (4, 240, 320) that is 2.46 MB, under a microsecond at 3.35 TB/s, so a
 // launch's fixed cost sets the time.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,6 +60,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
+// The statistics' most blocks (STATS_MAX_BLOCKS of ops/fused_loss.py):
+// 2 an SM of the 132 of an H100 SXM, which a cooperative launch holds
+// at once on any H100 (the kernel is built for 4 blocks an SM).
+constexpr int kMaxStatsBlocks = 256;
 constexpr float kEps = 1e-6f;
 constexpr float kClampMax = 1000.0f;
 
@@ -64,48 +85,154 @@ __device__ __forceinline__ void backproj(int64_t idx, int H, int W,
   ys = __fdiv_rn(__fsub_rn((float)v, kb[3]), __fadd_rn(kb[1], kEps));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
-             const float* __restrict__ k4, float* __restrict__ partials, int B,
-             int H, int W) {
-  const int64_t n = (int64_t)B * H * W;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const float g = gt[idx];
-    if (!(g > kEps)) continue;
-    const float p = pred[idx];
-    float xs, ys;
-    backproj(idx, H, W, k4, xs, ys);
-    const float d = __fsub_rn(logf(clip(p)), logf(clip(g)));
-    const float e = __fsub_rn(p, g);
-    const float ex = __fmul_rn(xs, e), ey = __fmul_rn(ys, e);
-    const float rep = __fsqrt_rn(__fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(e, e)),
-        kEps));
-    s[0] += d;
-    s[1] += d * d;
-    s[2] += 1.0f;
-    s[3] += rep;
-  }
-  __shared__ float sh[4][kThreads / 32];
+// The block's sums of v[0..3] in a fixed order, in thread 0's v; every
+// thread of the block calls it.
+__device__ __forceinline__ void block_sum4(double (&v)[4],
+                                           double (&sh)[4][kThreads / 32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    const float t = warp_sum(s[m]);
+    const double t = warp_sum(v[m]);
     if (lane == 0) sh[m][warp] = t;
   }
   __syncthreads();
-  if (threadIdx.x < 4) {
-    float t = 0.0f;
-    for (int w = 0; w < kThreads / 32; ++w) t += sh[threadIdx.x][w];
-    partials[(int64_t)blockIdx.x * 4 + threadIdx.x] = t;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      double t = 0.0;
+      for (int w = 0; w < kThreads / 32; ++w) t += sh[m][w];
+      v[m] = t;
+    }
+  }
+}
+
+// One pixel's four terms added to s where gt > eps. Computed for every
+// pixel and selected, without a branch, so that the pixels of a thread's
+// quad overlap (the clips keep both logs finite); adding +0 for a
+// masked pixel leaves each f32 sum as skipping it would, since a sum
+// that starts at +0 never becomes -0.
+__device__ __forceinline__ void add_pixel(float p, float g, float xs, float ys,
+                                          float (&s)[4]) {
+  const bool in = g > kEps;
+  const float d = __fsub_rn(logf(clip(p)), logf(clip(g)));
+  const float e = __fsub_rn(p, g);
+  const float ex = __fmul_rn(xs, e), ey = __fmul_rn(ys, e);
+  const float rep = __fsqrt_rn(__fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(e, e)),
+      kEps));
+  s[0] += in ? d : 0.0f;
+  s[1] += in ? d * d : 0.0f;
+  s[2] += in ? 1.0f : 0.0f;
+  s[3] += in ? rep : 0.0f;
+}
+
+// Q values of pred and gt from flat index `at`: one float4 each where
+// Q = 4 and the buffers are 16-byte aligned.
+template <int Q, bool ALIGNED>
+__device__ __forceinline__ void load_quad(const float* __restrict__ pred,
+                                          const float* __restrict__ gt, int64_t at,
+                                          float (&pv)[Q], float (&gv)[Q]) {
+  if constexpr (Q == 4 && ALIGNED) {
+    const float4 p4 = *reinterpret_cast<const float4*>(pred + at);
+    const float4 g4 = *reinterpret_cast<const float4*>(gt + at);
+    pv[0] = p4.x; pv[1] = p4.y; pv[2] = p4.z; pv[3] = p4.w;
+    gv[0] = g4.x; gv[1] = g4.y; gv[2] = g4.z; gv[3] = g4.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      pv[k] = pred[at + k];
+      gv[k] = gt[at + k];
+    }
+  }
+}
+
+// Block i owns tiles i, i + blocks, ... of the B * n_tiles tiles; tile t
+// is rows [(t mod n_tiles) * rows, +rows) of sample t / n_tiles. A
+// thread owns Q columns (q * Q, +Q) for q = q0, q0 + tpr, ... and the
+// rows v0 + g, v0 + g + groups, ... of each tile, with tpr = min(W / Q,
+// kThreads) and groups = kThreads / tpr (threads past tpr * groups idle).
+// Launched cooperatively (grid.sync()); part holds 4 doubles a block.
+template <int Q, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, 4)
+stats_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
+             const float* __restrict__ k4, double* __restrict__ part,
+             float* __restrict__ out, int B, int H, int W, int rows,
+             int n_tiles) {
+  __shared__ double sh[4][kThreads / 32];
+  const int nq = W / Q;
+  const int tpr = max(1, min(nq, kThreads)), groups = kThreads / tpr;
+  const int q0 = threadIdx.x % tpr, g = threadIdx.x / tpr;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int tile = blockIdx.x; g < groups && tile < B * n_tiles;
+       tile += gridDim.x) {
+    const int b = tile / n_tiles;
+    const int v_lo = (tile - b * n_tiles) * rows;
+    const int v_hi = min(v_lo + rows, H);
+    // K's four values are read here and first used after the first row's
+    // loads are issued, and each row's loads are issued before the row
+    // before it is summed: the thread waits for memory about once a tile
+    const float* kb = k4 + 4 * b;
+    const float k_fx = kb[0], k_fy = kb[1], cx = kb[2], cy = kb[3];
+    const int64_t plane = (int64_t)b * H;
+    for (int q = q0; q < nq; q += tpr) {
+      int v = v_lo + g;
+      if (v >= v_hi) break;
+      float pv[Q], gv[Q];
+      load_quad<Q, ALIGNED>(pred, gt, (plane + v) * W + (int64_t)q * Q, pv, gv);
+      const float fx = __fadd_rn(k_fx, kEps), fy = __fadd_rn(k_fy, kEps);
+      float xs[Q];
+#pragma unroll
+      for (int k = 0; k < Q; ++k)
+        xs[k] = __fdiv_rn(__fsub_rn((float)(q * Q + k), cx), fx);
+      for (; v < v_hi; v += groups) {
+        float pn[Q], gn[Q];
+        const bool more = v + groups < v_hi;
+        if (more)
+          load_quad<Q, ALIGNED>(pred, gt, (plane + v + groups) * W + (int64_t)q * Q,
+                                pn, gn);
+        const float ys = __fdiv_rn(__fsub_rn((float)v, cy), fy);
+#pragma unroll
+        for (int k = 0; k < Q; ++k) add_pixel(pv[k], gv[k], xs[k], ys, s);
+        if (more) {
+#pragma unroll
+          for (int k = 0; k < Q; ++k) {
+            pv[k] = pn[k];
+            gv[k] = gn[k];
+          }
+        }
+      }
+    }
+  }
+  double v[4] = {s[0], s[1], s[2], s[3]};
+  block_sum4(v, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) part[(int64_t)blockIdx.x * 4 + m] = v[m];
+  }
+  // every block's row is in device memory past this barrier
+  cooperative_groups::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  // block 0: the rows in a fixed order (thread t: rows t, t + kThreads,
+  // ...; then block_sum4), read past L1
+  double a[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
+    const double2* row = reinterpret_cast<const double2*>(part + (int64_t)i * 4);
+    const double2 lo = __ldcg(row), hi = __ldcg(row + 1);
+    a[0] += lo.x;
+    a[1] += lo.y;
+    a[2] += hi.x;
+    a[3] += hi.y;
+  }
+  block_sum4(a, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) out[m] = (float)a[m];
   }
 }
 
@@ -148,25 +275,34 @@ int blocks_for(int64_t n) {
 
 extern "C" {
 
-// Rows of four partial sums that cadepth_fused_loss_stats writes for
-// B * H * W elements.
-int cadepth_fused_loss_blocks(int B, int H, int W) {
-  return blocks_for((int64_t)B * H * W);
-}
-
 // pred and gt are contiguous (B, H, W) float32 device buffers, k4 a
-// contiguous (B, 4) float32 one; partials holds
-// cadepth_fused_loss_blocks(B, H, W) * 4 floats. Launches the statistics
-// kernel on `stream` and returns cudaGetLastError(); summed over its
-// rows, partials gives [sum d, sum d^2, count, sum reprojection].
+// contiguous (B, 4) float32 one, out a float32 (4,) one; `rows` rows a
+// tile and `blocks` blocks (ops/fused_loss.py: stats_plan: 1 to
+// kMaxStatsBlocks); part holds 32 * blocks bytes, 16-byte aligned (its
+// contents are not read). Launches the statistics kernel cooperatively
+// on `stream` and returns the launch's error; out receives [sum d,
+// sum d^2, count, sum reprojection].
 int cadepth_fused_loss_stats(const void* pred, const void* gt, const void* k4,
-                             void* partials, int B, int H, int W,
-                             void* stream) {
-  const int blocks = blocks_for((int64_t)B * H * W);
-  stats_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pred), static_cast<const float*>(gt),
-      static_cast<const float*>(k4), static_cast<float*>(partials), B, H, W);
-  return (int)cudaGetLastError();
+                             void* part, void* out, int B, int H, int W,
+                             int rows, int blocks, void* stream) {
+  if (rows <= 0 || B < 0 || H < 0 || W < 0 || blocks <= 0 ||
+      blocks > kMaxStatsBlocks)
+    return (int)cudaErrorInvalidValue;
+  int n_tiles = H > 0 ? (H + rows - 1) / rows : 1;
+  if ((int64_t)B * n_tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(pred);
+  const float* g = static_cast<const float*>(gt);
+  const float* k = static_cast<const float*>(k4);
+  double* rows_out = static_cast<double*>(part);
+  float* o = static_cast<float*>(out);
+  void* args[] = {&p, &g, &k, &rows_out, &o, &B, &H, &W, &rows, &n_tiles};
+  const bool aligned = ((reinterpret_cast<uintptr_t>(pred) |
+                         reinterpret_cast<uintptr_t>(gt)) & 15u) == 0;
+  const void* fn = W % 4 != 0 ? (const void*)stats_kernel<1, false>
+                   : aligned  ? (const void*)stats_kernel<4, true>
+                              : (const void*)stats_kernel<4, false>;
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
+                                          0, static_cast<cudaStream_t>(stream));
 }
 
 // pred, gt and dpred are contiguous (B, H, W) float32 device buffers, k4

@@ -26,13 +26,14 @@ That is what the reference's one-hot matrix products reduce to: each
 output lane sums one product and zeros. :func:`banded_affine_warp`
 launches the kernel for a CUDA tensor (one launch per call, counted in
 ``launches``) or raises; for a CPU tensor it computes
-:func:`banded_affine_warp_plain`.
+:func:`banded_affine_warp_plain`. The kernel's blocks own tiles of rows,
+columns and channels that :func:`affine_plan` picks from the shape alone.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -41,6 +42,7 @@ from cadepth_tpu_torch.ops.two_pass_warp import (
     DTYPE_CODE,
     check_card_args,
     raise_on,
+    vector_width,
 )
 
 BAND_S = 16  # static vertical band (rows) of the reference
@@ -48,6 +50,20 @@ BAND_S = 16  # static vertical band (rows) of the reference
 # Kernel launches since the count was last set to 0.
 launches = 0
 LAUNCHES_PER_CALL = 1
+
+# The launch plan: threads of a block (kThreads of csrc/warp_common.cuh);
+# bytes of a tap-table entry (kTapBytes of csrc/banded_affine_warp.cu)
+# and the most a block's table takes (the shared memory a block has
+# without opting in); the fewest blocks a launch is planned to have where
+# splitting allows it, about two for each of an H100's 132 SMs (a
+# constant, not the card's SM count, so the plan is the same on every
+# card); the most rows and items (pixel vectors) a block is given.
+THREADS = 256
+TAP_BYTES = 24
+TABLE_BYTES = 48 * 1024
+MIN_BLOCKS = 256
+MAX_ROWS = 8
+MAX_ITEMS = 16 * THREADS
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -100,6 +116,70 @@ def _band_rows(ay: torch.Tensor, by: torch.Tensor, cy: torch.Tensor,
     top = torch.ceil(torch.maximum(v0, v1)).clamp(-2.0 ** 24, 2.0 ** 24)
     s_hi = (top.long() - ys + 2).clamp_max(BAND_S)
     return byj, ys, s_hi
+
+
+class AffinePlan(NamedTuple):
+    """How the kernel's launch cuts a (B, H, W, C) map: ``vec`` channels
+    a thread moves, blocks of ``rows`` output rows, ``cols`` columns and
+    ``c_chunk`` channels, ``blocks`` of them, and the ``smem`` bytes of a
+    block's tap table."""
+
+    vec: int
+    rows: int
+    cols: int
+    c_chunk: int
+    blocks: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_of(batch: int, height: int, width: int, channels: int, vec: int,
+            rows: int, cols: int, c_chunk: int) -> AffinePlan:
+    """The :class:`AffinePlan` of a tiling: its block count and table
+    bytes."""
+    blocks = batch * _cdiv(height, rows) * _cdiv(width, cols) * \
+        _cdiv(channels, c_chunk)
+    return AffinePlan(vec, rows, cols, c_chunk, blocks,
+                      rows * cols * TAP_BYTES)
+
+
+def affine_plan(batch: int, height: int, width: int, channels: int,
+                dtype: torch.dtype, aligned: bool = True) -> AffinePlan:
+    """The kernel's launch plan over a (batch, height, width, channels)
+    map, from the shape alone.
+
+    A block's strip is the whole row where the table of one row fits
+    :data:`TABLE_BYTES`. Its channel chunk starts at all channels and
+    halves, in whole vectors (:func:`~cadepth_tpu_torch.ops.two_pass_warp.
+    vector_width`), while the launch has fewer than :data:`MIN_BLOCKS`
+    blocks and the halved chunk still gives each of a block's
+    :data:`THREADS` threads two items of a row: the flagship's small
+    decoder levels are a few rows of many channels. Then its rows double
+    while the launch keeps :data:`MIN_BLOCKS` blocks, a block at most
+    :data:`MAX_ROWS` rows and :data:`MAX_ITEMS` items, and the table
+    :data:`TABLE_BYTES`.
+    """
+    vec = vector_width(channels, dtype, aligned)
+    cols = min(width, TABLE_BYTES // TAP_BYTES)
+    chunk = channels
+    while plan_of(batch, height, width, channels, vec, 1, cols,
+                  chunk).blocks < MIN_BLOCKS:
+        half = max(vec, _cdiv(chunk // 2, vec) * vec)
+        if half == chunk or cols * (half // vec) < 2 * THREADS:
+            break
+        chunk = half
+    rows = 1
+    while 2 * rows <= min(height, MAX_ROWS):
+        more = plan_of(batch, height, width, channels, vec, 2 * rows, cols,
+                       chunk)
+        if more.blocks < MIN_BLOCKS or more.smem > TABLE_BYTES or \
+                2 * rows * cols * _cdiv(chunk, vec) > MAX_ITEMS:
+            break
+        rows *= 2
+    return plan_of(batch, height, width, channels, vec, rows, cols, chunk)
 
 
 def check_args(img: torch.Tensor, theta: torch.Tensor) -> None:
@@ -157,7 +237,7 @@ def banded_affine_warp_plain(img: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.library("banded_affine_warp")
     if lib.cadepth_banded_affine_warp.argtypes is None:
-        lib.cadepth_banded_affine_warp.argtypes = [_VP] * 3 + [_INT] * 5 + [_VP]
+        lib.cadepth_banded_affine_warp.argtypes = [_VP] * 3 + [_INT] * 10 + [_VP]
         lib.cadepth_banded_affine_warp.restype = _INT
         lib.cadepth_cuda_error_string.argtypes = [_INT]
         lib.cadepth_cuda_error_string.restype = ctypes.c_char_p
@@ -185,14 +265,29 @@ def banded_affine_warp(img: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     if max(h, w) >= 2 ** 24:
         raise ValueError(f"img shape {tuple(img.shape)}: H and W must stay "
                          "below 2^24 (f32 pixel positions)")
-    theta = theta.to(torch.float32).contiguous()
     out = torch.empty_like(img)
+    if img.numel() == 0:
+        return out
+    aligned = img.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = affine_plan(bsz, h, w, ch, img.dtype, aligned)
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"img shape {tuple(img.shape)} needs more than "
+                         "2^31 blocks")
+    _launch(img, theta, out, plan)
+    launches += LAUNCHES_PER_CALL
+    return out
+
+
+def _launch(img: torch.Tensor, theta: torch.Tensor, out: torch.Tensor,
+            plan: AffinePlan) -> None:
+    """One launch of the kernel, img -> out, with the tiling ``plan``."""
+    bsz, h, w, ch = img.shape
+    theta = theta.to(torch.float32).contiguous()
     lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_banded_affine_warp(
             img.data_ptr(), out.data_ptr(), theta.data_ptr(), bsz, h, w, ch,
-            DTYPE_CODE[img.dtype], stream)
+            DTYPE_CODE[img.dtype], plan.vec, plan.rows, plan.cols,
+            plan.c_chunk, plan.smem, stream)
     raise_on(lib, err, "banded_affine_warp")
-    launches += LAUNCHES_PER_CALL
-    return out

@@ -16,15 +16,21 @@ op that no module calls; the train step's losses are
 ``losses/depth_loss.py``'s.
 
 For CUDA tensors the statistics and the gradient launch their kernels
-(one launch each) or raise; for CPU tensors they compute the plain
-versions, :func:`depth_loss_stats_plain` and :func:`depth_loss_grad_plain`.
-``launches`` and ``bwd_launches`` count kernel launches.
+(one launch each, and nothing else) or raise; for CPU tensors they
+compute the plain versions, :func:`depth_loss_stats_plain` and
+:func:`depth_loss_grad_plain`. ``launches`` and ``bwd_launches`` count
+kernel launches. The statistics kernel's blocks own tiles of rows that
+:func:`stats_plan` picks from the shape alone; it is a cooperative
+launch, whose block 0 sums the blocks' partial rows in a fixed order
+after a grid-wide barrier. The rows lie in a buffer each call takes from
+PyTorch's caching allocator (no kernel), so no state is kept between
+calls, streams or devices.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,6 +47,45 @@ bwd_launches = 0
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+
+# The statistics' launch plan: threads of a block (kThreads of
+# csrc/fused_loss.cu), the rows each thread takes of a tile, and the most
+# blocks (kMaxStatsBlocks: all resident at once on any H100, as a
+# cooperative launch needs).
+THREADS = 256
+ROWS_PER_THREAD = 2
+STATS_MAX_BLOCKS = 256
+
+
+class StatsPlan(NamedTuple):
+    """How the statistics kernel cuts a (B, H, W) map: each thread takes
+    ``quad`` neighbouring columns (``threads_per_row`` threads span a
+    row, ``groups`` rows at once); a tile is ``rows`` rows of one
+    sample; ``tiles`` tiles over ``blocks`` blocks, tile i to block
+    i mod blocks."""
+
+    quad: int
+    threads_per_row: int
+    groups: int
+    rows: int
+    tiles: int
+    blocks: int
+
+
+def stats_plan(batch: int, height: int, width: int) -> StatsPlan:
+    """The statistics kernel's plan over (batch, height, width), from the
+    shape alone: four columns a thread where ``width % 4 == 0``, else
+    one; ``min(width / quad, THREADS)`` threads a row, the block's
+    threads in ``THREADS // threads_per_row`` row groups, each taking
+    ``ROWS_PER_THREAD`` rows of a tile; a block a tile, up to
+    ``STATS_MAX_BLOCKS`` blocks."""
+    quad = 4 if width % 4 == 0 else 1
+    tpr = max(1, min(width // quad, THREADS))
+    groups = THREADS // tpr
+    rows = groups * ROWS_PER_THREAD
+    tiles = batch * (-(-height // rows) if height else 1)
+    return StatsPlan(quad, tpr, groups, rows, tiles,
+                     max(1, min(tiles, STATS_MAX_BLOCKS)))
 
 
 def _check(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor) -> None:
@@ -108,9 +153,7 @@ def depth_loss_grad_plain(pred: torch.Tensor, gt: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.library("fused_loss")
     if lib.cadepth_fused_loss_stats.argtypes is None:
-        lib.cadepth_fused_loss_blocks.argtypes = [_INT] * 3
-        lib.cadepth_fused_loss_blocks.restype = _INT
-        lib.cadepth_fused_loss_stats.argtypes = [_VP] * 4 + [_INT] * 3 + [_VP]
+        lib.cadepth_fused_loss_stats.argtypes = [_VP] * 5 + [_INT] * 5 + [_VP]
         lib.cadepth_fused_loss_stats.restype = _INT
         lib.cadepth_fused_loss_grad.argtypes = [_VP] * 5 + [_INT] * 3 + [_VP]
         lib.cadepth_fused_loss_grad.restype = _INT
@@ -129,26 +172,33 @@ def _card_args(*tensors: torch.Tensor) -> None:
 def depth_loss_stats(pred: torch.Tensor, gt: torch.Tensor,
                      k4: torch.Tensor) -> torch.Tensor:
     """The four statistics of f32 (B, H, W) ``pred`` and ``gt`` and (B, 4)
-    ``k4``: the kernel and a fixed-order sum of its per-block rows on the
-    card, :func:`depth_loss_stats_plain` on the CPU."""
+    ``k4``: on the card one launch of the kernel, which writes them (its
+    block 0 sums the blocks' rows in a fixed order);
+    :func:`depth_loss_stats_plain` on the CPU."""
     global launches
     _check(pred, gt, k4)
     pred, gt, k4 = (t.to(torch.float32).contiguous() for t in (pred, gt, k4))
     if pred.device.type == "cpu":
         return depth_loss_stats_plain(pred, gt, k4)
     _card_args(pred, gt, k4)
+    plan = stats_plan(*pred.shape)
+    if plan.tiles >= 2 ** 31:
+        raise ValueError(f"pred shape {tuple(pred.shape)} needs more than "
+                         "2^31 tiles")
     b, h, w = pred.shape
+    out = torch.empty(4, dtype=torch.float32, device=pred.device)
+    # the blocks' partial rows, four doubles each: written before read
+    part = torch.empty(4 * plan.blocks, dtype=torch.float64,
+                       device=pred.device)
     lib = _library()
-    part = torch.empty(lib.cadepth_fused_loss_blocks(b, h, w), 4,
-                       dtype=torch.float32, device=pred.device)
     with torch.cuda.device(pred.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_fused_loss_stats(
             pred.data_ptr(), gt.data_ptr(), k4.data_ptr(), part.data_ptr(),
-            b, h, w, stream)
+            out.data_ptr(), b, h, w, plan.rows, plan.blocks,
+            torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "fused_depth_loss_stats")
     launches += 1
-    return part.sum(0)
+    return out
 
 
 def depth_loss_grad(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor,

@@ -69,27 +69,31 @@ Phases, each fatal on failure:
 13. the fused depth-loss op on phase 12's predicted depth and gt: its
    statistics and gradient kernels launched once each on that path,
    against their plain versions and against scale_invariant_loss +
-   reprojection_loss;
+   reprojection_loss; a statistics call is one kernel in its profile
+   (no sum, fill or memset), two calls give the same bits;
 14. fused times: the banded backward and training forward per level,
-   the loss kernels, the fused train step;
+   the loss kernels beside the device time of an empty launch (the
+   floor), the fused train step;
 15. the banded affine warp's kernel (the port of pallas_affine_warp)
    against its plain version at the five decoder shapes, f32 and bf16,
-   tests/test_pallas.py's four thetas and, at dec1, a 0.35 rad rotation
-   past its 16-row band; max_rotation_rows;
+   tests/test_pallas.py's four thetas and, at dec1, 0.35 and 0.6 rad
+   rotations past its 16-row band: max error 0, one launch a call, the
+   same bits twice; max_rotation_rows;
 16. serving with pcl_warp gather, auto and separable over phase 4's
    weights: each mode's kernel launches per forward, its depths against
    phase 4's (auto equal to them, and equal to gather with the heads
    turned past its 0.05 bound), the banded affine warp on the gather
    forward's five PCL inputs (1 launch per call, counted) against its
-   plain version and the gather warp, each mode's latency and device
-   profile, a small f32 model card against CPU;
+   plain version (max error 0, the same bits twice) and the gather warp,
+   each mode's latency and device profile, a small f32 model card
+   against CPU;
 17. training at full width, batch 4: gather for 10 steps, again with
    remat highres (losses against the run without, peak memory), auto and
    separable for 3 steps each; a flagship with norm group and
    decoder_upsample resize trained for 3 steps and served once;
-18. times: the banded affine kernel per level against its bound, its
-   plain version and F.grid_sample; the gather warp's device time per
-   level, per forward and per train step;
+18. times: the banded affine kernel per level against its bound, the
+   floor of an empty launch, its plain version and F.grid_sample; the
+   gather warp's device time per level, per forward and per train step;
 19. one JSON line describing every kernel, the train steps and the
    Predictors; last, the ok line.
 
@@ -179,14 +183,17 @@ BANDED_THETAS = {
     "rotation": [[0.999, -0.037, 0], [0.037, 0.999, 0.0]],
     "oob_translate": [[1, 0, 0.9], [0, 1, 0.9]],
 }
-# a rotation (rad) past the banded affine warp's 16-row band at dec1
-ROT_BAND_OUT = 0.35
+# rotations (rad) past the banded affine warp's 16-row band at dec1
+ROT_BAND_OUT = (0.35, 0.6)
 # the banded affine warp against the gather warp on the PCL inputs, f32:
 # tests/test_pallas.py's 5e-4 at N(0, 1) data, scaled by max|input| (the
 # two write the f32 positions with other operations)
 BANDED_VS_GATHER = 5e-4
 # auto's fallback: a head rotation (rad) past its bound of 0.05
 ROT_PAST_BOUND = 0.08
+# the banded affine warp against its plain version, f32 and bf16: the
+# same f32 operations and taps in the same order, so the same bits
+BANDED_ATOL = 0.0
 
 
 def log(*parts) -> None:
@@ -1600,6 +1607,16 @@ def fused_loss_phase(device, args, tr):
 
     pred3, gt3 = depth[..., 0].contiguous(), gt[..., 0].contiguous()
     stats = fl.depth_loss_stats(pred3, gt3, k4)
+    again = fl.depth_loss_stats(pred3, gt3, k4)
+    if not torch.equal(stats, again):
+        raise AssertionError(f"two statistics calls differ: {stats} {again}")
+    kernels = stats_call_kernels(pred3, gt3, k4) if cuda else []
+    log(f"  20 statistics calls on the card run {kernels}, 20 launches "
+        "(torch.profiler; expected one stats_kernel a call and nothing "
+        "else); two calls give the same bits" if cuda
+        else "  two statistics calls give the same bits")
+    if cuda and (len(kernels) != 1 or "stats_kernel" not in kernels[0]):
+        raise AssertionError(f"a statistics call ran {kernels}")
     plain = fl.depth_loss_stats_plain(pred3, gt3, k4)
     maskf = (gt3 > fl.EPS).float()
     d = fl._log_diff(pred3, gt3) * maskf
@@ -1627,6 +1644,40 @@ def fused_loss_phase(device, args, tr):
             "inputs": (pred3, gt3, k4, coefs)}
 
 
+def stats_call_kernels(pred, gt, k4, calls: int = 20):
+    """The names of the kernels (and copies or memsets) that ``calls``
+    calls of the fused-loss statistics run on the card, by torch.profiler
+    through device_ms (which pads the profile against the records the
+    profiler drops at its ends, and checks it holds ``calls`` launches of
+    stats_kernel)."""
+    from cadepth_tpu_torch.ops import fused_loss as fl
+
+    _, per_kernel = device_ms(lambda: fl.depth_loss_stats(pred, gt, k4),
+                              calls, kernels=("stats_kernel",), launches=1)
+    return sorted(per_kernel)
+
+
+def launch_floor_ms(args):
+    """Device time of one launch of a kernel that does next to nothing
+    (``torch.cuda._sleep(0)``: one thread reads the clock once), by
+    torch.profiler: the floor under a small kernel's time. The mean over
+    the launches the profile holds, so records it drops do not bias it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.timing_iters):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+    spins = [(us, n) for us, n, key in device_events(prof)
+             if "spin_kernel" in key]
+    if not spins:
+        raise AssertionError("torch.profiler held no empty launch")
+    return sum(us for us, _ in spins) / sum(n for _, n in spins) / 1000.0
+
+
 def loss_times(device, args, card: str, inputs):
     """Phase 14b: the fused loss kernels' device time, their bound and
     the plain versions' time at the train phase's (4, 240, 320)."""
@@ -1638,6 +1689,10 @@ def loss_times(device, args, card: str, inputs):
     pred, gt, k4, coefs = inputs
     n = pred.numel()
     rows = {}
+    floor = launch_floor_ms(args) if cuda else None
+    if cuda:
+        log(f"  [{card}] the floor: an empty kernel's launch "
+            f"{floor * 1e3:.2f} us device")
     # stats: read pred and gt once; ~30 f32 operations and two logs per
     # element. grad: also write dpred once; ~40 operations.
     for name, kernel, plain, nbytes, ops in (
@@ -1650,7 +1705,7 @@ def loss_times(device, args, card: str, inputs):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
         row = {"shape": tuple(pred.shape), "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes}
+               "bytes": nbytes, "floor_ms": floor}
         for call, fn in (("kernel", kernel), ("plain", plain)):
             row[f"{call}_wall_ms"] = timer(fn, args.timing_iters, 2)
             row[f"{call}_ms"] = row.setdefault("kernel_call_ms", None)
@@ -1663,8 +1718,7 @@ def loss_times(device, args, card: str, inputs):
                 total, per_kernel = device_ms(fn, args.timing_iters, **expect)
                 row[f"{call}_ms"] = total
                 if call == "kernel":
-                    # the launch alone, and the whole call (the statistics
-                    # add the sum of their per-block rows)
+                    # the launch alone, and every kernel of the call (one)
                     row["kernel_ms"] = sum(
                         ms for key, ms in per_kernel.items() if kname in key)
                     row["kernel_call_ms"] = total
@@ -1676,7 +1730,9 @@ def loss_times(device, args, card: str, inputs):
                else "device not measured")
             + f" / {row['kernel_wall_ms']:.4f} ms wall; bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
-            f"{nbytes / 1e6:.2f} MB); plain "
+            f"{nbytes / 1e6:.2f} MB)"
+            + (f", floor {floor * 1e3:.2f} us" if floor is not None else "")
+            + "; plain "
             + (f"{row['plain_ms']:.4f} ms device" if row["plain_ms"]
                is not None else "device not measured")
             + f"; no single PyTorch call computes it{unit}")
@@ -1712,9 +1768,10 @@ def rotation(rad: float):
 def check_banded(device, shapes, seed: int):
     """Phase 15: the banded affine warp's kernel against its plain
     version at the five decoder shapes (serving batch), f32 and bf16:
-    tests/test_pallas.py's four thetas at every level and, at dec1, a
-    rotation past the band; max_rotation_rows against its plain
-    computation. Returns the worst error per dtype."""
+    tests/test_pallas.py's four thetas at every level and, at dec1, two
+    rotations past the band: max error 0 (BANDED_ATOL), one launch a
+    call, the same bits on a second call; max_rotation_rows against its
+    plain computation. Returns the worst error per dtype."""
     import numpy as np
     import torch
 
@@ -1728,7 +1785,8 @@ def check_banded(device, shapes, seed: int):
         img32 = torch.randn(shape, device=device, generator=gen)
         cases = dict(BANDED_THETAS)
         if level == "dec1":
-            cases[f"rot_{ROT_BAND_OUT}"] = rotation(ROT_BAND_OUT)
+            for rad in ROT_BAND_OUT:
+                cases[f"rot_{rad}"] = rotation(rad)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             img = img32.to(dtype)
@@ -1745,23 +1803,26 @@ def check_banded(device, shapes, seed: int):
                                          f"{want_rows}")
                 before = baw.launches
                 got = baw.banded_affine_warp(img, theta)
+                again = baw.banded_affine_warp(img, theta)
                 if cuda:
                     torch.cuda.synchronize()
-                    if baw.launches != before + baw.LAUNCHES_PER_CALL:
+                    if baw.launches != before + 2 * baw.LAUNCHES_PER_CALL:
                         raise AssertionError("banded_affine_warp did not "
-                                             "count its launch")
+                                             "count one launch a call")
                 want = baw.banded_affine_warp_plain(img, theta)
                 err = (got.float() - want.float()).abs().max().item()
-                if not err <= ATOL[name]:
+                if not (err <= BANDED_ATOL and torch.equal(got, again)):
                     raise AssertionError(
                         f"banded affine kernel vs plain {level} {shape} "
-                        f"{name} {tname}: max err {err} > {ATOL[name]}")
+                        f"{name} {tname}: max err {err} > {BANDED_ATOL}, "
+                        "or two calls differ")
                 worst[name] = max(worst[name], err)
                 band = "" if float(rows.max()) + 2 <= baw.BAND_S else \
                     f"(out of band, {float(rows.max()):.1f} rows)"
                 errs.append(f"{tname}{band}={err:.3g}")
             log(f"  {level} {tuple(shape)} {name:8s} max|err| "
-                + " ".join(errs) + f"  (atol {ATOL[name]})")
+                + " ".join(errs) + f"  (atol {BANDED_ATOL}; the same bits "
+                "twice)")
     return worst
 
 
@@ -1853,6 +1914,10 @@ def serve_modes(device, args, card: str, weights, request):
     if cuda:
         torch.cuda.synchronize()
     launches = baw.launches
+    if not all(torch.equal(got, baw.banded_affine_warp(img, theta))
+               for (img, theta, _), got in zip(inputs, results)):
+        raise AssertionError("banded_affine_warp gave other bits on a "
+                             "second call")
     want = baw.LAUNCHES_PER_CALL * len(inputs) if cuda else 0
     log(f"  banded_affine_warp on the gather forward's {len(inputs)} PCL "
         f"inputs: launches {launches} (expected {want}, 1 per call)")
@@ -1870,11 +1935,11 @@ def serve_modes(device, args, card: str, weights, request):
                     - gather_affine_warp(img32, theta)).abs().max().item()
         bound = BANDED_VS_GATHER * img32.abs().max().item()
         log(f"    {shape} bf16: span {rows:.2f} rows; kernel vs plain "
-            f"{e_plain:.3g} (atol {ATOL['bfloat16']}); f32 kernel vs the "
-            f"gather warp {e_gather:.3g} (bound {bound:.3g})")
+            f"{e_plain:.3g} (atol {BANDED_ATOL}; the same bits twice); f32 "
+            f"kernel vs the gather warp {e_gather:.3g} (bound {bound:.3g})")
         if rows + 2 > baw.BAND_S:
             raise AssertionError(f"{shape}: the served theta is out of band")
-        if not (e_plain <= ATOL["bfloat16"] and e_gather <= bound):
+        if not (e_plain <= BANDED_ATOL and e_gather <= bound):
             raise AssertionError(f"banded affine warp on {shape}: plain "
                                  f"{e_plain}, gather {e_gather}")
         plain_err = max(plain_err, e_plain)
@@ -2247,12 +2312,18 @@ def main(argv=None) -> int:
             device, args, card, "banded_affine_warp", baw.banded_affine_warp,
             baw.banded_affine_warp_plain, baw, ("banded_affine_kernel",),
             flops_per_elem=8)
+        b_floor = launch_floor_ms(args) if not rehearsal else None
+        if b_floor is not None:
+            log(f"  [{card}] the floor: an empty kernel's launch "
+                f"{b_floor * 1e3:.2f} us device")
     g_rows, g_total = gather_times(device, args, card)
 
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
             "is printed")
         return 0
+
+    from cadepth_tpu_torch.ops import fused_loss as fl
 
     dec1, bwd_dec1 = rows["dec1"], bwd_rows["dec1"]
     f_dec1, f_bwd_dec1 = f_rows["dec1"], f_bwd_rows["dec1"]
@@ -2409,6 +2480,9 @@ def main(argv=None) -> int:
         "ms": loss_rows[name]["kernel_ms"],
         "ms_how": "torch.profiler device time of the launch",
         "call_ms": loss_rows[name]["kernel_call_ms"],
+        "floor_ms": loss_rows[name]["floor_ms"],
+        "floor_how": "torch.profiler device time of one launch of "
+                     "torch.cuda._sleep(0)",
         "wall_ms": loss_rows[name]["kernel_wall_ms"],
         "plain_ms": loss_rows[name]["plain_ms"],
         "bound_ms": loss_rows[name]["bound_ms"],
@@ -2417,6 +2491,8 @@ def main(argv=None) -> int:
         "library": "none: no single PyTorch call computes these masked "
                    "sums (or their gradient)",
         "at": f"{loss_rows[name]['shape']} f32",
+        "plan": fl.stats_plan(*loss_rows[name]["shape"])._asdict()
+        if name == "fused_loss_stats" else None,
     } for name, line, count, err, rel in (
         ("fused_loss_stats", 49, "launches", "stats_abs", "stats_err"),
         ("fused_loss_grad", 91, "bwd_launches", "grad_abs", "grad_err"))] + [{
@@ -2433,7 +2509,13 @@ def main(argv=None) -> int:
         "max_abs_err_by_dtype": banded_worst,
         "vs_gather_max_rel_err": banded["vs_gather_max_rel_err"],
         "ms": b_rows["dec1"]["kernel_ms"],
-        "ms_how": "torch.profiler device time of the launch",
+        "ms_how": "torch.profiler device time of every kernel the call "
+                  "runs (its one launch, checked)",
+        "floor_ms": b_floor,
+        "floor_how": "torch.profiler device time of one launch of "
+                     "torch.cuda._sleep(0)",
+        "plan": baw.affine_plan(*b_rows["dec1"]["shape"],
+                                torch.bfloat16)._asdict(),
         "wall_ms": b_rows["dec1"]["kernel_wall_ms"],
         "plain_ms": b_rows["dec1"]["plain_ms"],
         "bound_ms": b_rows["dec1"]["bound_ms"],
