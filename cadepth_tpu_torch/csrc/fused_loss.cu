@@ -42,14 +42,28 @@
 // partial rows are a scratch buffer of the call's own (nothing carries
 // from one launch to the next). The count is exact below 2^24 pixels.
 //
-// Gradient (grad_kernel): a thread per element in a grid-stride loop;
-// it reads the cotangents from device memory, so the backward never
-// waits on the host.
+// Gradient, one launch (grad_kernel): a block owns a tile of rows of one
+// sample (grid z) and a strip of columns (grid y); its threads form a
+// (threads_per_row, groups) grid, so each pixel's sample, row and column
+// come from the block and the thread with no division. A thread takes Q
+// = 4 neighbouring columns where W % 4 == 0 (a float4 load of pred and
+// gt and a float4 store of dpred where the three buffers are 16-byte
+// aligned, scalar loads and stores where not) and one elsewhere, in
+// kGradRows rows of the tile (ops/fused_loss.py: grad_plan): every
+// thread's pixels are loaded at once, and no thread takes a second
+// pass. Its xs come once per column and its ys once per row; each pixel
+// is computed in full and selected (+0 where gt <= eps), so the quad's
+// logs and divisions overlap. The cotangents are read from device memory
+// through a stride and three offsets (a stride of 0 is a broadcast one),
+// so the backward neither waits on the host nor gathers them first.
+// Each output is elementwise with the parent's expressions in their
+// order: the blocks and their order change no bit.
 //
 // What bounds them: memory, 8 bytes read per element (12 with dpred
 // written) against ~30 f32 operations and two logs; at the flagship's
-// (4, 240, 320) that is 2.46 MB, under a microsecond at 3.35 TB/s, so a
-// launch's fixed cost sets the time.
+// (4, 240, 320) that is 2.46 MB (3.69 MB for the gradient), about a
+// microsecond at 3.35 TB/s, so the launch's fixed cost and the latency
+// of one pass over memory set the time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -59,7 +73,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
+// rows of a tile each gradient thread takes (GRAD_ROWS_PER_THREAD of
+// ops/fused_loss.py)
+constexpr int kGradRows = 1;
 // The statistics' most blocks (STATS_MAX_BLOCKS of ops/fused_loss.py):
 // 2 an SM of the 132 of an H100 SXM, which a cooperative launch holds
 // at once on any H100 (the kernel is built for 4 blocks an SM).
@@ -69,20 +85,6 @@ constexpr float kClampMax = 1000.0f;
 
 __device__ __forceinline__ float clip(float x) {
   return fminf(fmaxf(x, kEps), kClampMax);
-}
-
-// xs, ys of flat element idx of a (B, H, W) map; k4 is (B, 4) [fx, fy, cx, cy].
-__device__ __forceinline__ void backproj(int64_t idx, int H, int W,
-                                         const float* __restrict__ k4,
-                                         float& xs, float& ys) {
-  const int64_t hw = (int64_t)H * W;
-  const int64_t b = idx / hw;
-  const int64_t rem = idx - b * hw;
-  const int v = (int)(rem / W);
-  const int u = (int)(rem - (int64_t)v * W);
-  const float* kb = k4 + 4 * b;
-  xs = __fdiv_rn(__fsub_rn((float)u, kb[2]), __fadd_rn(kb[0], kEps));
-  ys = __fdiv_rn(__fsub_rn((float)v, kb[3]), __fadd_rn(kb[1], kEps));
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -236,39 +238,79 @@ stats_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-grad_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
-            const float* __restrict__ k4, const float* __restrict__ coefs,
-            float* __restrict__ dpred, int B, int H, int W) {
-  const int64_t n = (int64_t)B * H * W;
-  const float c_d = coefs[0], c_d2 = coefs[1], c_rep = coefs[2];
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const float g = gt[idx];
-    if (!(g > kEps)) {
-      dpred[idx] = 0.0f;
-      continue;
-    }
-    const float p = pred[idx];
-    float xs, ys;
-    backproj(idx, H, W, k4, xs, ys);
-    const float pc = clip(p);
-    const float d = __fsub_rn(logf(pc), logf(clip(g)));
-    const float inv = (p > kEps && p < kClampMax) ? __fdiv_rn(1.0f, pc) : 0.0f;
-    const float e = __fsub_rn(p, g);
-    const float geom = __fadd_rn(__fadd_rn(__fmul_rn(xs, xs), __fmul_rn(ys, ys)), 1.0f);
-    const float ge = __fmul_rn(geom, e);
-    const float rep = __fsqrt_rn(__fadd_rn(__fmul_rn(ge, e), kEps));
-    const float drep = __fdiv_rn(ge, rep);
-    dpred[idx] = __fadd_rn(
-        __fadd_rn(__fmul_rn(c_d, inv), __fmul_rn(__fmul_rn(__fmul_rn(c_d2, 2.0f), d), inv)),
-        __fmul_rn(c_rep, drep));
-  }
+// d/dpred of one pixel given the cotangents (c_d2x2 = c_d2 * 2), the
+// reference's expressions in their order; computed for every pixel and
+// selected, +0 where gt <= eps (the clips keep every term finite).
+__device__ __forceinline__ float grad_pixel(float p, float g, float xs2, float ys2,
+                                            float c_d, float c_d2x2, float c_rep) {
+  const float pc = clip(p);
+  const float d = __fsub_rn(logf(pc), logf(clip(g)));
+  const float inv = (p > kEps && p < kClampMax) ? __fdiv_rn(1.0f, pc) : 0.0f;
+  const float e = __fsub_rn(p, g);
+  const float geom = __fadd_rn(__fadd_rn(xs2, ys2), 1.0f);
+  const float ge = __fmul_rn(geom, e);
+  const float rep = __fsqrt_rn(__fadd_rn(__fmul_rn(ge, e), kEps));
+  const float drep = __fdiv_rn(ge, rep);
+  const float out = __fadd_rn(
+      __fadd_rn(__fmul_rn(c_d, inv), __fmul_rn(__fmul_rn(c_d2x2, d), inv)),
+      __fmul_rn(c_rep, drep));
+  return g > kEps ? out : 0.0f;
 }
 
-int blocks_for(int64_t n) {
-  const int64_t b = (n + kThreads - 1) / kThreads;
-  return (int)(b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks);
+// Block (tile, strip, b): rows [tile * rows, +rows) of sample b, column
+// units (Q columns each) [strip * blockDim.x, +blockDim.x); thread (x, y)
+// takes unit strip * blockDim.x + x in rows tile * rows + y + r * groups,
+// r < kGradRows, with groups = blockDim.y and rows = groups * kGradRows.
+// cot holds c_d, c_d2 and c_rep at elements off_d, off_d2 and off_rep
+// times cot_stride.
+template <int Q, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, 4)
+grad_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
+            const float* __restrict__ k4, const float* __restrict__ cot,
+            int64_t cot_stride, int off_d, int off_d2, int off_rep,
+            float* __restrict__ dpred, int H, int W) {
+  const int q = blockIdx.y * blockDim.x + threadIdx.x;
+  const int v0 = blockIdx.x * blockDim.y * kGradRows + threadIdx.y;
+  if (q >= W / Q || v0 >= H) return;
+  const int b = blockIdx.z;
+  const int u0 = q * Q;
+  const int64_t plane = (int64_t)b * H;
+  float pv[kGradRows][Q], gv[kGradRows][Q];
+#pragma unroll
+  for (int r = 0; r < kGradRows; ++r) {
+    const int v = v0 + r * blockDim.y;
+    if (v < H) load_quad<Q, ALIGNED>(pred, gt, (plane + v) * W + u0, pv[r], gv[r]);
+  }
+  const float c_d = cot[off_d * cot_stride];
+  const float c_d2x2 = __fmul_rn(cot[off_d2 * cot_stride], 2.0f);
+  const float c_rep = cot[off_rep * cot_stride];
+  const float* kb = k4 + 4 * b;
+  const float fx = __fadd_rn(kb[0], kEps), fy = __fadd_rn(kb[1], kEps);
+  const float cx = kb[2], cy = kb[3];
+  float xs2[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const float xs = __fdiv_rn(__fsub_rn((float)(u0 + k), cx), fx);
+    xs2[k] = __fmul_rn(xs, xs);
+  }
+#pragma unroll
+  for (int r = 0; r < kGradRows; ++r) {
+    const int v = v0 + r * blockDim.y;
+    if (v >= H) break;
+    const float ys = __fdiv_rn(__fsub_rn((float)v, cy), fy);
+    const float ys2 = __fmul_rn(ys, ys);
+    float out[Q];
+#pragma unroll
+    for (int k = 0; k < Q; ++k)
+      out[k] = grad_pixel(pv[r][k], gv[r][k], xs2[k], ys2, c_d, c_d2x2, c_rep);
+    float* at = dpred + (plane + v) * W + u0;
+    if constexpr (Q == 4 && ALIGNED) {
+      *reinterpret_cast<float4*>(at) = make_float4(out[0], out[1], out[2], out[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < Q; ++k) at[k] = out[k];
+    }
+  }
 }
 
 }  // namespace
@@ -306,17 +348,48 @@ int cadepth_fused_loss_stats(const void* pred, const void* gt, const void* k4,
 }
 
 // pred, gt and dpred are contiguous (B, H, W) float32 device buffers, k4
-// (B, 4) and coefs (3,) [c_d, c_d2, c_rep] float32 ones. Launches the
-// gradient kernel on `stream` and returns cudaGetLastError().
+// a contiguous (B, 4) float32 one; cot a float32 device buffer holding
+// the cotangents c_d, c_d2 and c_rep of sums 0, 1 and 3 at elements
+// off_d, off_d2 and off_rep times cot_stride (which may be 0). The plan
+// (ops/fused_loss.py: grad_plan): threads_per_row threads of Q columns
+// span a strip of a row, groups rows at once, rows = groups * kGradRows
+// rows a tile, strips strips a row. Launches the gradient kernel on
+// `stream` (nothing where B * H * W == 0) and returns the launch's error.
 int cadepth_fused_loss_grad(const void* pred, const void* gt, const void* k4,
-                            const void* coefs, void* dpred, int B, int H,
-                            int W, void* stream) {
+                            const void* cot, long long cot_stride, int off_d,
+                            int off_d2, int off_rep, void* dpred, int B, int H,
+                            int W, int threads_per_row, int groups, int rows,
+                            int strips, void* stream) {
+  if (B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
   if ((int64_t)B * H * W == 0) return 0;
-  const int blocks = blocks_for((int64_t)B * H * W);
-  grad_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pred), static_cast<const float*>(gt),
-      static_cast<const float*>(k4), static_cast<const float*>(coefs),
-      static_cast<float*>(dpred), B, H, W);
+  const int quad = W % 4 == 0 ? 4 : 1;
+  const int nq = W / quad;
+  if (threads_per_row <= 0 || groups <= 0 || threads_per_row * groups > kThreads ||
+      rows != groups * kGradRows || strips <= 0 || strips > 65535 || B > 65535 ||
+      (int64_t)strips * threads_per_row < nq ||
+      (int64_t)(strips - 1) * threads_per_row >= nq)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((H + rows - 1) / rows, strips, B);
+  const dim3 block(threads_per_row, groups);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(pred) |
+                         reinterpret_cast<uintptr_t>(gt) |
+                         reinterpret_cast<uintptr_t>(dpred)) & 15u) == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pred);
+  const float* g = static_cast<const float*>(gt);
+  const float* k = static_cast<const float*>(k4);
+  const float* c = static_cast<const float*>(cot);
+  float* o = static_cast<float*>(dpred);
+  const int64_t cs = cot_stride;
+  if (quad == 1)
+    grad_kernel<1, false><<<grid, block, 0, s>>>(p, g, k, c, cs, off_d, off_d2,
+                                                  off_rep, o, H, W);
+  else if (aligned)
+    grad_kernel<4, true><<<grid, block, 0, s>>>(p, g, k, c, cs, off_d, off_d2,
+                                                 off_rep, o, H, W);
+  else
+    grad_kernel<4, false><<<grid, block, 0, s>>>(p, g, k, c, cs, off_d, off_d2,
+                                                  off_rep, o, H, W);
   return (int)cudaGetLastError();
 }
 

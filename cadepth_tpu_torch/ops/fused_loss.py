@@ -24,7 +24,11 @@ kernel launches. The statistics kernel's blocks own tiles of rows that
 launch, whose block 0 sums the blocks' partial rows in a fixed order
 after a grid-wide barrier. The rows lie in a buffer each call takes from
 PyTorch's caching allocator (no kernel), so no state is kept between
-calls, streams or devices.
+calls, streams or devices. The gradient kernel's blocks own tiles of
+rows and strips of columns that :func:`grad_plan` picks from the shape
+alone, each thread its pixels in one pass; it reads the cotangents
+where autograd hands them in (any stride, 0 included), so the op's
+backward is that one launch.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ _INT = ctypes.c_int
 THREADS = 256
 ROWS_PER_THREAD = 2
 STATS_MAX_BLOCKS = 256
+# The gradient's rows of a tile a thread takes (kGradRows of
+# csrc/fused_loss.cu), and the threads of a warp.
+GRAD_ROWS_PER_THREAD = 1
+WARP = 32
 
 
 class StatsPlan(NamedTuple):
@@ -86,6 +94,44 @@ def stats_plan(batch: int, height: int, width: int) -> StatsPlan:
     tiles = batch * (-(-height // rows) if height else 1)
     return StatsPlan(quad, tpr, groups, rows, tiles,
                      max(1, min(tiles, STATS_MAX_BLOCKS)))
+
+
+class GradPlan(NamedTuple):
+    """How the gradient kernel cuts a (B, H, W) map: each thread takes
+    ``quad`` neighbouring columns in ``GRAD_ROWS_PER_THREAD`` rows; a
+    block's ``threads_per_row`` x ``groups`` threads span a strip of
+    ``threads_per_row * quad`` columns of ``rows`` rows of one sample;
+    ``strips`` strips a row and ``tiles`` tiles of rows in all, so
+    ``strips * tiles`` blocks, each pixel in one of them once."""
+
+    quad: int
+    threads_per_row: int
+    groups: int
+    rows: int
+    strips: int
+    tiles: int
+
+
+def grad_plan(batch: int, height: int, width: int) -> GradPlan:
+    """The gradient kernel's plan over (batch, height, width), from the
+    shape alone: four columns a thread where ``width % 4 == 0``, else
+    one; a row's column units split into the fewest strips of at most
+    ``THREADS`` threads, of equal width; the block's threads in the
+    fewest row groups that make it whole warps (the most that fit in
+    ``THREADS`` where none does), each taking ``GRAD_ROWS_PER_THREAD``
+    rows of a tile. Small blocks of whole warps share the pixels out
+    evenly over the SMs, which the kernel's arithmetic needs. Every
+    thread of the grid takes at most one unit of each of its rows:
+    there is no second pass."""
+    quad = 4 if width % 4 == 0 else 1
+    units = width // quad
+    strips = max(1, -(-units // THREADS))
+    tpr = max(1, -(-units // strips))
+    groups = next((g for g in range(1, THREADS // tpr + 1)
+                   if tpr * g % WARP == 0), THREADS // tpr)
+    rows = groups * GRAD_ROWS_PER_THREAD
+    return GradPlan(quad, tpr, groups, rows, strips,
+                    batch * -(-height // rows))
 
 
 def _check(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor) -> None:
@@ -155,7 +201,9 @@ def _library() -> ctypes.CDLL:
     if lib.cadepth_fused_loss_stats.argtypes is None:
         lib.cadepth_fused_loss_stats.argtypes = [_VP] * 5 + [_INT] * 5 + [_VP]
         lib.cadepth_fused_loss_stats.restype = _INT
-        lib.cadepth_fused_loss_grad.argtypes = [_VP] * 5 + [_INT] * 3 + [_VP]
+        lib.cadepth_fused_loss_grad.argtypes = (
+            [_VP] * 4 + [ctypes.c_longlong] + [_INT] * 3 + [_VP]
+            + [_INT] * 7 + [_VP])
         lib.cadepth_fused_loss_grad.restype = _INT
         lib.cadepth_cuda_error_string.argtypes = [_INT]
         lib.cadepth_cuda_error_string.restype = ctypes.c_char_p
@@ -206,28 +254,51 @@ def depth_loss_grad(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor,
     """d/dpred (B, H, W) f32 given the (3,) cotangents [c_d, c_d2, c_rep]
     of sums 0, 1 and 3: the kernel on the card (it reads ``coefs`` from
     device memory), :func:`depth_loss_grad_plain` on the CPU."""
+    if coefs.shape != (3,):
+        raise ValueError(f"coefs must be (3,), got {tuple(coefs.shape)}")
+    return _grad(pred, gt, k4, coefs, (0, 1, 2))
+
+
+def _grad(pred: torch.Tensor, gt: torch.Tensor, k4: torch.Tensor,
+          cot: torch.Tensor, offsets: Tuple[int, int, int]) -> torch.Tensor:
+    """d/dpred given the 1-D ``cot`` whose entries ``offsets`` are the
+    cotangents of sums 0, 1 and 3: on the card one launch of the kernel,
+    which reads them in place (any stride: no gather, copy or host
+    wait); on the CPU the plain version of those entries."""
     global bwd_launches
     _check(pred, gt, k4)
-    pred, gt, k4, coefs = (t.to(torch.float32).contiguous()
-                           for t in (pred, gt, k4, coefs))
+    if cot.dim() != 1 or cot.shape[0] <= max(offsets):
+        raise ValueError(f"the cotangents must be 1-D with more than "
+                         f"{max(offsets)} entries, got {tuple(cot.shape)}")
+    if cot.device != pred.device:
+        raise ValueError("the cotangents must lie on pred's device")
+    pred, gt, k4 = (t.to(torch.float32).contiguous() for t in (pred, gt, k4))
+    cot = cot.to(torch.float32)
     if pred.device.type == "cpu":
-        return depth_loss_grad_plain(pred, gt, k4, coefs)
-    _card_args(pred, gt, k4, coefs)
+        return depth_loss_grad_plain(pred, gt, k4, cot[list(offsets)])
+    _card_args(pred, gt, k4)
     b, h, w = pred.shape
     dpred = torch.empty_like(pred)
+    if dpred.numel() == 0:
+        return dpred
+    plan = grad_plan(b, h, w)
     lib = _library()
     with torch.cuda.device(pred.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_fused_loss_grad(
-            pred.data_ptr(), gt.data_ptr(), k4.data_ptr(), coefs.data_ptr(),
-            dpred.data_ptr(), b, h, w, stream)
+            pred.data_ptr(), gt.data_ptr(), k4.data_ptr(), cot.data_ptr(),
+            cot.stride(0), *offsets, dpred.data_ptr(), b, h, w,
+            plan.threads_per_row, plan.groups, plan.rows, plan.strips,
+            torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "fused_depth_loss_stats backward")
     bwd_launches += 1
     return dpred
 
 
 class FusedDepthLossStats(torch.autograd.Function):
-    """The statistics with the reference's elementwise backward."""
+    """The statistics with the reference's elementwise backward: one
+    launch of the gradient kernel for an f32 ``pred``, which reads the
+    cotangents of sums 0, 1 and 3 from ``grad`` in place (the count has
+    no pred-gradient)."""
 
     @staticmethod
     def forward(ctx, pred, gt, k4):
@@ -238,9 +309,7 @@ class FusedDepthLossStats(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         pred, gt, k4 = ctx.saved_tensors
-        # the count has no pred-gradient
-        coefs = grad.to(torch.float32)[[0, 1, 3]]
-        return depth_loss_grad(pred, gt, k4, coefs).to(pred.dtype), None, None
+        return _grad(pred, gt, k4, grad, (0, 1, 3)).to(pred.dtype), None, None
 
 
 def fused_depth_loss_stats(pred: torch.Tensor, gt: torch.Tensor,

@@ -68,12 +68,15 @@ Phases, each fatal on failure:
    with the plain banded warp;
 13. the fused depth-loss op on phase 12's predicted depth and gt: its
    statistics and gradient kernels launched once each on that path,
-   against their plain versions and against scale_invariant_loss +
-   reprojection_loss; a statistics call is one kernel in its profile
-   (no sum, fill or memset), two calls give the same bits;
+   against their plain versions (the gradient at max error 0) and
+   against scale_invariant_loss + reprojection_loss; a statistics call
+   and a backward of its autograd Function (with a contiguous and a
+   stride-0 cotangent) are one kernel each in their profiles (no index,
+   copy, sum, fill or memset), two calls give the same bits;
 14. fused times: the banded backward and training forward per level,
    the loss kernels beside the device time of an empty launch (the
-   floor), the fused train step;
+   floor), the Function's backward as a whole call and a same-bytes
+   elementwise pass beside the gradient kernel, the fused train step;
 15. the banded affine warp's kernel (the port of pallas_affine_warp)
    against its plain version at the five decoder shapes, f32 and bf16,
    tests/test_pallas.py's four thetas and, at dec1, 0.35 and 0.6 rad
@@ -194,6 +197,9 @@ ROT_PAST_BOUND = 0.08
 # the banded affine warp against its plain version, f32 and bf16: the
 # same f32 operations and taps in the same order, so the same bits
 BANDED_ATOL = 0.0
+# the fused loss's gradient kernel against its plain version, f32: the
+# same elementwise expressions, so the same bits
+GRAD_ATOL = 0.0
 
 
 def log(*parts) -> None:
@@ -1631,12 +1637,39 @@ def fused_loss_phase(device, args, tr):
     dpred_err = dpred_abs / dplain.abs().max().item()
     log(f"  kernels vs plain: stats max|err| / sum|term| {stats_err:.3g} "
         f"(atol {ATOL['float32']}), count {float(stats[2]):.0f} == "
-        f"{float(plain[2]):.0f}; grad max|err|/max|grad| {dpred_err:.3g} "
-        f"(atol {ATOL['float32']})")
+        f"{float(plain[2]):.0f}; grad max|err| {dpred_abs:.3g} (atol "
+        f"{GRAD_ATOL})")
     if not (stats_err <= ATOL["float32"] and stats[2] == plain[2]
-            and dpred_err <= ATOL["float32"]):
+            and dpred_abs <= GRAD_ATOL):
         raise AssertionError("fused loss kernels differ from plain")
+
+    # the Function's backward: the plain version's bits of its cotangent's
+    # entries 0, 1 and 3, read in place, and one kernel a call
+    x3 = pred3.clone().requires_grad_(True)
+    with torch.enable_grad():
+        stats3 = fl.fused_depth_loss_stats(x3, gt3, k4)
+    cot4 = torch.tensor([0.3, -1.7, 5.0, 0.01], device=device)
+    backward_kernels = {}
+    for name, cot in (("contiguous", cot4),
+                      ("stride_0", torch.ones(1, device=device).expand(4))):
+        (got,) = torch.autograd.grad(stats3, x3, cot, retain_graph=True)
+        if not torch.equal(got, fl.depth_loss_grad_plain(
+                pred3, gt3, k4, cot[[0, 1, 3]])):
+            raise AssertionError(f"the Function's backward ({name} "
+                                 "cotangent) differs from plain")
+        if cuda:
+            _, per_kernel = backward_call_ms(stats3, x3, cot, 20)
+            backward_kernels[name] = sorted(per_kernel)
+    log(f"  20 backwards of the Function (f32 pred) on the card run "
+        f"{backward_kernels}, 20 launches each (torch.profiler; expected "
+        f"one grad_kernel a call and nothing else); equal to the plain "
+        f"version's bits" if cuda
+        else "  the Function's backward equals the plain version's bits")
+    if cuda and any(len(k) != 1 or "grad_kernel" not in k[0]
+                    for k in backward_kernels.values()):
+        raise AssertionError(f"a backward ran {backward_kernels}")
     return {"launches": launches, "bwd_launches": bwd_launches,
+            "backward_kernels": backward_kernels,
             "stats_err": stats_err, "grad_err": dpred_err,
             "stats_abs": stats_abs, "grad_abs": dpred_abs,
             "vs_reference_loss_rel": loss_err,
@@ -1657,25 +1690,54 @@ def stats_call_kernels(pred, gt, k4, calls: int = 20):
     return sorted(per_kernel)
 
 
-def launch_floor_ms(args):
+def backward_call_ms(stats, x, cot, calls: int):
+    """Device time of one backward of the fused loss's autograd Function
+    (``torch.autograd.grad(stats, x, cot)``, the graph kept), and
+    {kernel, copy or memset name: ms per call}, by torch.profiler
+    through device_ms (which checks that the profile holds ``calls``
+    launches of grad_kernel). It takes the op's public API alone, so it
+    times any version of the op."""
+    import torch
+
+    return device_ms(
+        lambda: torch.autograd.grad(stats, x, cot, retain_graph=True), calls,
+        kernels=("grad_kernel",), launches=1)
+
+
+def launch_floor_ms(args, attempts: int = 3):
     """Device time of one launch of a kernel that does next to nothing
     (``torch.cuda._sleep(0)``: one thread reads the clock once), by
     torch.profiler: the floor under a small kernel's time. The mean over
-    the launches the profile holds, so records it drops do not bias it."""
+    the launches the profile holds, so records it drops do not bias it.
+    As in device_ms, fill kernels pad both ends of the profile (a profile
+    of the empty launches alone can hold none of them), and a profile
+    holding none is taken again, up to ``attempts`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    pad = torch.zeros(1024, device="cuda")
     torch.cuda._sleep(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.timing_iters):
-            torch.cuda._sleep(0)
-        torch.cuda.synchronize()
-    spins = [(us, n) for us, n, key in device_events(prof)
-             if "spin_kernel" in key]
-    if not spins:
-        raise AssertionError("torch.profiler held no empty launch")
-    return sum(us for us, _ in spins) / sum(n for _, n in spins) / 1000.0
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                pad.fill_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(args.timing_iters):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            for _ in range(32):
+                pad.fill_(1.0)
+            torch.cuda.synchronize()
+        spins = [(us, n) for us, n, key in device_events(prof)
+                 if "spin_kernel" in key]
+        if spins:
+            return sum(us for us, _ in spins) / sum(n for _, n in spins) \
+                / 1000.0
+        log(f"  torch.profiler held no empty launch (profile {attempt} of "
+            f"{attempts})")
+    raise AssertionError("torch.profiler held no empty launch")
 
 
 def loss_times(device, args, card: str, inputs):
@@ -1722,6 +1784,8 @@ def loss_times(device, args, card: str, inputs):
                     row["kernel_ms"] = sum(
                         ms for key, ms in per_kernel.items() if kname in key)
                     row["kernel_call_ms"] = total
+        if name == "fused_loss_grad":
+            backward_rows(row, args, timer, pred, gt, k4, cuda)
         rows[name] = row
         dev = row["kernel_ms"]
         log(f"  [{card}] {name} {row['shape']} f32: kernel "
@@ -1736,7 +1800,52 @@ def loss_times(device, args, card: str, inputs):
             + (f"{row['plain_ms']:.4f} ms device" if row["plain_ms"]
                is not None else "device not measured")
             + f"; no single PyTorch call computes it{unit}")
+    grad = rows["fused_loss_grad"]
+    log(f"  [{card}] fused_loss_grad: the Function's backward, one call "
+        + (f"{grad['backward_call_ms'] * 1e3:.2f} us device "
+           f"({grad['backward_call_kernels']})" if cuda
+           else "device not measured")
+        + f" / {grad['backward_call_wall_ms']:.4f} ms wall; a same-bytes "
+        "pass, torch.add(pred, gt, out=buf) (reads 8 B and writes 4 B an "
+        "element; not the same function), "
+        + (f"{grad['same_bytes_ms'] * 1e3:.2f} us device" if cuda
+           else "device not measured")
+        + f" / {grad['same_bytes_wall_ms']:.4f} ms wall{unit}")
     return rows
+
+
+def backward_rows(row, args, timer, pred, gt, k4, cuda: bool) -> None:
+    """The gradient row's backward call (the autograd Function's whole
+    backward, at a contiguous cotangent) and same-bytes pass times."""
+    import torch
+
+    from cadepth_tpu_torch.ops import fused_loss as fl
+
+    x = pred.clone().requires_grad_(True)
+    with torch.enable_grad():
+        stats = fl.fused_depth_loss_stats(x, gt, k4)
+    cot = torch.tensor([0.3, -1.7, 5.0, 0.01], device=pred.device)
+    buf = torch.empty_like(pred)
+    for key, fn in (
+            ("backward_call",
+             lambda: torch.autograd.grad(stats, x, cot, retain_graph=True)),
+            ("same_bytes", lambda: torch.add(pred, gt, out=buf))):
+        row[f"{key}_wall_ms"] = timer(fn, args.timing_iters, 2)
+        row[f"{key}_ms"] = None
+    if cuda:
+        total, per_kernel = backward_call_ms(stats, x, cot, args.timing_iters)
+        row["backward_call_ms"] = total
+        row["backward_call_kernels"] = sorted(per_kernel)
+        # counted, as the kernels are: an uncounted profile that drops
+        # records reads short
+        add_ms = device_ms(lambda: torch.add(pred, gt, out=buf),
+                           args.timing_iters, kernels=("elementwise_kernel",),
+                           launches=1)[1]
+        row["same_bytes_ms"] = sum(ms for key, ms in add_ms.items()
+                                   if "elementwise_kernel" in key)
+    row["same_bytes_how"] = ("torch.add(pred, gt, out=buf): the gradient's "
+                             "bytes (8 read, 4 written an element), not "
+                             "its function")
 
 
 def fused_serve_times(device, args, card: str, fused):
@@ -2491,8 +2600,12 @@ def main(argv=None) -> int:
         "library": "none: no single PyTorch call computes these masked "
                    "sums (or their gradient)",
         "at": f"{loss_rows[name]['shape']} f32",
-        "plan": fl.stats_plan(*loss_rows[name]["shape"])._asdict()
-        if name == "fused_loss_stats" else None,
+        "plan": (fl.stats_plan if name == "fused_loss_stats"
+                 else fl.grad_plan)(*loss_rows[name]["shape"])._asdict(),
+        **({key: loss_rows[name][key] for key in (
+            "backward_call_ms", "backward_call_kernels",
+            "backward_call_wall_ms", "same_bytes_ms", "same_bytes_how")}
+           if name == "fused_loss_grad" else {}),
     } for name, line, count, err, rel in (
         ("fused_loss_stats", 49, "launches", "stats_abs", "stats_err"),
         ("fused_loss_grad", 91, "bwd_launches", "grad_abs", "grad_err"))] + [{

@@ -479,10 +479,10 @@ def _loss_case(rng, b, h, w, empty=False):
 @pytest.mark.cuda
 def test_fused_loss_kernels_match_plain_on_card():
     """Statistics at 1e-5 of the sum of their terms' magnitudes (the
-    count exactly), the gradient at rtol 1e-6 (atol 1e-9): odd sizes, the
-    flagship's (4, 240, 320), an empty mask; each call one launch; two
-    runs give the same bits; the Function's gradient keeps a bf16 pred's
-    dtype."""
+    count exactly), the gradient bit for bit (the plain version's
+    expressions, elementwise): odd sizes, the flagship's (4, 240, 320), an
+    empty mask; each call one launch; two runs give the same bits; the
+    Function's gradient keeps a bf16 pred's dtype."""
     _need_card()
     rng = np.random.default_rng(8)
     for b, h, w, empty in [(1, 21, 30, False), (2, 24, 40, False),
@@ -503,9 +503,7 @@ def test_fused_loss_kernels_match_plain_on_card():
         coefs = torch.tensor([0.3, -1.7, 0.01], device="cuda")
         dp = fl.depth_loss_grad(pred, gt, k4, coefs)
         assert fl.bwd_launches == 1
-        torch.testing.assert_close(
-            dp, fl.depth_loss_grad_plain(pred, gt, k4, coefs), rtol=1e-6,
-            atol=1e-9)
+        assert torch.equal(dp, fl.depth_loss_grad_plain(pred, gt, k4, coefs))
     x = pred.to(torch.bfloat16).requires_grad_(True)
     si, rep = fl.silog_reproj_losses(x, gt, k4)
     (si + rep).backward()
@@ -607,6 +605,122 @@ def test_fused_loss_stats_keeps_no_state_across_streams_and_graphs():
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 240, 320), (3, 17, 21), (2, 9, 1028),
+                                   (3, 200, 1024), (8, 600, 1024),
+                                   (2, 9, 1024), (1, 1, 7), (2, 5, 4)])
+def test_fused_loss_grad_is_bit_equal_on_card(shape):
+    """The gradient kernel equals the plain version bit for bit over
+    grad_plan's plans (one quad a thread, a column a thread where W % 4
+    != 0, two strips a row at 1028, several waves at (8, 600, 1024)), with
+    an unaligned pred (a view one element into a buffer: scalar loads and
+    stores) and an empty mask too; each call one launch."""
+    _need_card()
+    b, h, w = shape
+    pred, gt, k4 = _loss_case(np.random.default_rng(12), b, h, w)
+    coefs = torch.tensor([0.3, -1.7, 0.01], device="cuda")
+    want = fl.depth_loss_grad_plain(pred, gt, k4, coefs)
+    fl.bwd_launches = 0
+    assert torch.equal(fl.depth_loss_grad(pred, gt, k4, coefs), want)
+    flat = torch.empty(pred.numel() + 1, device="cuda")
+    shifted = flat[1:].view(pred.shape)
+    shifted.copy_(pred)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(fl.depth_loss_grad(shifted, gt, k4, coefs), want)
+    empty = torch.zeros_like(gt)
+    got = fl.depth_loss_grad(pred, empty, k4, coefs)
+    assert torch.equal(got, torch.zeros_like(pred))
+    assert not torch.signbit(got).any()  # +0, as the plain version's
+    assert fl.bwd_launches == 3
+    none = fl.depth_loss_grad(pred[:0], gt[:0], k4[:0], coefs)
+    assert none.shape == (0, h, w) and fl.bwd_launches == 3
+
+
+def _backward_cotangents():
+    """(name, the (4,) cotangent autograd hands the Function's backward):
+    contiguous, stats.sum()'s stride-0 ones, a [::2] view and a column
+    of a stack."""
+    w = torch.tensor([0.3, -1.7, 5.0, 0.01], device="cuda")
+    spaced = torch.zeros(8, device="cuda")
+    spaced[::2] = w
+    return [("contiguous", w),
+            ("stride_0", torch.ones(1, device="cuda").expand(4)),
+            ("strided", spaced[::2]),
+            ("stack_column", torch.stack([w, -w], 1)[:, 0])]
+
+
+@pytest.mark.cuda
+def test_fused_loss_backward_is_one_kernel_on_card():
+    """Ten backwards of the Function with an f32 pred at the flagship's
+    (4, 240, 320) run ten launches of the gradient kernel and nothing
+    else (no index, copy, memcpy or fill), for a contiguous and a stride-0
+    cotangent; every cotangent (strided ones too) gives the plain
+    version's bits of its entries 0, 1 and 3."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    pred, gt, k4 = _loss_case(np.random.default_rng(13), 4, 240, 320)
+    x = pred.clone().requires_grad_(True)
+    stats = fl.fused_depth_loss_stats(x, gt, k4)
+    cots = _backward_cotangents()
+    for name, cot in cots:
+        (got,) = torch.autograd.grad(stats, x, cot, retain_graph=True)
+        want = fl.depth_loss_grad_plain(pred, gt, k4, cot[[0, 1, 3]])
+        assert torch.equal(got, want), name
+    for name, cot in cots[:2]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fl.bwd_launches = 0
+            for _ in range(10):
+                torch.autograd.grad(stats, x, cot, retain_graph=True)
+            torch.cuda.synchronize()
+            for _ in range(32):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0
+                and "spin_kernel" not in e.key}
+        assert len(seen) == 1 and "grad_kernel" in next(iter(seen)), \
+            (name, seen)
+        assert next(iter(seen.values())) == 10 == fl.bwd_launches, \
+            (name, seen)
+
+
+@pytest.mark.cuda
+def test_fused_loss_backward_keeps_no_state_across_streams_and_graphs():
+    """The Function's forward and backward on a side stream, and captured
+    together in a CUDA graph, give the default stream's gradient bits
+    (on replay, twice)."""
+    _need_card()
+    pred, gt, k4 = _loss_case(np.random.default_rng(14), 4, 240, 320)
+    cot = torch.tensor([0.3, -1.7, 5.0, 0.01], device="cuda")
+    x = pred.clone().requires_grad_(True)
+
+    def grad():
+        stats = fl.fused_depth_loss_stats(x, gt, k4)
+        return torch.autograd.grad(stats, x, cot)[0]
+
+    want = grad()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = grad()
+    side.synchronize()
+    assert torch.equal(on_side, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = grad()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
 
 
 def _rotation(rad):
