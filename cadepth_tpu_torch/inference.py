@@ -11,7 +11,7 @@ are dropped from the answer, so every forward runs at the same shapes.
 Weights come from :mod:`cadepth_tpu_torch.convert` (a JAX checkpoint's
 variables) or, without a ``state_dict``, from the port's seeded
 initialisation. Restoring a checkpoint by name and exporting the
-program come with a later slice (ROADMAP.md Queue 1, item 8).
+program come with a later slice (ROADMAP.md Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from cadepth_tpu_torch.config import Config
+from cadepth_tpu_torch.data.sunrgbd import SunRGBDLoader
 from cadepth_tpu_torch.models.factory import create_model, resolve_device
 from cadepth_tpu_torch.training.train_state import make_predict_fn
 
@@ -60,11 +61,11 @@ class Predictor:
                  width: Optional[int] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
-        if not cfg.data.compute_rays:
-            raise NotImplementedError(
-                "data.compute_rays=false needs the host loader's ray grids, "
-                "which are not ported yet (ROADMAP.md Queue 1, item 5)")
         self.cfg = cfg
+        # with data.compute_rays the forward derives the ray grid from K
+        # on the device; without it, requests carry host ray grids, as
+        # the host loader makes them
+        self._derive_rays = bool(cfg.data.compute_rays)
         self.batch_size = batch_size
         self.height = height or cfg.data.input_height
         self.width = width or cfg.data.input_width
@@ -109,12 +110,19 @@ class Predictor:
                           -1).astype(np.float32)
         batch = {"rgb": rgb_full, "intrinsics": k.astype(np.float32),
                  "k4": k4}
+        if not self._derive_rays:
+            batch["rays"] = np.stack(
+                [SunRGBDLoader._compute_rays(k[i], h, w)
+                 for i in range(self.batch_size)]).astype(np.float32)
         return {key: torch.from_numpy(v).to(self.device)
                 for key, v in batch.items()}
 
     def _device_batch(self, rgb: torch.Tensor,
                       intrinsics: Optional[torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
+        if not self._derive_rays:
+            raise ValueError("device-input path needs data.compute_rays "
+                             "(rays are derived on the device)")
         want = (self.batch_size, self.height, self.width, 3)
         if tuple(rgb.shape) != want:
             raise ValueError(f"device input must be the predictor's shape "

@@ -1,17 +1,16 @@
-"""Monocular depth metrics (port of ``compute_depth_metrics`` from
-``cadepth_tpu.metrics.depth_metrics``).
+"""Monocular depth metrics (port of ``cadepth_tpu.metrics.depth_metrics``).
 
 The nine metrics and three auxiliary values come from one fixed-shape
 masked reduction. The mask is gt in (min_depth, max_depth), strict, and
 an optional user mask; predictions are clamped to [min_depth, max_depth]
-and gt is used as it is. The per-sample metrics, the accumulator and the
-formatting come with ROADMAP.md Queue 1, item 4.
+and gt is used as it is. The per-sample metrics, their average, the
+running accumulator and the formatting are host helpers around it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -77,3 +76,75 @@ def compute_depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
     }
     zero = torch.zeros((), dtype=torch.float32, device=pred.device)
     return {k: torch.where(n > 0, v, zero) for k, v in metrics.items()}
+
+
+def compute_depth_metrics_per_sample(
+    pred: torch.Tensor, gt: torch.Tensor,
+    valid_mask: Optional[torch.Tensor] = None, min_depth: float = 0.1,
+    max_depth: float = 10.0) -> Dict[str, torch.Tensor]:
+    """The metrics of each sample of a batch: a dict of (B,) tensors, each
+    sample reduced as :func:`compute_depth_metrics` reduces a map (JAX
+    vmaps it)."""
+    per = [compute_depth_metrics(
+        pred[i], gt[i], None if valid_mask is None else valid_mask[i],
+        min_depth, max_depth) for i in range(pred.shape[0])]
+    return {k: torch.stack([m[k] for m in per]) for k in METRIC_NAMES}
+
+
+def average_metrics(metrics_list: List[Dict[str, float]]) -> Dict[str, float]:
+    """Arithmetic mean of a list of metric dicts (host-side)."""
+    if not metrics_list:
+        return {k: 0.0 for k in METRIC_NAMES}
+    out: Dict[str, float] = {}
+    for key in metrics_list[0]:
+        out[key] = float(sum(float(m[key]) for m in metrics_list)
+                         / len(metrics_list))
+    return out
+
+
+class MetricsAccumulator:
+    """Running mean of metric dicts over batches."""
+
+    def __init__(self) -> None:
+        self._sums: Dict[str, float] = {}
+        self._count = 0
+
+    def update(self, metrics: Dict[str, float]) -> None:
+        for key, value in metrics.items():
+            self._sums[key] = self._sums.get(key, 0.0) + float(value)
+        self._count += 1
+
+    def average(self) -> Dict[str, float]:
+        if self._count == 0:
+            return {}
+        return {k: v / self._count for k, v in self._sums.items()}
+
+    def reset(self) -> None:
+        self._sums.clear()
+        self._count = 0
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+
+def format_metrics(metrics: Dict[str, float]) -> str:
+    """A metric dict as the reference's ``formatMetrics`` prints it."""
+    lines = [
+        "Error Metrics:",
+        f"  AbsRel:  {float(metrics['abs_rel']):.4f}",
+        f"  RMSE:    {float(metrics['rmse']):.4f}",
+        f"  RMSElog: {float(metrics['rmse_log']):.4f}",
+        f"  MAE:     {float(metrics['mae']):.4f}",
+        "",
+        "Accuracy Metrics (%):",
+        f"  delta < 1.25:    {float(metrics['delta_1.25']) * 100.0:.4f}%",
+        f"  delta < 1.25^2:  {float(metrics['delta_1.25^2']) * 100.0:.4f}%",
+        f"  delta < 1.25^3:  {float(metrics['delta_1.25^3']) * 100.0:.4f}%",
+        "",
+        "Statistics:",
+        f"  Valid pixels: {int(metrics['num_valid_pixels'])}",
+        f"  Mean pred:    {float(metrics['mean_pred_depth']):.4f}m",
+        f"  Mean GT:      {float(metrics['mean_gt_depth']):.4f}m",
+    ]
+    return "\n".join(lines)

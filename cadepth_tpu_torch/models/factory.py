@@ -110,7 +110,7 @@ def create_model(
     if architecture != "geometry_aware" or variant != "full":
         raise NotImplementedError(
             f"architecture={architecture!r} variant={variant!r} is not "
-            "ported yet (ROADMAP.md Queue 1, item 3)")
+            "ported yet (ROADMAP.md Queue 1, item 7)")
     model = GeometryAwareNetwork(
         in_channels=in_channels, init_features=init_features,
         camera_dim=camera_dim, max_depth=max_depth, use_pcl=use_pcl,

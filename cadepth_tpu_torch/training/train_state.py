@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,6 +32,13 @@ from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
 from cadepth_tpu_torch.models.factory import create_model, model_inputs
 
 Batch = Dict[str, torch.Tensor]
+
+
+def device_batch(batch: Dict[str, np.ndarray], device) -> Batch:
+    """A host batch (numpy arrays, as a loader's ``get_batch`` gives it)
+    as tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 def _batch_with_rays(batch: Batch, needs_rays: bool,
@@ -161,6 +169,21 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.base.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> Dict[str, object]:
+        """The torch optimizer's state, ``updates``, and MultiSteps' running
+        mean and its micro-batch count."""
+        return {"base": self.base.state_dict(), "updates": self.updates,
+                "mean": self._mean, "micro": self._micro}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.base.load_state_dict(state["base"])
+        self.updates = int(state["updates"])
+        mean = state["mean"]
+        if mean is not None:
+            mean = [m.to(p.device, p.dtype)
+                    for m, p in zip(mean, self.params())]
+        self._mean, self._micro = mean, int(state["micro"])
+
 
 def build_optimizer(opt: OptimizationConfig,
                     params: Iterable[nn.Parameter]) -> Optimizer:
@@ -229,6 +252,18 @@ class TrainStep:
         self.optimizer.update(self.schedule, logs["grad_norm"])
         self.updates += 1
         return logs
+
+    def state_dict(self) -> Dict[str, object]:
+        """What a checkpoint keeps: ``step`` (the micro-steps taken, the
+        JAX state's ``step``), the model's ``state_dict`` and the
+        optimizer's."""
+        return {"step": self.updates, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.updates = int(state["step"])
 
 
 def make_train_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss,
@@ -299,6 +334,8 @@ def make_predict_fn(cfg: Config, model: nn.Module
 
     @torch.inference_mode()
     def predict(batch: Batch) -> torch.Tensor:
+        # a trainer's steps put the model in training mode between calls
+        model.eval()
         return model(*_inputs(cfg, batch))
 
     return predict

@@ -1,0 +1,520 @@
+"""Training orchestration: epochs, validation, logging, checkpoints (port
+of ``cadepth_tpu.training.trainer``).
+
+The loop is the JAX trainer's: the host input pipeline prefetches batches
+onto the device, each step's log scalars stay on the device and are read
+only at ``log_interval`` (and the epoch's losses once, as one stacked
+mean at its end), validation averages the eval step's metrics, then the
+CSV row, TensorBoard scalars, image panels and histograms, best-metric
+tracking, early stopping, periodic / best / final checkpoints, resume
+from ``checkpointing.resume_from`` and a checkpoint at the next batch
+boundary after SIGTERM.
+
+The JAX state's ``step`` is ``TrainStep.updates`` (micro-steps), and the
+learning rate it logs is ``schedule(step // grad_accum_steps)``.
+
+Not ported yet, and refused: ``data.device_resident`` (ROADMAP.md Queue
+1, item 3), ``hardware.spatial_parallel > 1`` and data parallelism over
+more than one visible card (item 8).
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from cadepth_tpu_torch.config import Config
+from cadepth_tpu_torch.convert import to_jax
+from cadepth_tpu_torch.data.pipeline import InputPipeline
+from cadepth_tpu_torch.data.sunrgbd import AugmentationConfig, SunRGBDLoader
+from cadepth_tpu_torch.metrics.depth_metrics import MetricsAccumulator
+from cadepth_tpu_torch.models.factory import count_parameters, resolve_device
+from cadepth_tpu_torch.training.checkpoint import CheckpointManager
+from cadepth_tpu_torch.training.schedule import build_lr_schedule
+from cadepth_tpu_torch.training.tb_logger import TensorBoardLogger
+from cadepth_tpu_torch.training.train_state import (
+    build_model_and_loss,
+    build_optimizer,
+    device_batch,
+    make_eval_step,
+    make_grad_fn,
+    make_predict_fn,
+    make_train_step,
+)
+from cadepth_tpu_torch.utils.profiling import StepTimer
+from cadepth_tpu_torch.visualization.depth_viz import create_comparison
+
+CSV_HEADER = ("epoch,step,train_loss,val_loss,"
+              "abs_rel,sq_rel,rmse,rmse_log,a1,a2,a3,"
+              "learning_rate,time_elapsed\n")  # tensorboard_trainer_enhanced.h:111-115
+
+
+def build_loaders(cfg: Config):
+    """Train/val loaders + augmentation wiring (train_main.cpp:370-404)."""
+    aug = cfg.data.augmentation
+    sensors = cfg.data.sensor_types or ["kv1", "kv2", "realsense", "xtion"]
+    common = dict(
+        target_height=cfg.data.input_height,
+        target_width=cfg.data.input_width,
+        allowed_sensors=sensors,
+        split_filtering=cfg.data.split_filtering,
+        compute_rays=cfg.data.compute_rays,
+        # the steps derive rays on the device when compute_rays, so host
+        # batches skip the grid (and its copy to the device) entirely
+        rays_on_device=cfg.data.compute_rays,
+    )
+    if cfg.data.packed_dir:
+        from cadepth_tpu_torch.data.packed import PackedSunRGBDLoader
+
+        common["preload"] = cfg.data.packed_preload
+        train_loader = PackedSunRGBDLoader(
+            cfg.data.packed_dir, split=cfg.data.train_split, **common)
+        val_loader = PackedSunRGBDLoader(
+            cfg.data.packed_dir, split=cfg.data.val_split, **common)
+    else:
+        common.update(data_dir=cfg.data.data_dir,
+                      manifest_path=cfg.data.manifest_path)
+        train_loader = SunRGBDLoader(split=cfg.data.train_split, **common)
+        val_loader = SunRGBDLoader(split=cfg.data.val_split, **common)
+    train_loader.enable_augmentation(AugmentationConfig(
+        enable_random_crop=aug.random_crop,
+        crop_scale_min=aug.crop_scale_min,
+        crop_scale_max=aug.crop_scale_max,
+        enable_horizontal_flip=aug.horizontal_flip,
+        horizontal_flip_prob=aug.flip_probability,
+        enable_color_jitter=aug.color_jitter,
+        brightness_delta=aug.brightness,
+        contrast_delta=aug.contrast,
+        random_seed=cfg.experiment.seed,
+    ))
+    return train_loader, val_loader
+
+
+def check_ported(cfg: Config, device: torch.device) -> None:
+    """Raise for the options of the JAX trainer the port lacks."""
+    if cfg.data.device_resident:
+        raise NotImplementedError(
+            "data.device_resident (the GPU-resident feed) is not ported yet "
+            "(ROADMAP.md Queue 1, item 3); set it to false to train from "
+            "the host pipeline")
+    if cfg.hardware.spatial_parallel > 1:
+        raise NotImplementedError(
+            "hardware.spatial_parallel > 1 is not ported yet (ROADMAP.md "
+            "Queue 1, item 8)")
+    if cfg.hardware.data_parallel and device.type == "cuda" and \
+            torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"hardware.data_parallel over {torch.cuda.device_count()} cards "
+            "is not ported yet (ROADMAP.md Queue 1, item 8); set "
+            "hardware.data_parallel: false or make one card visible")
+
+
+def _flat_jax(named: Dict[str, torch.Tensor]):
+    """(flax path, numpy array in the flax layout) of each parameter, in
+    JAX's order (sorted paths)."""
+    params, _ = to_jax(named)
+
+    def walk(tree, prefix=()):
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                yield from walk(tree[key], prefix + (key,))
+            else:
+                yield "/".join(prefix + (key,)), tree[key]
+
+    return list(walk(params))
+
+
+class Trainer:
+    def __init__(self, cfg: Config,
+                 train_loader: Optional[SunRGBDLoader] = None,
+                 val_loader: Optional[SunRGBDLoader] = None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        check_ported(cfg, self.device)
+        if train_loader is None or val_loader is None:
+            train_loader, val_loader = build_loaders(cfg)
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+
+        # -- pipelines
+        debug_limits = getattr(cfg, "_debug_limits", None) or {}
+        self._build_host_pipes(debug_limits)
+        self._finish_init()
+
+    def _build_host_pipes(self, debug_limits) -> None:
+        cfg = self.cfg
+        self.train_pipe = InputPipeline(
+            self.train_loader, cfg.training.batch_size, shuffle=True,
+            seed=cfg.experiment.seed,
+            num_threads=max(cfg.training.num_workers, 1),
+            prefetch_depth=cfg.training.prefetch_factor,
+            max_samples=debug_limits.get("num_train_samples"),
+            use_native=cfg.data.use_native_loader, device=self.device)
+        # Validation capped at max_val_samples (production_trainer.h:242-281).
+        # drop_remainder keeps eval batch shapes static; up to
+        # batch_size-1 tail samples are skipped per pass.
+        self.val_pipe = InputPipeline(
+            self.val_loader, cfg.training.batch_size, shuffle=False,
+            seed=cfg.experiment.seed,
+            num_threads=max(cfg.training.num_workers, 1),
+            prefetch_depth=cfg.training.prefetch_factor,
+            max_samples=debug_limits.get(
+                "num_val_samples", cfg.training.max_val_samples),
+            use_native=cfg.data.use_native_loader, device=self.device)
+
+    def _finish_init(self) -> None:
+        cfg = self.cfg
+        # -- model / optimizer / steps
+        self.model, self.loss_fn = build_model_and_loss(
+            cfg, device=self.device,
+            generator=torch.Generator().manual_seed(cfg.experiment.seed))
+        # With grad accumulation the schedule advances only on effective
+        # updates (optax.MultiSteps), so express epochs in update counts.
+        accum = max(cfg.optimization.grad_accum_steps, 1)
+        steps_per_epoch = max(len(self.train_pipe) // accum, 1)
+        self.lr_schedule = build_lr_schedule(
+            cfg.optimization, steps_per_epoch, cfg.training.num_epochs)
+        self.optimizer = build_optimizer(cfg.optimization,
+                                         self.model.parameters())
+        self.train_step = make_train_step(cfg, self.model, self.loss_fn,
+                                          self.optimizer, self.lr_schedule)
+        self.eval_step = make_eval_step(cfg, self.model, self.loss_fn)
+        self.predict_fn = make_predict_fn(cfg, self.model)
+        # built lazily: runs only if histogram logging ever fires
+        self._grad_fn = None
+        self._last_train_batch = None
+        self.num_params = count_parameters(self.model)
+
+        # -- observability
+        log_dir = Path(cfg.logging.log_dir) / cfg.experiment.name
+        log_dir.mkdir(parents=True, exist_ok=True)
+        self.log_dir = log_dir
+        self.tb = TensorBoardLogger(str(log_dir / "tensorboard"),
+                                    enabled=cfg.logging.tensorboard_enabled)
+        self._train_log = open(log_dir / "training.log", "a")
+        self._csv = None
+        if cfg.logging.csv_enabled:
+            self._csv = open(log_dir / cfg.logging.metrics_file, "a")
+            if self._csv.tell() == 0:
+                self._csv.write(CSV_HEADER)
+
+        # -- checkpointing / early stopping
+        self.ckpt = CheckpointManager(
+            str(Path(cfg.checkpointing.checkpoint_dir) / cfg.experiment.name),
+            keep_last_n=cfg.checkpointing.keep_last_n,
+            metric_name=cfg.validation.primary_metric,
+            metric_lower_is_better=cfg.validation.metric_mode == "min")
+        self.start_epoch = 0
+        self.best_metric = float("inf") if cfg.validation.metric_mode == "min" \
+            else float("-inf")
+        self.epochs_without_improvement = 0
+        self.history: list = []
+        # When set, train() wraps the FIRST epoch in a torch.profiler
+        # trace: profiled runs take the same optimizer/LR trajectory as
+        # unprofiled ones (no separate throwaway epoch).
+        self.profile_dir: Optional[str] = None
+
+        # -- preemption safety: on SIGTERM finish the in-flight batch,
+        # checkpoint, and exit cleanly so --resume latest continues where
+        # it stopped.
+        self._preempted = False
+        self._orig_sigterm = None
+        if cfg.checkpointing.save_on_preemption:
+            import signal
+            import threading
+
+            def _on_sigterm(signum, frame):
+                self._preempted = True
+                self.log("SIGTERM received; checkpointing at the next "
+                         "batch boundary")
+
+            if threading.current_thread() is threading.main_thread():
+                self._orig_sigterm = signal.signal(signal.SIGTERM,
+                                                   _on_sigterm)
+
+        resume_from = cfg.checkpointing.resume_from
+        if resume_from:
+            path = resume_from if resume_from != "latest" \
+                else self.ckpt.latest_checkpoint()
+            if path:
+                state, meta = self.ckpt.restore_with_meta(path, self.device)
+                self.train_step.load_state_dict(state)
+                self.start_epoch = int(meta.get("epoch", 0)) + 1
+                metrics = meta.get("metrics", {})
+                # Seed best_metric from BOTH the resumed checkpoint and the
+                # stored best/ checkpoint: resuming from 'latest' (which may
+                # be worse than best/) must not let a mediocre later epoch
+                # overwrite the true best model.
+                candidates = []
+                if self.cfg.validation.primary_metric in metrics:
+                    candidates.append(
+                        float(metrics[self.cfg.validation.primary_metric]))
+                stored_best = self.ckpt.best_metric_value()
+                if stored_best is not None:
+                    candidates.append(stored_best)
+                if candidates:
+                    pick = min if cfg.validation.metric_mode == "min" else max
+                    self.best_metric = pick(candidates)
+                self.log(f"Resumed from {path} at epoch {self.start_epoch}")
+
+    # -- logging helpers ------------------------------------------------------
+
+    def log(self, message: str) -> None:
+        stamp = time.strftime("%Y-%m-%d %H:%M:%S")
+        line = f"[{stamp}] {message}"
+        if self.cfg.logging.verbose:
+            print(line, flush=True)
+        self._train_log.write(line + "\n")
+        self._train_log.flush()
+
+    def _is_improvement(self, value: float) -> bool:
+        delta = self.cfg.early_stopping.min_delta
+        if self.cfg.validation.metric_mode == "min":
+            return value < self.best_metric - delta
+        return value > self.best_metric + delta
+
+    # -- loops ------------------------------------------------------------
+
+    def train_epoch(self, epoch: int) -> float:
+        cfg = self.cfg
+        log_interval = max(cfg.training.log_interval, 1)
+        losses = []
+        last_logs = None
+        timer = StepTimer()
+        for batch_idx, batch in enumerate(self.train_pipe):
+            if self._preempted:
+                break
+            logs = self.train_step(batch)
+            if self.cfg.logging.log_histogram_interval:
+                # kept ONLY when gradient histograms will read it: a full
+                # batch held in device memory
+                self._last_train_batch = batch
+            timer.step(cfg.training.batch_size)
+            losses.append(logs["total_loss"])
+            last_logs = logs
+            if batch_idx % log_interval == 0:
+                step = self.train_step.updates
+                self.tb.add_scalar("batch_loss/train",
+                                   float(logs["total_loss"]), step)
+                self.tb.add_scalar("training/gradient_norm",
+                                   float(logs["grad_norm"]), step)
+                # gradients/{norm,max,min} tag parity
+                # (tensorboard_trainer_enhanced.h:523-555)
+                self.tb.add_scalar("gradients/norm",
+                                   float(logs["grad_norm"]), step)
+                self.tb.add_scalar("gradients/max",
+                                   float(logs["grad_max"]), step)
+                self.tb.add_scalar("gradients/min",
+                                   float(logs["grad_min"]), step)
+        if not losses:
+            return 0.0
+        if timer.steps > 0:
+            self.tb.add_scalar("training/images_per_sec",
+                               timer.rate(self.device), epoch)
+        mean_loss = float(torch.stack(losses).mean())
+        if last_logs is not None:
+            step = self.train_step.updates
+            for key in ("si_loss", "grad_loss", "smooth_loss", "reproj_loss"):
+                if key in last_logs:
+                    self.tb.add_scalar(
+                        f"loss_components/{key.removesuffix('_loss')}",
+                        float(last_logs[key]), step)
+        return mean_loss
+
+    def validate(self, epoch: int) -> Dict[str, float]:
+        acc = MetricsAccumulator()
+        for batch in self.val_pipe:
+            out = self.eval_step(batch)
+            acc.update({k: float(v) for k, v in out.items()})
+        return acc.average()
+
+    def visualize(self, epoch: int) -> None:
+        """Log [RGB | GT | Pred | Error] panels (tensorboard_trainer_enhanced.h:444-470)."""
+        n = min(self.cfg.training.num_vis_samples, len(self.val_loader))
+        if n == 0 or not self.cfg.training.save_predictions:
+            return
+        batch = self.val_loader.get_batch(range(n))
+        pred = self.predict_fn(device_batch(batch, self.device)).float() \
+            .cpu().numpy()
+        for i in range(n):
+            panel = create_comparison(batch["rgb"][i], batch["depth"][i],
+                                      pred[i])
+            self.tb.add_image(f"predictions/sample_{i}", panel, epoch)
+
+    def log_weight_histograms(self, epoch: int) -> None:
+        named = {n: p.detach() for n, p in self.model.named_parameters()}
+        for name, leaf in _flat_jax(named):
+            self.tb.add_histogram(f"weights/{name}", leaf, epoch)
+
+    def log_gradient_histograms(self, epoch: int) -> None:
+        """Per-parameter `gradients/<name>` histograms
+        (`tensorboard_trainer_enhanced.h:523-555`), from a gradient-only
+        pass on the epoch's last train batch."""
+        if self._last_train_batch is None:
+            return
+        if self._grad_fn is None:
+            self._grad_fn = make_grad_fn(self.cfg, self.model, self.loss_fn)
+        grads = self._grad_fn(self._last_train_batch)
+        for name, leaf in _flat_jax(grads):
+            self.tb.add_histogram(f"gradients/{name}", leaf, epoch)
+
+    def train(self) -> Dict[str, float]:
+        cfg = self.cfg
+        self.log("=" * 55)
+        self.log(f"cadepth_tpu_torch trainer — experiment "
+                 f"'{cfg.experiment.name}'")
+        self.log(f"model={cfg.model.architecture} params={self.num_params:,}")
+        self.log(f"device={self.device} batch={cfg.training.batch_size}")
+        self.log(f"train_samples={len(self.train_loader)} "
+                 f"val_samples={len(self.val_loader)}")
+        self.log("=" * 55)
+        self.tb.add_custom_scalars_layout()
+        self.tb.add_text("model/architecture",
+                         f"{cfg.model.architecture} ({self.num_params:,} params)")
+        self.tb.add_hparams({
+            "architecture": cfg.model.architecture,
+            "init_features": cfg.model.init_features,
+            "batch_size": cfg.training.batch_size,
+            "learning_rate": cfg.optimization.learning_rate,
+            "optimizer": cfg.optimization.optimizer,
+            "lr_scheduler": cfg.optimization.lr_scheduler,
+        })
+
+        t0 = time.time()
+        final_metrics: Dict[str, float] = {}
+        for epoch in range(self.start_epoch, cfg.training.num_epochs):
+            epoch_start = time.time()
+            if self.profile_dir and epoch == self.start_epoch:
+                from cadepth_tpu_torch.utils.profiling import profile_trace
+
+                with profile_trace(self.profile_dir):
+                    train_loss = self.train_epoch(epoch)
+                self.log(f"Profile trace written to {self.profile_dir}")
+            else:
+                train_loss = self.train_epoch(epoch)
+            if self._preempted:
+                self.ckpt.save(self.train_step.state_dict(), epoch, {},
+                               is_best=False, blocking=True)
+                self.log(f"Preempted during epoch {epoch + 1}; checkpoint "
+                         f"saved at step {self.train_step.updates} — resume "
+                         "with --resume latest")
+                break
+            epoch_time = time.time() - epoch_start
+            step = self.train_step.updates
+            # step counts micro-steps; the schedule is indexed by effective
+            # optimizer updates
+            lr = float(self.lr_schedule(
+                step // max(self.cfg.optimization.grad_accum_steps, 1)))
+
+            self.tb.add_scalar("loss/train", train_loss, epoch)
+            self.tb.add_scalar("training/learning_rate", lr, epoch)
+            self.tb.add_scalar("training/epoch_time_seconds", epoch_time, epoch)
+            self.tb.add_scalar("training/total_time_seconds",
+                               time.time() - t0, epoch)
+
+            val_metrics: Dict[str, float] = {}
+            if (epoch + 1) % max(cfg.training.val_interval, 1) == 0:
+                val_metrics = self.validate(epoch)
+                final_metrics = val_metrics
+                self.tb.add_scalar("loss/val",
+                                   val_metrics.get("total_loss", 0.0), epoch)
+                for name in ("abs_rel", "sq_rel", "rmse", "rmse_log"):
+                    self.tb.add_scalar(f"metrics/{name}",
+                                       val_metrics.get(name, 0.0), epoch)
+                self.tb.add_scalar("metrics/a1",
+                                   val_metrics.get("delta_1.25", 0.0), epoch)
+                self.tb.add_scalar("metrics/a2",
+                                   val_metrics.get("delta_1.25^2", 0.0), epoch)
+                self.tb.add_scalar("metrics/a3",
+                                   val_metrics.get("delta_1.25^3", 0.0), epoch)
+                if "pcl_max_rot" in val_metrics:
+                    # live check of the two_pass warp's sub-pixel bound
+                    rot = val_metrics["pcl_max_rot"]
+                    self.tb.add_scalar("training/pcl_max_rot", rot, epoch)
+                    self.log(f"pcl_max_rot: {rot:.5f}")
+                    from cadepth_tpu_torch.models.pcl import DEFAULT_ROT_BOUND
+                    if cfg.model.pcl_warp in ("two_pass", "separable",
+                                              "pallas", "fused") \
+                            and rot > 0.8 * DEFAULT_ROT_BOUND:
+                        self.log(
+                            f"WARNING: pcl_max_rot={rot:.4f} approaches "
+                            f"the {cfg.model.pcl_warp} warp's validated "
+                            f"rotation bound ({DEFAULT_ROT_BOUND}); the "
+                            "warp kernel displacement may exceed a pixel "
+                            "— consider model.pcl_warp: auto (exact "
+                            "gather fallback) for this workload")
+                self.visualize(epoch)
+
+            if cfg.logging.log_histogram_interval and \
+                    (epoch + 1) % cfg.logging.log_histogram_interval == 0:
+                self.log_weight_histograms(epoch)
+                self.log_gradient_histograms(epoch)
+
+            if self._csv is not None:
+                self._csv.write(
+                    f"{epoch},{step},{train_loss:.6f},"
+                    f"{val_metrics.get('total_loss', 0.0):.6f},"
+                    f"{val_metrics.get('abs_rel', 0.0):.6f},"
+                    f"{val_metrics.get('sq_rel', 0.0):.6f},"
+                    f"{val_metrics.get('rmse', 0.0):.6f},"
+                    f"{val_metrics.get('rmse_log', 0.0):.6f},"
+                    f"{val_metrics.get('delta_1.25', 0.0):.6f},"
+                    f"{val_metrics.get('delta_1.25^2', 0.0):.6f},"
+                    f"{val_metrics.get('delta_1.25^3', 0.0):.6f},"
+                    f"{lr:.8f},{time.time() - t0:.1f}\n")
+                self._csv.flush()
+
+            primary = val_metrics.get(cfg.validation.primary_metric)
+            is_best = primary is not None and self._is_improvement(primary)
+            if is_best:
+                self.best_metric = primary
+                self.epochs_without_improvement = 0
+            elif primary is not None:
+                self.epochs_without_improvement += 1
+
+            # save_best_only skips the periodic saves (train_config.yaml:140);
+            # best and final-epoch checkpoints are always written.
+            periodic = (not cfg.checkpointing.save_best_only
+                        and (epoch + 1) % max(cfg.checkpointing.save_interval, 1) == 0)
+            is_last = epoch == cfg.training.num_epochs - 1
+            if periodic or is_best or (is_last and cfg.checkpointing.save_last):
+                self.ckpt.save(self.train_step.state_dict(), epoch,
+                               val_metrics, is_best=is_best,
+                               blocking=not cfg.checkpointing.async_save)
+
+            msg = (f"epoch {epoch + 1}/{cfg.training.num_epochs} "
+                   f"loss={train_loss:.4f} lr={lr:.2e} time={epoch_time:.1f}s")
+            if val_metrics:
+                msg += (f" val_abs_rel={val_metrics.get('abs_rel', 0):.4f}"
+                        f" val_rmse={val_metrics.get('rmse', 0):.4f}")
+            self.log(msg)
+            self.history.append({"epoch": epoch, "train_loss": train_loss,
+                                 **val_metrics})
+
+            if cfg.early_stopping.enabled and \
+                    self.epochs_without_improvement >= cfg.early_stopping.patience:
+                self.log(f"Early stopping at epoch {epoch + 1} "
+                         f"(no improvement for "
+                         f"{self.epochs_without_improvement} epochs)")
+                break
+
+        self.ckpt.finalize()  # land any in-flight async save
+        self.log(f"Training complete in {time.time() - t0:.1f}s; "
+                 f"best {cfg.validation.primary_metric}={self.best_metric:.4f}")
+        self.tb.flush()
+        return final_metrics
+
+    def close(self) -> None:
+        if self._orig_sigterm is not None:
+            import signal
+
+            signal.signal(signal.SIGTERM, self._orig_sigterm)
+            self._orig_sigterm = None
+        self.tb.close()
+        self._train_log.close()
+        if self._csv is not None:
+            self._csv.close()

@@ -97,8 +97,25 @@ Phases, each fatal on failure:
 18. times: the banded affine kernel per level against its bound, the
    floor of an empty launch, its plain version and F.grid_sample; the
    gather warp's device time per level, per forward and per train step;
-19. one JSON line describing every kernel, the train steps and the
-   Predictors; last, the ok line.
+19. the trainer loop on host data: 96 seeded structured scenes at
+   240x320 written by the port's synthetic generator and packed by its
+   pack_dataset; the port's train CLI (in process) trains
+   geometry_aware_full as shipped from the pack for 2 epochs (4 producer
+   threads, the shipped augmentation, a log line each step, validation
+   capped at 32 samples, panels and a checkpoint each epoch): finite
+   losses, training.log, a 13-column metrics.csv of 2 rows, step_*/ and
+   best/ checkpoints, the panels in the TensorBoard files, and exactly 5
+   forward launches storing V and 15 backward launches per train step and
+   5 forward launches without V per validation and panel forward; the
+   pipeline's first train batch and a validation epoch's batches on the
+   card against the pack's get_batch on the CPU (the same bits); the
+   loop's step p50/p95 and images/s against phase 9's bare step, the
+   queue wait, the epochs' wall time, the producer, the copies' device
+   time and overlap; --resume latest for a third epoch (epoch 2, step and
+   optimizer updates carried over, a finite loss); the evaluate CLI on
+   best/ (the capped validation set);
+20. one JSON line describing every kernel, the train steps, the
+   Predictors and the trainer loop; last, the ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -2254,6 +2271,485 @@ def gather_times(device, args, card: str):
     return rows, total
 
 
+# phase 19: the trainer loop on host data
+SENSORS = ("kv1", "kv2", "realsense", "xtion")
+# pairs of loop-body blocks, fed by the pipeline and from held batches
+LOOP_PAIRS = 5
+
+
+def deep_merge(base: dict, extra: dict) -> dict:
+    for key, value in extra.items():
+        if isinstance(value, dict) and isinstance(base.get(key), dict):
+            deep_merge(base[key], value)
+        else:
+            base[key] = value
+    return base
+
+
+def write_pack(root: pathlib.Path, args) -> dict:
+    """Phase 19's data: seeded structured scenes (a floor and boxes, RGB
+    keyed to depth) at the training size, spread over the four sensors'
+    intrinsics, written as a SUN RGB-D tree by the port's generator (cv2
+    PNGs) and packed once, f32, by the port's pack_dataset."""
+    from cadepth_tpu_torch.data.packed import pack_dataset
+    from cadepth_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    h, w = args.height, args.width
+    t0 = time.perf_counter()
+    manifest = generate_synthetic_dataset(
+        str(root / "data"), images_per_sensor=args.loop_scenes,
+        seed=args.seed + 19, structured=True,
+        sensor_specs={s: (w, h, w, h) for s in SENSORS})
+    meta = pack_dataset(str(root / "data" / "sunrgbd"), manifest,
+                        str(root / "pack"), h, w, num_threads=8)
+    size = sum(p.stat().st_size for p in (root / "pack").glob("*.npy"))
+    log(f"  {meta['num_samples']} scenes at {h}x{w} written by "
+        f"generate_synthetic_dataset and packed by pack_dataset (f32, "
+        f"{size / 2**20:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
+    return meta
+
+
+def loop_yaml(root: pathlib.Path, args, epochs: int) -> pathlib.Path:
+    """configs/train_config.yaml with phase 19's changes, run as
+    --experiment geometry_aware_full: the pack, 4 producer threads, the
+    shipped augmentation, validation capped, a log line and a checkpoint
+    every epoch, logs and checkpoints under ``root``."""
+    import yaml
+
+    raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
+    deep_merge(raw, {
+        "data": {"packed_dir": str(root / "pack"),
+                 "input_height": args.height, "input_width": args.width},
+        "model": {"init_features": args.init_features},
+        "training": {"num_epochs": epochs, "num_workers": 4,
+                     "log_interval": 1, "max_val_samples": args.loop_val},
+        "checkpointing": {"checkpoint_dir": str(root / "ckpts"),
+                          "save_interval": 1, "save_best_only": False},
+        "logging": {"log_dir": str(root / "logs")},
+    })
+    path = root / f"loop_{epochs}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+class LoopProbe:
+    """Watches the port's trainer from outside while its CLI runs: the
+    start of every train step and its logs, each train epoch's wall time
+    with its pipeline's queue wait and producer, and the Trainer made."""
+
+    def __enter__(self):
+        from cadepth_tpu_torch.training import train_state as ts
+        from cadepth_tpu_torch.training import trainer as tm
+
+        probe = self
+        self.stamps, self.losses, self.epochs, self.trainers = [], [], [], []
+        self._orig = (ts.TrainStep, ts.TrainStep.__call__,
+                      tm.Trainer, tm.Trainer.train_epoch, tm.Trainer.__init__)
+        _, call, _, epoch, init = self._orig
+
+        def timed_call(step, batch):
+            probe.stamps.append(time.perf_counter())
+            logs = call(step, batch)
+            probe.losses.append(logs["total_loss"])
+            return logs
+
+        def timed_epoch(trainer, e):
+            first = len(probe.stamps)
+            before = (trainer.train_step.updates, trainer.optimizer.updates)
+            t0 = time.perf_counter()
+            loss = epoch(trainer, e)
+            probe.epochs.append({
+                "epoch": e, "step_before": before[0],
+                "updates_before": before[1],
+                "wall_s": time.perf_counter() - t0,
+                "wait_s": trainer.train_pipe.wait_seconds,
+                "producer": trainer.train_pipe.producer,
+                "first": first, "steps": len(probe.stamps) - first,
+                "loss": loss})
+            return loss
+
+        def init_and_keep(trainer, *a, **k):
+            init(trainer, *a, **k)
+            probe.trainers.append(trainer)
+
+        ts.TrainStep.__call__ = timed_call
+        tm.Trainer.train_epoch = timed_epoch
+        tm.Trainer.__init__ = init_and_keep
+        return self
+
+    def __exit__(self, *exc):
+        step_cls, call, trainer_cls, epoch, init = self._orig
+        step_cls.__call__ = call
+        trainer_cls.train_epoch = epoch
+        trainer_cls.__init__ = init
+        return False
+
+    def step_ms(self):
+        """Loop step times (ms): from one step's start to the next's within
+        an epoch (the wait for the batch, the step, its log reads), the
+        first epoch's first step left out."""
+        out = []
+        for i, ep in enumerate(self.epochs):
+            s = self.stamps[ep["first"]:ep["first"] + ep["steps"]]
+            d = [(b - a) * 1000.0 for a, b in zip(s, s[1:])]
+            out += d[1:] if i == 0 else d
+        return out
+
+
+def warp_counts():
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+
+    return {"launches": tpw.launches, "bwd_launches": tpw.bwd_launches,
+            "v_stores": tpw.v_stores, "fused": fw.launches + fw.bwd_launches}
+
+
+def reset_warp_counts() -> None:
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+
+    for m in (tpw, fw):
+        m.launches = m.bwd_launches = m.grad_copies = m.v_stores = 0
+
+
+def batches_equal(device, pipe, loader, batches: int):
+    """Iterate ``pipe`` (a fresh epoch 0), keep ``batches`` of its batches
+    as they arrive on ``device``, then hold each, copied back, against the
+    loader's get_batch of the same indices on the CPU: the largest
+    absolute difference over every key (0 = the same bits)."""
+    import numpy as np
+    import torch
+
+    indices = pipe._epoch_indices()
+    got = []
+    for b in pipe:
+        if b["rgb"].device.type != device.type:
+            raise AssertionError(f"a batch on {b['rgb'].device}, not "
+                                 f"{device}")
+        got.append(b)
+        if len(got) == batches:
+            break
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    pipe.loader.set_epoch(0)
+    worst = 0.0
+    for i, b in enumerate(got):
+        want = pipe.loader.get_batch(
+            indices[i * pipe.batch_size:(i + 1) * pipe.batch_size])
+        for k, v in b.items():
+            a = v.cpu().numpy()
+            if a.shape != want[k].shape or a.dtype != want[k].dtype:
+                raise AssertionError(f"{k}: {a.shape} {a.dtype} against "
+                                     f"{want[k].shape} {want[k].dtype}")
+            worst = max(worst, float(np.abs(a - want[k]).max()))
+    return worst
+
+
+def copy_profile(trainer, steps: int):
+    """Profile ``steps`` steps of the trainer loop: the pipeline's copies
+    to the card (host-to-device memcpys on a stream other than the one
+    the step's kernels run on; one a key, for the batches the producer
+    copied in that time): their device time per batch, and the share of
+    it during which a kernel ran on the step's stream."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, batch in enumerate(trainer.train_pipe):
+            trainer.train_step(batch)
+            if i + 1 == steps:
+                break
+        torch.cuda.synchronize()
+    keys = len(batch)  # one copy a key; the producer runs batches ahead
+    try:
+        events = prof.profiler.kineto_results.events()
+        spans = [(e.start_ns(), e.end_ns(), e.device_resource_id(), e.name())
+                 for e in events
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+    except AttributeError:  # another torch's profiler API
+        return None
+    kernels = [s for s in spans if "Memcpy" not in s[3]
+               and "Memset" not in s[3]]
+    if not kernels:
+        return None
+    compute = Counter(s[2] for s in kernels).most_common(1)[0][0]
+    busy = sorted((a, b) for a, b, st, _ in kernels if st == compute)
+    copies = [s for s in spans if "HtoD" in s[3] and s[2] != compute]
+    total = sum(b - a for a, b, _, _ in copies)
+    over = 0
+    for a, b, _, _ in copies:
+        for ka, kb in busy:
+            if kb > a and ka < b:
+                over += min(b, kb) - max(a, ka)
+    return {"copies": len(copies),
+            "ms_per_batch": total / 1e6 / len(copies) * keys if copies
+            else None,
+            "overlapped_share": over / total if total else None,
+            "stream": copies[0][2] if copies else None,
+            "compute_stream": compute}
+
+
+def fed_step_ms(trainer, batches, steps: int):
+    """p50 and p95 (ms) of ``steps`` steps of the trainer's loop body fed
+    from ``batches``: the step, then the reads of its five logged scalars
+    (log_interval 1); host clock from step to step, the first left out;
+    and the mean time a step waited on the queue (0 for a list)."""
+    stamps = []
+    for i, batch in enumerate(batches):
+        stamps.append(time.perf_counter())
+        logs = trainer.train_step(batch)
+        for key in ("total_loss", "grad_norm", "grad_max", "grad_min",
+                    "si_loss"):
+            float(logs[key])
+        if i == steps:
+            break
+    d = sorted((b - a) * 1000.0 for a, b in zip(stamps[1:], stamps[2:]))
+    wait = getattr(batches, "wait_seconds", 0.0) * 1000.0 / (steps + 1)
+    return (d[len(d) // 2], d[min(len(d) - 1,
+                                  int(round(0.95 * (len(d) - 1))))], wait)
+
+
+def trainer_loop(device, args, card: str, bare_p50):
+    """Phase 19: the port's train CLI trains geometry_aware_full from a pack
+    for two epochs (validation and panels each epoch, a checkpoint each),
+    resumes from the latest for a third, and the evaluate CLI scores best/;
+    the warp's launches are counted over the first run, the pipeline's
+    batches are held against the CPU's, and the loop is timed against
+    phase 9's bare step."""
+    import csv
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cadepth_tpu_torch.cli import evaluate as evaluate_cli
+    from cadepth_tpu_torch.cli import train as train_cli
+    from cadepth_tpu_torch.data.pipeline import InputPipeline
+
+    cuda = device.type == "cuda"
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase19_",
+                                         dir=ROOT / "build"))
+    try:
+        meta = write_pack(root, args)
+        name = "geometry_aware_full"
+        argv = ["--experiment", name, "--device", device.type]
+
+        # the main path: two epochs through the train CLI, counted
+        reset_warp_counts()
+        with LoopProbe() as run1:
+            rc = train_cli.main(["--config", str(loop_yaml(root, args, 2))]
+                                + argv)
+        counts = warp_counts()
+        if rc != 0:
+            raise AssertionError(f"the train CLI exited {rc}")
+        trainer = run1.trainers[0]
+        steps = sum(ep["steps"] for ep in run1.epochs)
+        per_epoch = len(trainer.train_pipe)
+        val_batches = len(trainer.val_pipe)
+        vis = min(trainer.cfg.training.num_vis_samples,
+                  len(trainer.val_loader))
+        panels = 2 if vis else 0
+        log(f"  train CLI: {len(run1.epochs)} epochs of {per_epoch} steps "
+            f"(batch {trainer.cfg.training.batch_size}, "
+            f"{len(trainer.train_loader)} train samples with the shipped "
+            f"augmentation), validation {val_batches} batches an epoch, "
+            f"{vis} panels an epoch; producers: train "
+            f"{run1.epochs[0]['producer']}, validation "
+            f"{trainer.val_pipe.producer}; TensorBoard writer "
+            f"{type(trainer.tb._writer).__name__}")
+        if [ep["steps"] for ep in run1.epochs] != [per_epoch] * 2:
+            raise AssertionError(f"epochs ran {run1.epochs} steps")
+        n_pcl = len(pcl_layers(trainer.model))
+        forwards_no_v = 2 * val_batches + panels
+        want = {"v_stores": n_pcl * steps if cuda else 0,
+                "bwd_launches": 3 * n_pcl * steps if cuda else 0,
+                "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
+                "fused": 0}
+        log(f"  two_pass_warp over the run: {counts['launches']} forward "
+            f"launches ({counts['v_stores']} storing V: {n_pcl} per train "
+            f"step; {counts['launches'] - counts['v_stores']} without: "
+            f"{n_pcl} per validation and panel forward, "
+            f"{forwards_no_v} forwards), {counts['bwd_launches']} backward "
+            f"launches ({3 * n_pcl} per step), fused_warp "
+            f"{counts['fused']}; expected {want}")
+        if counts != want:
+            raise AssertionError(f"warp launches {counts} != {want}")
+
+        losses = [float(x) for x in run1.losses]
+        log_dir = root / "logs" / name
+        rows = list(csv.reader((log_dir / "metrics.csv").open()))
+        ckpt_dir = root / "ckpts" / name
+        step_dirs = sorted(p.name for p in ckpt_dir.glob("step_*"))
+        tb_bytes = b"".join(p.read_bytes() for p in
+                            (log_dir / "tensorboard").rglob("*")
+                            if p.is_file())
+        log(f"  {len(losses)} step losses, first {losses[0]:.5g}, last "
+            f"{losses[-1]:.5g}; metrics.csv {len(rows[0])} columns, "
+            f"{len(rows) - 1} rows; checkpoints {step_dirs} and best/; "
+            f"panels in the TensorBoard files: "
+            f"{tb_bytes.count(b'predictions/sample_')}")
+        if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+            raise AssertionError(f"step losses {losses}")
+        if not (log_dir / "training.log").exists() or len(rows[0]) != 13 \
+                or len(rows) != 3:
+            raise AssertionError(f"training.log or metrics.csv: {rows}")
+        if not step_dirs or not (ckpt_dir / "best" / "state.pt").exists():
+            raise AssertionError(f"checkpoints: {step_dirs}")
+        if vis and b"predictions/sample_0" not in tb_bytes:
+            raise AssertionError("no panel reached the TensorBoard files")
+
+        # bits: the pipeline's first batches on the device against the
+        # same pack's get_batch on the CPU
+        cfg = trainer.cfg
+        train_pipe = InputPipeline(
+            trainer.train_loader, cfg.training.batch_size, shuffle=True,
+            seed=cfg.experiment.seed, num_threads=4, device=device)
+        val_pipe = InputPipeline(
+            trainer.val_loader, cfg.training.batch_size, shuffle=False,
+            max_samples=cfg.training.max_val_samples, device=device)
+        bits = {"train_first": batches_equal(device, train_pipe,
+                                             trainer.train_loader, 1),
+                "val_epoch": batches_equal(device, val_pipe,
+                                           trainer.val_loader,
+                                           len(val_pipe))}
+        log(f"  batches on {device.type} against get_batch on the CPU: "
+            f"train's first (augmented, {train_pipe.producer}) max |diff| "
+            f"{bits['train_first']}, validation's {len(val_pipe)} kept "
+            f"through the epoch ({val_pipe.producer}) {bits['val_epoch']}")
+        if any(bits.values()):
+            raise AssertionError(f"the pipeline's batches differ: {bits}")
+
+        # the loop against the bare step
+        unit = "" if cuda else " [CPU rehearsal, not device numbers]"
+        times = sorted(run1.step_ms())
+        p50 = times[len(times) // 2]
+        p95 = times[min(len(times) - 1, int(round(0.95 * (len(times) - 1))))]
+        mean = sum(times) / len(times)
+        bsz = cfg.training.batch_size
+        last = run1.epochs[-1]
+        wait_ms = last["wait_s"] * 1000.0 / last["steps"]
+        loop = {"step_p50_ms": p50, "step_p95_ms": p95, "step_mean_ms": mean,
+                "images_per_sec": bsz * 1000.0 / mean,
+                "steps_timed": len(times), "bare_step_p50_ms": bare_p50,
+                "queue_wait_ms_per_step": wait_ms,
+                "epoch_wall_s": [ep["wall_s"] for ep in run1.epochs],
+                "producer": last["producer"],
+                "val_producer": trainer.val_pipe.producer,
+                "warp_counts": counts, "steps": steps,
+                "bits_max_abs": bits, "samples": meta["num_samples"]}
+        log(f"  [{card}] trainer loop, batch {bsz}: step p50 {p50:.3f} ms, "
+            f"p95 {p95:.3f} ms, mean {mean:.3f} ms, "
+            f"{loop['images_per_sec']:.2f} images/s ({len(times)} steps, "
+            f"host clock from step to step); bare TrainStep p50 (phase 9) "
+            f"{bare_p50:.3f} ms; waited on the queue {wait_ms:.3f} ms a "
+            f"step (epoch {last['epoch']}); epochs "
+            + ", ".join(f"{ep['wall_s']:.2f} s" for ep in run1.epochs)
+            + f"; producer {last['producer']}{unit}")
+        loop["gap_ms"] = p50 - bare_p50
+        if cuda:
+            prof = copy_profile(trainer, 6)
+            loop["copy"] = prof
+            if prof is None or not prof["copies"]:
+                log(f"  [{card}] the copies to the card: not measured (the "
+                    "profile held no host-to-device copy on a side stream)")
+            else:
+                log(f"  [{card}] the pipeline's copies to the card "
+                    f"(torch.profiler, 6 loop steps): {prof['copies']} "
+                    f"host-to-device memcpys on stream {prof['stream']} "
+                    f"(the step's kernels on {prof['compute_stream']}), "
+                    f"{prof['ms_per_batch']:.4f} ms a batch, "
+                    f"{prof['overlapped_share']:.1%} of it while a kernel "
+                    "ran on the step's stream")
+        # where the loop's time over the bare step goes: the same loop body
+        # fed by the pipeline (its producer threads running) and from
+        # batches already on the device (no producer threads), in turns,
+        # LOOP_PAIRS pairs (phase 9's bare step ran minutes earlier, and
+        # a host-bound step's p50 moves between runs and within one)
+        n = min(20, per_epoch - 2)
+        held = []
+        for b in trainer.train_pipe:
+            held.append(b)
+            if len(held) == n + 1:
+                break
+        pairs = [(fed_step_ms(trainer, trainer.train_pipe, n),
+                  fed_step_ms(trainer, held, n)) for _ in range(LOOP_PAIRS)]
+        del held
+        diffs = sorted(p[0] - h[0] for p, h in pairs)
+        cost = diffs[len(diffs) // 2]
+        waits = sorted(p[2] for p, _ in pairs)
+        pipe_wait = waits[len(waits) // 2]
+        loop["fed_pairs_p50_p95_wait_ms"] = pairs
+        loop["producer_cost_ms"] = cost
+        above = sum(d > pipe_wait for d in diffs)
+        loop["gil_finding"] = (
+            "the producer threads take the dispatching thread's time: fed "
+            "by the pipeline, the loop body is slower than fed from held "
+            "batches by more than its queue wait"
+            if cost > pipe_wait and above >= LOOP_PAIRS - 1 else
+            "the producer threads do not slow the dispatching thread: fed "
+            "by the pipeline, the loop body is within its queue wait of "
+            "the held-fed body" if cost <= pipe_wait else
+            "unresolved: the pairs disagree")
+        log(f"  [{card}] the loop body ({n} steps a block, p50 ms), fed by "
+            "the pipeline / from batches held on the device, in turns: "
+            + ", ".join(f"{p[0]:.3f} / {h[0]:.3f}" for p, h in pairs)
+            + f"; the pipeline-fed blocks waited {pipe_wait:.3f} ms a step "
+            f"on the queue (median); bare TrainStep p50 (phase 9) "
+            f"{bare_p50:.3f} ms{unit}")
+        log(f"  [{card}] pipeline-fed p50 - held-fed p50, median of "
+            f"{LOOP_PAIRS} pairs: {cost:.3f} ms ({above} of {LOOP_PAIRS} "
+            f"pairs above the wait): {loop['gil_finding']}{unit}")
+        del trainer, run1
+
+        # resume from the latest checkpoint for a third epoch
+        with LoopProbe() as run2:
+            rc = train_cli.main(["--config", str(loop_yaml(root, args, 3)),
+                                 "--resume", "latest"] + argv)
+        if rc != 0:
+            raise AssertionError(f"the resumed train CLI exited {rc}")
+        ep = run2.epochs[0]
+        first = float(run2.losses[0])
+        log(f"  resumed: started at epoch {ep['epoch']} with step "
+            f"{ep['step_before']} and optimizer updates "
+            f"{ep['updates_before']} (the first run took {steps}); first "
+            f"loss {first:.5g}")
+        if ep["epoch"] != 2 or ep["step_before"] != steps or \
+                ep["updates_before"] != steps or not math.isfinite(first):
+            raise AssertionError(f"resume: {ep}, first loss {first}")
+        loop["resume"] = {"start_epoch": ep["epoch"],
+                          "step": ep["step_before"],
+                          "updates": ep["updates_before"],
+                          "first_loss": first}
+        del run2
+
+        # the evaluate CLI on best/
+        out = root / "eval"
+        rc = evaluate_cli.main(
+            ["--checkpoint", "best", "--config", str(loop_yaml(root, args, 3)),
+             "--output", str(out), "--max-samples", str(args.loop_val),
+             "--batch-size", str(cfg.training.batch_size), "--num-vis", "2"]
+            + argv)
+        per_sample = list(csv.reader((out / "per_sample_metrics.csv").open()))
+        summary = list(csv.reader((out / "summary_metrics.csv").open()))
+        abs_rel = {r[0]: r[1] for r in summary[1:]}.get("abs_rel")
+        log(f"  evaluate CLI on best/: exit {rc}, {len(per_sample) - 1} "
+            f"samples (validation capped at {args.loop_val}), mean abs_rel "
+            f"{abs_rel}, files {sorted(p.name for p in out.iterdir())}")
+        if rc != 0 or len(per_sample) - 1 != args.loop_val or \
+                not (out / "report.txt").exists():
+            raise AssertionError("the evaluate CLI's outputs")
+        loop["eval"] = {"samples": len(per_sample) - 1,
+                        "abs_rel": float(abs_rel)}
+        return loop
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2270,6 +2766,7 @@ def main(argv=None) -> int:
         args.init_features, args.height, args.width, args.batch = 8, 64, 64, 4
         args.timing_iters, args.bench_iters, args.mode_bench_iters = 4, 3, 3
         args.train_batch, args.train_steps, args.train_time_steps = 4, 3, 3
+        args.loop_scenes, args.loop_val = 4, 8
         card = "cpu rehearsal"
     else:
         if not torch.cuda.is_available():
@@ -2282,6 +2779,8 @@ def main(argv=None) -> int:
         args.timing_iters, args.bench_iters, args.mode_bench_iters = \
             100, 50, 20
         args.train_batch, args.train_steps, args.train_time_steps = 4, 10, 20
+        # phase 19: 96 scenes (24 a sensor), validation capped at 32
+        args.loop_scenes, args.loop_val = 24, 32
         card = card_info()
     sys.path.insert(0, str(ROOT))
     import cadepth_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -2427,6 +2926,9 @@ def main(argv=None) -> int:
                 f"{b_floor * 1e3:.2f} us device")
     g_rows, g_total = gather_times(device, args, card)
 
+    phase("19. the trainer loop on host data")
+    loop = trainer_loop(device, args, card, train_out["p50_ms"])
+
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
             "is printed")
@@ -2447,6 +2949,8 @@ def main(argv=None) -> int:
         "launches_per_forward": per_forward,
         "launches_in_training": tr["launches"],
         "v_stores_in_training": tr["v_stores"],
+        "launches_in_trainer_loop": loop["warp_counts"]["launches"],
+        "v_stores_in_trainer_loop": loop["warp_counts"]["v_stores"],
         "max_abs_err": max(worst.values()),
         "max_abs_err_by_dtype": worst,
         "ms": dec1["kernel_ms"],
@@ -2478,6 +2982,7 @@ def main(argv=None) -> int:
                          f"{TPU_KERNEL}:246 _bwd_v_kernel"],
         "launches": tr["bwd_launches"],
         "launches_per_step": tr["bwd_per_step"],
+        "launches_in_trainer_loop": loop["warp_counts"]["bwd_launches"],
         "max_abs_err": max(bwd_worst["float32"], bwd_worst["bfloat16"]),
         "max_abs_err_by_dtype": bwd_worst,
         "ms": bwd_dec1["kernel_ms"],
@@ -2667,6 +3172,7 @@ def main(argv=None) -> int:
         kernel_vs_plain_max_rel=ftr["kernel_vs_plain_rel"],
         kernel_vs_kernel_max_rel=ftr["kernel_vs_kernel_rel"]),
         "fused_loss": {k: v for k, v in floss.items() if k != "inputs"},
+        "trainer_loop": loop,
         "pcl_modes": {"serve": modes, "train": mode_train,
                       "group_resize_serve": group_serve,
                       "gather_warp": {"levels": g_rows,

@@ -883,3 +883,108 @@ def test_depth_metrics_on_card_match_cpu():
             *maps[dev], valid_mask=torch.from_numpy(mask).to(dev))["log10"]
             .cpu() for dev in maps}
         assert torch.equal(got["cuda"], got["cpu"]), (at, got)
+
+
+def _fixture_loader(root, split="train", augment=True):
+    """The port's synthetic SUN RGB-D fixture (12 scenes), loaded at 48x64
+    with rays derived on the device, augmented on the train split."""
+    from cadepth_tpu_torch.data.sunrgbd import AugmentationConfig, \
+        SunRGBDLoader
+    from cadepth_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    manifest = generate_synthetic_dataset(str(root), images_per_sensor=3,
+                                          seed=5)
+    loader = SunRGBDLoader(f"{root}/sunrgbd", manifest, split=split,
+                           target_height=48, target_width=64,
+                           compute_rays=True, rays_on_device=True)
+    if augment:
+        loader.enable_augmentation(AugmentationConfig(random_seed=3))
+    return loader
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_native", ["never", "auto"])
+def test_input_pipeline_on_card_yields_the_cpu_batches(tmp_path, use_native):
+    """Pinned, asynchronous copies on the pipeline's own stream: every
+    batch of two epochs, kept while later batches are copied (a ring of
+    prefetch_depth + 2 = 3 pinned slots, reused four times an epoch) and
+    while other work allocates on the card, equals the CPU pipeline's
+    batch; a sum taken on the consumer's stream as each batch arrives
+    equals the CPU's (the stream waits for the copy)."""
+    from cadepth_tpu_torch.data.pipeline import InputPipeline
+
+    _need_card()
+    loader = _fixture_loader(tmp_path)
+    kw = dict(batch_size=2, shuffle=True, seed=4, prefetch_depth=1,
+              num_threads=2, use_native=use_native)
+    card = InputPipeline(loader, device="cuda", **kw)
+    cpu = InputPipeline(loader, device="cpu", **kw)
+    for _ in range(2):
+        kept, sums = [], []
+        for b in card:
+            assert b["rgb"].is_cuda
+            sums.append(b["rgb"].sum(dtype=torch.float64))
+            kept.append(b)
+            torch.empty(4 << 20, device="cuda").fill_(7.0)  # reuse bait
+        want = list(cpu)
+        assert len(kept) == len(want) == 6
+        for b, w, s in zip(kept, want, sums):
+            assert b.keys() == w.keys()
+            for k in w:
+                assert torch.equal(b[k].cpu(), w[k]), k
+            assert float(s) == float(w["rgb"].sum(dtype=torch.float64))
+
+
+@pytest.mark.cuda
+def test_trainer_epoch_on_card_matches_cpu(tmp_path):
+    """One epoch of the port's Trainer (geometry_aware, f=4, 32x32, f32,
+    TF32 off) on the card and on the CPU from the same weights and
+    batches: the epoch's loss and the validation metrics at rtol 1e-3
+    (f32 sums in other orders, then Adam's sign amplification of
+    near-zero gradient entries over 3 steps), pcl_max_rot at rtol 1e-2
+    (the PCL heads start at a zero kernel, so Adam's first updates move
+    each entry by +-lr whatever the size of its gradient: 5e-3 apart on
+    an H100); the card's steps launch the two-pass warp's kernels."""
+    from cadepth_tpu_torch.config import config_from_dict
+    from cadepth_tpu_torch.training.trainer import Trainer
+
+    _need_card()
+    from cadepth_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    manifest = generate_synthetic_dataset(str(tmp_path / "ds"),
+                                          images_per_sensor=3, seed=5)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = config_from_dict({
+            "experiment": {"name": f"card_{dev}", "seed": 1},
+            "data": {"data_dir": f"{tmp_path}/ds/sunrgbd",
+                     "manifest_path": manifest, "input_height": 32,
+                     "input_width": 32},
+            "model": {"architecture": "geometry_aware",
+                      "init_features": 4},
+            "optimization": {"optimizer": "adam", "learning_rate": 1e-3,
+                             "lr_scheduler": "none",
+                             "lr_warmup_epochs": 0},
+            "training": {"num_epochs": 1, "batch_size": 4,
+                         "num_workers": 2, "use_amp": False},
+            "checkpointing": {"checkpoint_dir": str(tmp_path / "ck")},
+            "logging": {"log_dir": str(tmp_path / "logs"),
+                        "tensorboard": {"enabled": False}},
+        })
+        tr = Trainer(cfg, device=dev)
+        try:
+            warp_mod.launches = warp_mod.bwd_launches = 0
+            loss = tr.train_epoch(0)
+            launched = (warp_mod.launches, warp_mod.bwd_launches)
+            out[dev] = (loss, tr.validate(0), launched)
+        finally:
+            tr.close()
+    (cl, cm, _), (gl, gm, launched) = out["cpu"], out["cuda"]
+    assert launched == (5 * 3, 15 * 3)
+    assert gl == pytest.approx(cl, rel=1e-3), (gl, cl)
+    for k in cm:
+        rel = 1e-2 if k == "pcl_max_rot" else 1e-3
+        assert gm[k] == pytest.approx(cm[k], rel=rel, abs=1e-6), \
+            (k, gm[k], cm[k])

@@ -14,7 +14,7 @@ PACKAGE = REPO / "cadepth_tpu_torch"
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "cadepth_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cadepth_tpu"):
     sys.modules[name] = None
 import cadepth_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(cadepth_tpu_torch.__path__,
@@ -54,7 +54,7 @@ def test_sources_import_no_jax():
     """The code imports neither JAX nor the JAX package. Docstrings and
     comments do name the JAX modules each port module stands for, so the
     scan reads the code's syntax tree, not its text."""
-    forbidden = {"jax", "jaxlib", "flax", "optax", "cadepth_tpu"}
+    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "cadepth_tpu"}
     offenders = []
     for path in sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for name in _imported_roots(ast.parse(path.read_text())):

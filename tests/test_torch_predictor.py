@@ -131,8 +131,49 @@ def test_default_device_is_cuda_and_raises_without_it():
         Predictor(port_config.config_from_dict(RAW), batch_size=1)
 
 
+RAW_HOST_RAYS = dict(RAW, data={"input_height": H, "input_width": W,
+                                "compute_rays": False})
+
+
 def test_unported_ray_source_is_refused():
-    raw = dict(RAW, data={"input_height": H, "input_width": W,
-                          "compute_rays": False})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Predictor(port_config.config_from_dict(raw), device="cpu")
+    """With data.compute_rays false, requests carry host ray grids, so a
+    tensor already on the device (whose rays only the device could
+    derive) is refused, as JAX's Predictor refuses it."""
+    got = Predictor(port_config.config_from_dict(RAW_HOST_RAYS),
+                    batch_size=BATCH, device="cpu")
+    rgb = torch.zeros((BATCH, H, W, 3))
+    with pytest.raises(ValueError, match="compute_rays"):
+        got.predict(rgb)
+
+
+@pytest.mark.parametrize("n,given_k", [(BATCH, True), (3, True),
+                                       (2, False)])
+def test_host_ray_grids_match_jax(n, given_k):
+    """data.compute_rays false: the ray grids come from the host loader's
+    _compute_rays (the port's copy) for each request's K, k4 goes to the
+    device as before; depths against JAX's Predictor with the same
+    config and converted state (atol and rtol 1e-3), and the grids are
+    the ones the port's loader makes."""
+    from cadepth_tpu_torch.data.sunrgbd import SunRGBDLoader
+
+    rng = np.random.default_rng(31)
+    jcfg = jax_config.config_from_dict(RAW_HOST_RAYS)
+    model, _ = build_model_and_loss(jcfg)
+    k4 = np.array([[W, W, W / 2, H / 2]] * 2, np.float32)
+    params, stats = init_random(model, rng, jnp.zeros((2, H, W, 3)),
+                                jnp.zeros((2, H, W, 3)), jnp.asarray(k4))
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=stats, opt_state=())
+    want_p = JaxPredictor(jcfg, state, batch_size=BATCH)
+    got_p = Predictor(port_config.config_from_dict(RAW_HOST_RAYS),
+                      convert.to_torch(params, stats), batch_size=BATCH,
+                      device="cpu")
+    rgb = rng.uniform(0, 1, (n, H, W, 3)).astype(np.float32)
+    k = _k(rng, n) if given_k else None
+    batch = got_p._make_batch(rgb, k)
+    kk = batch["intrinsics"].numpy()
+    assert batch["rays"].shape == (BATCH, H, W, 3)
+    for i in range(BATCH):
+        np.testing.assert_array_equal(
+            batch["rays"][i].numpy(), SunRGBDLoader._compute_rays(kk[i], H, W))
+    _close(got_p.predict(rgb, k), want_p.predict(rgb, k))
