@@ -8,7 +8,9 @@
 ``--device`` (default ``cuda``) takes the place of the JAX CLI's
 ``--platform``. The checkpoint is one the port's trainer wrote
 (``training/checkpoint.py``); a JAX run's goes through
-``cadepth_tpu_torch.convert.train_state_to_torch`` first.
+``cadepth_tpu_torch.convert.train_state_to_torch`` first. With
+``data.device_resident`` and ``data.packed_dir`` the sweep reads the pack
+held in device memory (``data/device_resident.py``).
 """
 
 from __future__ import annotations
@@ -57,10 +59,6 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, experiment=args.experiment or None)
-    if cfg.data.device_resident and cfg.data.packed_dir:
-        raise NotImplementedError(
-            "evaluating from a GPU-resident dataset is not ported yet "
-            "(ROADMAP.md Queue 1, item 3)")
     model, _ = build_model_and_loss(cfg, device=device)
 
     loader_kw = dict(
@@ -101,7 +99,10 @@ def main(argv=None) -> int:
         max_depth=cfg.validation.max_depth,
         batch_size=args.batch_size or 1,
         colormap=args.colormap))
-    result = evaluator.evaluate(loader, max_samples=args.max_samples or None)
+    result = evaluator.evaluate(
+        loader, max_samples=args.max_samples or None,
+        device_resident=bool(cfg.data.device_resident and
+                             cfg.data.packed_dir))
 
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,13 +1,12 @@
 """Model evaluation: per-sample metrics, timing, aggregation, reports (port
-of ``cadepth_tpu.evaluation.evaluator``, its host-pipeline branch).
+of ``cadepth_tpu.evaluation.evaluator``).
 
 Warmup iterations, then timed per-batch inference with a device fence
 (``torch.cuda.synchronize`` on a card, where JAX blocks on the result),
 per-sample metric records, mean/std/median aggregation, FPS, the
 parameter count and model size, CSV export and a text report.
-
-Sweeping a GPU-resident dataset (the JAX evaluator's
-``device_resident=True``) is ROADMAP.md Queue 1, item 3, and raises.
+``device_resident=True`` sweeps a pack held in device memory
+(``data/device_resident.py``) instead of the host pipeline.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 from torch import nn
 
 from cadepth_tpu_torch.config import Config
@@ -79,19 +79,22 @@ class ModelEvaluator:
                  max_samples: Optional[int] = None,
                  device_resident: bool = False) -> EvaluationResult:
         """Warmup, timed per-batch inference, per-sample metrics
-        (`evaluator.h:142-226,281-302`)."""
-        if device_resident:
-            raise NotImplementedError(
-                "evaluating from a GPU-resident dataset is not ported yet "
-                "(ROADMAP.md Queue 1, item 3)")
+        (`evaluator.h:142-226,281-302`).
+
+        ``device_resident`` uploads the (packed) dataset to the device once
+        and sweeps it with gathers there — the same exact full sweep, no
+        per-batch copy of images to the device."""
         ecfg = self.eval_cfg
         bsz = max(ecfg.batch_size, 1)
-        pipe = InputPipeline(loader, batch_size=bsz, shuffle=False,
-                             drop_remainder=False, max_samples=max_samples,
-                             device=self.device)
-        # Warmup (evaluator.h:154-157)
-        warm = device_batch(loader.get_batch(range(min(bsz, len(loader)))),
-                            self.device)
+        if device_resident:
+            pipe, warm = self._device_sweep(loader, bsz, max_samples)
+        else:
+            pipe = InputPipeline(loader, batch_size=bsz, shuffle=False,
+                                 drop_remainder=False,
+                                 max_samples=max_samples, device=self.device)
+            # Warmup (evaluator.h:154-157)
+            warm = device_batch(
+                loader.get_batch(range(min(bsz, len(loader)))), self.device)
         for _ in range(ecfg.warmup_iterations):
             self.predict_fn(warm)
             hard_sync(self.device)
@@ -131,6 +134,56 @@ class ModelEvaluator:
             model_size_mb=num_params * 4 / (1024.0 * 1024.0),
             timestamp=time.strftime("%Y-%m-%d %H:%M:%S"),
         )
+
+    def _device_sweep(self, loader, bsz: int, max_samples: Optional[int]):
+        """(the batches of an exact identity-order sweep of ``loader``'s
+        pack held on the device, a warm-up batch)."""
+        from cadepth_tpu_torch.data.device_resident import (
+            ChunkedDeviceDataset,
+            DeviceDataset,
+        )
+
+        # Honor the training-side capacity knobs: chunked streaming for
+        # packs bigger than device memory, quantized storage for 3.2x less
+        # of it. Metrics through the quantized path differ only by the
+        # documented encodings (depth stored mm-exact).
+        chunk = self.cfg.data.device_resident_chunk_samples
+        ds_kw = {"device": self.device}
+        if self.cfg.data.device_resident_dtype == "quantized":
+            ds_kw.update(rgb_dtype=torch.uint8, depth_dtype=torch.uint16)
+        n = len(loader) if max_samples is None \
+            else min(len(loader), max_samples)
+        if chunk > 0:
+            cds = ChunkedDeviceDataset(loader, chunk, **ds_kw)
+            # exact sweep: identity order, padded-gather tail trimmed by
+            # batches() itself, every sample once
+            pipe = cds.batches(bsz, shuffle=False, epoch=0, augment=False,
+                               drop_remainder=False, max_samples=n)
+            # warm against the sweep's EFFECTIVE chunk (batches() rounds
+            # the chunk to a batch multiple); grow the staging slots to it
+            # first, as batches() does, since this _upload bypasses it
+            c_eff = min(max(cds.chunk_samples - cds.chunk_samples % bsz,
+                            bsz), n)
+            cds._ensure_slots(c_eff)
+            buf = cds._upload(np.arange(c_eff), slot=0, block=True)
+            warm = cds._gather(buf["rgb"], buf["depth"], buf["k"],
+                               buf["gids"], np.arange(bsz) % c_eff)
+            return pipe, warm
+        ds = DeviceDataset(loader, **ds_kw)
+        # the sweep's indices, copied once: each batch is a slice
+        positions = torch.arange(n, device=self.device)
+
+        def device_sweep():
+            for s in range(0, n, bsz):
+                idx = positions[s:s + bsz]
+                valid = idx.shape[0]
+                if valid < bsz:  # pad the gather, trim the outputs
+                    idx = torch.cat([idx, idx.new_zeros(bsz - valid)])
+                b = ds._gather(idx)
+                yield ({k: v[:valid] for k, v in b.items()}
+                       if valid < bsz else b)
+
+        return device_sweep(), ds._gather(np.arange(min(bsz, n)))
 
     # -- outputs ------------------------------------------------------------
 

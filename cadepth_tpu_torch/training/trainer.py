@@ -13,9 +13,12 @@ boundary after SIGTERM.
 The JAX state's ``step`` is ``TrainStep.updates`` (micro-steps), and the
 learning rate it logs is ``schedule(step // grad_accum_steps)``.
 
-Not ported yet, and refused: ``data.device_resident`` (ROADMAP.md Queue
-1, item 3), ``hardware.spatial_parallel > 1`` and data parallelism over
-more than one visible card (item 8).
+With ``data.device_resident`` the batches come from the GPU-resident
+feed (``data/device_resident.py``): the pack uploaded once, each batch
+gathered and augmented on the device.
+
+Not ported yet, and refused: ``hardware.spatial_parallel > 1`` and data
+parallelism over more than one visible card (ROADMAP.md Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -95,11 +98,6 @@ def build_loaders(cfg: Config):
 
 def check_ported(cfg: Config, device: torch.device) -> None:
     """Raise for the options of the JAX trainer the port lacks."""
-    if cfg.data.device_resident:
-        raise NotImplementedError(
-            "data.device_resident (the GPU-resident feed) is not ported yet "
-            "(ROADMAP.md Queue 1, item 3); set it to false to train from "
-            "the host pipeline")
     if cfg.hardware.spatial_parallel > 1:
         raise NotImplementedError(
             "hardware.spatial_parallel > 1 is not ported yet (ROADMAP.md "
@@ -142,8 +140,67 @@ class Trainer:
 
         # -- pipelines
         debug_limits = getattr(cfg, "_debug_limits", None) or {}
-        self._build_host_pipes(debug_limits)
+        if cfg.data.device_resident:
+            self._build_device_pipes(debug_limits)
+        else:
+            self._build_host_pipes(debug_limits)
         self._finish_init()
+
+    def _build_device_pipes(self, debug_limits) -> None:
+        """The pack held in device memory, batches gathered and augmented
+        on the device (data.device_resident).
+
+        Requires a pack at the target resolution; the train/val splits
+        share one upload when their filtered rows coincide (the default
+        non-filtering quirk makes them identical)."""
+        from cadepth_tpu_torch.data.device_resident import (
+            ChunkedDeviceDataset,
+            DeviceDataset,
+            DevicePipeline,
+        )
+        from cadepth_tpu_torch.data.packed import PackedSunRGBDLoader
+
+        cfg = self.cfg
+        if not isinstance(self.train_loader, PackedSunRGBDLoader):
+            raise ValueError(
+                "data.device_resident needs data.packed_dir (build one "
+                "with cli/pack_dataset.py)")
+        # "quantized" = the dataset's native encodings (rgb uint8, depth
+        # uint16 millimeters): 3.2x less device memory than fp32, and depth
+        # stores its exact mm value for mm-sourced packs — unlike bfloat16,
+        # which is why bf16 storage never applies to the ground truth.
+        if cfg.data.device_resident_dtype == "quantized":
+            ds_kw = dict(rgb_dtype=torch.uint8, depth_dtype=torch.uint16)
+        else:
+            ds_kw = dict(rgb_dtype=(
+                torch.bfloat16 if cfg.data.device_resident_dtype ==
+                "bfloat16" else torch.float32), depth_dtype=torch.float32)
+        ds_kw["device"] = self.device
+        chunk = cfg.data.device_resident_chunk_samples
+        if chunk > 0:
+            # pack bigger than device memory: rotate it through two chunk
+            # buffers (same epoch semantics as fully-resident, see the class)
+            train_ds = ChunkedDeviceDataset(self.train_loader, chunk, **ds_kw)
+            val_ds = ChunkedDeviceDataset(self.val_loader, chunk, **ds_kw)
+        else:
+            train_ds = DeviceDataset(self.train_loader, **ds_kw)
+            if [s["row"] for s in self.val_loader.sample_paths] == \
+                    list(train_ds.rows):
+                # one upload serves both splits; the explicit constructor
+                # keeps split/augmentation identity per instance
+                val_ds = DeviceDataset(self.val_loader,
+                                       share_storage_from=train_ds)
+            else:
+                val_ds = DeviceDataset(self.val_loader, **ds_kw)
+        self.train_pipe = DevicePipeline(
+            train_ds, cfg.training.batch_size, shuffle=True,
+            seed=cfg.experiment.seed,
+            max_samples=debug_limits.get("num_train_samples"))
+        self.val_pipe = DevicePipeline(
+            val_ds, cfg.training.batch_size, shuffle=False,
+            seed=cfg.experiment.seed,
+            max_samples=debug_limits.get(
+                "num_val_samples", cfg.training.max_val_samples))
 
     def _build_host_pipes(self, debug_limits) -> None:
         cfg = self.cfg

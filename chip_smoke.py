@@ -114,8 +114,27 @@ Phases, each fatal on failure:
    time and overlap; --resume latest for a third epoch (epoch 2, step and
    optimizer updates carried over, a finite loss); the evaluate CLI on
    best/ (the capped validation set);
-20. one JSON line describing every kernel, the train steps, the
-   Predictors and the trainer loop; last, the ok line.
+20. the GPU-resident feed: 512 seeded structured scenes at 240x320 (128
+   a sensor) packed as in phase 19; DeviceDataset's batches on the card
+   against the same class on the CPU (the same bits) over two epochs, in
+   f32, bf16 and quantized storage, augmented (crop 0.6-1.0 as the b32
+   config ships it, flip, jitter) and not, the f32 ones also against
+   fast_batch; ChunkedDeviceDataset (chunks of 128, thread and serial)
+   against DeviceDataset on the card; one batch's gather, decode and
+   augmentation in device time against its bound; the upload's rate and
+   nbytes(); the two-pass warp's forward and backward at batch 32 against
+   their plain versions at the five decoder levels (phases 3 and 6's
+   checks and tolerances) and their times; the train CLI on
+   configs/train_config_flagship_b32.yaml (f=64, 240x320, batch 32, bf16,
+   data.device_resident) for 2 epochs from the pack held on the card,
+   counted (5 forward launches storing V and 15 backward launches a step),
+   the loop's p50/p95/images/s, in turns with the bare step on held
+   batches, the busy share and peak memory; --resume latest for a third
+   epoch; the evaluate CLI on best/ sweeping the card and the host (equal
+   per-sample metrics); configs/train_config.yaml at batch 4 fed from the
+   card against phase 19's host pipeline, in turns;
+21. one JSON line describing every kernel, the train steps, the
+   Predictors, the trainer loop and the device feed; last, the ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -2286,19 +2305,20 @@ def deep_merge(base: dict, extra: dict) -> dict:
     return base
 
 
-def write_pack(root: pathlib.Path, args) -> dict:
-    """Phase 19's data: seeded structured scenes (a floor and boxes, RGB
-    keyed to depth) at the training size, spread over the four sensors'
-    intrinsics, written as a SUN RGB-D tree by the port's generator (cv2
-    PNGs) and packed once, f32, by the port's pack_dataset."""
+def write_pack(root: pathlib.Path, args, per_sensor: int, seed: int) -> dict:
+    """Phases 19 and 20's data: ``per_sensor`` seeded structured scenes (a
+    floor and boxes, RGB keyed to depth) a sensor at the training size,
+    spread over the four sensors' intrinsics, written as a SUN RGB-D tree
+    by the port's generator (cv2 PNGs) and packed once, f32, by the port's
+    pack_dataset."""
     from cadepth_tpu_torch.data.packed import pack_dataset
     from cadepth_tpu_torch.data.synthetic import generate_synthetic_dataset
 
     h, w = args.height, args.width
     t0 = time.perf_counter()
     manifest = generate_synthetic_dataset(
-        str(root / "data"), images_per_sensor=args.loop_scenes,
-        seed=args.seed + 19, structured=True,
+        str(root / "data"), images_per_sensor=per_sensor,
+        seed=seed, structured=True,
         sensor_specs={s: (w, h, w, h) for s in SENSORS})
     meta = pack_dataset(str(root / "data" / "sunrgbd"), manifest,
                         str(root / "pack"), h, w, num_threads=8)
@@ -2362,8 +2382,10 @@ class LoopProbe:
                 "epoch": e, "step_before": before[0],
                 "updates_before": before[1],
                 "wall_s": time.perf_counter() - t0,
-                "wait_s": trainer.train_pipe.wait_seconds,
-                "producer": trainer.train_pipe.producer,
+                # the device feed has no queue and no producer
+                "wait_s": getattr(trainer.train_pipe, "wait_seconds", 0.0),
+                "producer": getattr(trainer.train_pipe, "producer",
+                                    "device"),
                 "first": first, "steps": len(probe.stamps) - first,
                 "loss": loss})
             return loss
@@ -2535,7 +2557,7 @@ def trainer_loop(device, args, card: str, bare_p50):
     root = pathlib.Path(tempfile.mkdtemp(prefix="phase19_",
                                          dir=ROOT / "build"))
     try:
-        meta = write_pack(root, args)
+        meta = write_pack(root, args, args.loop_scenes, args.seed + 19)
         name = "geometry_aware_full"
         argv = ["--experiment", name, "--device", device.type]
 
@@ -2750,6 +2772,513 @@ def trainer_loop(device, args, card: str, bare_p50):
         shutil.rmtree(root, ignore_errors=True)
 
 
+
+# phase 20: the GPU-resident feed
+B32_CONFIG = ROOT / "configs" / "train_config_flagship_b32.yaml"
+# pairs of loop and bare-step blocks at batch 32; of device-fed and
+# host-fed loop blocks at batch 4
+FEED_PAIRS, FEED_B4_PAIRS = 3, 5
+FEED_STORAGES = ("float32", "bfloat16", "quantized")
+
+
+def feed_storage(name: str) -> dict:
+    import torch
+
+    return {"float32": {},
+            "bfloat16": {"rgb_dtype": torch.bfloat16},
+            "quantized": {"rgb_dtype": torch.uint8,
+                          "depth_dtype": torch.uint16}}[name]
+
+
+def feed_yaml(root: pathlib.Path, args, epochs: int,
+              device_resident: bool = True) -> pathlib.Path:
+    """configs/train_config_flagship_b32.yaml with phase 20's changes: the
+    pack, the epochs, checkpoints and logs under ``root``, validation
+    capped. The width, size and batch are the shipped ones on the card
+    (checked); a CPU rehearsal shrinks them."""
+    import yaml
+
+    shipped = yaml.safe_load(B32_CONFIG.read_text())
+    raw = deep_merge(yaml.safe_load(B32_CONFIG.read_text()), {
+        "data": {"packed_dir": str(root / "pack"),
+                 "device_resident": device_resident,
+                 "input_height": args.height, "input_width": args.width},
+        "model": {"init_features": args.init_features},
+        "training": {"num_epochs": epochs, "batch_size": args.feed_batch,
+                     "max_val_samples": args.feed_val},
+        "checkpointing": {"checkpoint_dir": str(root / "ckpts")},
+        "logging": {"log_dir": str(root / "logs")},
+    })
+    if args.height == 240:
+        for section, key in (("data", "input_height"),
+                             ("data", "input_width"),
+                             ("model", "init_features"),
+                             ("training", "batch_size")):
+            if raw[section][key] != shipped[section][key]:
+                raise AssertionError(f"{section}.{key} is not the shipped "
+                                     f"{shipped[section][key]}")
+    path = root / f"feed_{epochs}_{int(device_resident)}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def batch_diff(got, want):
+    """(largest |difference|, differing elements, batches) of two streams
+    of batches, ``want`` on the CPU."""
+    worst, differing, n = 0.0, 0, 0
+    for g, w in zip(got, want, strict=True):
+        for k, v in w.items():
+            a = g[k].cpu()
+            if a.shape != v.shape or a.dtype != v.dtype:
+                raise AssertionError(f"{k}: {tuple(a.shape)} {a.dtype} "
+                                     f"against {tuple(v.shape)} {v.dtype}")
+            worst = max(worst, float((a - v).abs().max()))
+            differing += int((a != v).sum())
+        n += 1
+    return worst, differing, n
+
+
+def feed_batches(device, args, card: str, pack: pathlib.Path):
+    """Phase 20b: DeviceDataset's batches on the card against the same
+    class on the CPU, two epochs, each storage, augmented and not; the
+    f32 ones also against fast_batch; the chunked feed against the
+    resident one on the card; the device time of one batch's gather,
+    decode and augmentation against its bound; the upload's rate and
+    each storage's nbytes()."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from cadepth_tpu_torch.data.device_resident import (ChunkedDeviceDataset,
+                                                        DeviceDataset)
+    from cadepth_tpu_torch.data.packed import PackedSunRGBDLoader
+    from cadepth_tpu_torch.data.sunrgbd import AugmentationConfig
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal, not device numbers]"
+    aug = yaml.safe_load(B32_CONFIG.read_text())["data"]["augmentation"]
+    cfg = AugmentationConfig(
+        crop_scale_min=aug["crop_scale_min"],
+        crop_scale_max=aug["crop_scale_max"],
+        horizontal_flip_prob=aug["flip_probability"],
+        brightness_delta=aug["brightness"], contrast_delta=aug["contrast"],
+        random_seed=args.seed + 20)
+    kw = dict(split="train", compute_rays=True, rays_on_device=True)
+    loader = PackedSunRGBDLoader(str(pack), **kw)
+    loader.enable_augmentation(cfg)
+    plain = PackedSunRGBDLoader(str(pack), **kw)
+    bsz, seed = args.feed_batch, args.seed + 20
+    h, w = loader.target_height, loader.target_width
+    out = {"batch": bsz, "samples": len(loader), "storages": {}}
+    if cuda:
+        torch.empty(1, device=device)   # the context, outside the timing
+        torch.cuda.synchronize()
+    for name in FEED_STORAGES:
+        # the upload: the host's read of the pack, encoding or conversion,
+        # and the copy to the card
+        t0 = time.perf_counter()
+        card_ds = DeviceDataset(loader, device=device, **feed_storage(name))
+        if cuda:
+            torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        cpu_ds = DeviceDataset(loader, device="cpu", **feed_storage(name))
+        row = {"nbytes": card_ds.nbytes(), "upload_s": upload_s,
+               "upload_gb_per_s": card_ds.nbytes() / upload_s / 1e9}
+        for epoch in (0, 1):
+            for augment in (False, True):
+                args_ = dict(seed=seed, epoch=epoch, augment=augment,
+                             drop_remainder=False)
+                diff = batch_diff(card_ds.batches(bsz, **args_),
+                                  cpu_ds.batches(bsz, **args_))
+                row[f"epoch{epoch}_{'aug' if augment else 'plain'}"] = diff
+                if diff[1]:
+                    raise AssertionError(
+                        f"{name} storage, epoch {epoch}, augment {augment}: "
+                        f"the card's batches differ from the CPU's in "
+                        f"{diff[1]} elements (max {diff[0]})")
+        if name == "float32":
+            for epoch in (0, 1):
+                order = np.arange(len(plain))
+                np.random.default_rng([seed, epoch]).shuffle(order)
+                want = [{k: torch.from_numpy(v) for k, v in plain.fast_batch(
+                    order[s:s + bsz]).items()}
+                    for s in range(0, len(order), bsz)]
+                diff = batch_diff(card_ds.batches(
+                    bsz, seed=seed, epoch=epoch, drop_remainder=False), want)
+                row[f"epoch{epoch}_vs_fast_batch"] = diff
+                if diff[1]:
+                    raise AssertionError(f"f32 batches against fast_batch: "
+                                         f"{diff}")
+        # one batch's gather, decode and augmentation on the device
+        idx = torch.arange(bsz, device=device)
+        per_sample = (card_ds.rgb.element_size() * 3
+                      + card_ds.depth.element_size()) * h * w + 9 * 4
+        # read each sample, its index and draws once; write rgb, depth, K
+        # and k4 once in f32
+        moved = bsz * (per_sample + 8 + 6 * 4 + (4 * h * w + 13) * 4)
+        row["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        row["bytes"] = moved
+        for augment in (False, True):
+            key = "aug" if augment else "plain"
+            if cuda:
+                row[f"{key}_ms"], per_kernel = device_ms(
+                    lambda: card_ds._gather(idx, 1, augment), 20)
+                row[f"{key}_kernels"] = len(per_kernel)
+            else:
+                row[f"{key}_ms"], row[f"{key}_kernels"] = None, None
+        out["storages"][name] = row
+        log(f"  {name} storage: nbytes {row['nbytes'] / 2**20:.1f} MiB, "
+            f"uploaded (host read, conversion, copy) in "
+            f"{row['upload_s']:.2f} s = {row['upload_gb_per_s']:.2f} GB/s; "
+            f"card against CPU over 2 epochs, plain and augmented: "
+            + ", ".join(f"{k} max|diff| {v[0]} ({v[2]} batches)"
+                        for k, v in row.items() if k.startswith("epoch")))
+        log(f"  [{card}] {name} storage, one batch of {bsz} on the device: "
+            + "; ".join(
+                f"{'augmented' if k == 'aug' else 'gather and decode'} "
+                + (f"{row[k + '_ms']:.4f} ms device ({row[k + '_kernels']} "
+                   f"kernels, torch.profiler)" if row[k + "_ms"] else
+                   "not measured")
+                for k in ("plain", "aug"))
+            + f"; bound {row['bound_ms'] * 1e3:.1f} us ({moved / 1e6:.1f} "
+            f"MB at 3.35 TB/s){unit}")
+        del card_ds, cpu_ds
+    for name in ("float32", "quantized"):
+        resident = DeviceDataset(loader, device=device, **feed_storage(name))
+        for prefetch in ("thread", "serial"):
+            chunked = ChunkedDeviceDataset(loader, args.feed_chunk,
+                                           device=device,
+                                           **feed_storage(name))
+            for epoch in (0, 1):
+                args_ = dict(seed=seed, epoch=epoch, augment=True,
+                             drop_remainder=False)
+                diff = batch_diff(chunked.batches(bsz, prefetch=prefetch,
+                                                  **args_),
+                                  ({k: v.cpu() for k, v in b.items()}
+                                   for b in resident.batches(bsz, **args_)))
+                out[f"chunked_{name}_{prefetch}_epoch{epoch}"] = diff
+                if diff[1]:
+                    raise AssertionError(f"chunked ({name}, {prefetch}) "
+                                         f"against resident: {diff}")
+            del chunked
+        del resident
+    chunks = -(-len(loader) // args.feed_chunk)
+    log(f"  ChunkedDeviceDataset ({args.feed_chunk} samples a chunk, "
+        f"{chunks} chunks an epoch; f32 and quantized; thread and serial) "
+        f"against DeviceDataset on {device.type}, 2 augmented epochs: "
+        + ", ".join(f"{k[8:]} {v[0]}" for k, v in out.items()
+                    if k.startswith("chunked_")))
+    out["chunks_per_epoch"] = chunks
+    return out
+
+
+def check_b32_kernels(device, args, card: str):
+    """Phase 20c: the two-pass kernels at batch 32: forward and backward
+    against their plain versions at each decoder level (phases 3 and 6's
+    checks and tolerances), and their device times per level."""
+    import copy
+
+    import torch
+
+    shapes = decoder_shapes(args.feed_batch, args.height, args.width,
+                            args.init_features)
+    with torch.no_grad():
+        fwd = check_kernel(device, shapes, args.seed + 21)
+    bwd = check_backward(device, shapes, args.seed + 22)
+    b32 = copy.copy(args)
+    b32.train_batch, b32.timing_iters = args.feed_batch, args.feed_iters
+    rows = bwd_times(device, b32, card)
+    log(f"  [{card}] two_pass_warp at batch {args.feed_batch} over the five "
+        "levels: " + ", ".join(
+            f"{k} {v:.4f} ms" for k in ("train_fwd_ms", "kernel_ms",
+                                        "bound_ms", "kernel_host_ms")
+            if (v := level_sum(rows, k)) is not None))
+    return {"fwd_max_abs_err": fwd, "bwd_max_abs_err": bwd, "levels": rows}
+
+
+def bare_step_ms(trainer, batches, steps: int):
+    """p50 (ms) of ``steps`` bare train steps on held batches: the host
+    clock from a step's call to a synchronize after it."""
+    import torch
+
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        trainer.train_step(batches[i % len(batches)])
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def busy_share(trainer, steps: int = 3):
+    """The device's busy time and share of the wall time over ``steps``
+    loop steps fed by the trainer's own pipeline (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = iter(trainer.train_pipe)
+    trainer.train_step(next(it))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(next(it))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1000.0 / steps
+    rows = device_rows(prof, steps)
+    busy = sum(r[0] for r in rows)
+    return {"busy_ms": busy, "wall_ms": wall,
+            "busy_share": busy / wall if wall else None,
+            "kernels_per_step": sum(r[1] for r in rows)}
+
+
+def feed_train(device, args, card: str, root: pathlib.Path):
+    """Phase 20d: the train CLI on configs/train_config_flagship_b32.yaml
+    from the pack held on the card: two epochs, counted; the loop's times,
+    in turns with the bare step on held batches; the busy share and peak
+    memory; --resume latest for a third epoch; the evaluate CLI on best/
+    with the device sweep and the host sweep."""
+    import csv
+    import math
+
+    import torch
+
+    from cadepth_tpu_torch.cli import evaluate as evaluate_cli
+    from cadepth_tpu_torch.cli import train as train_cli
+    from cadepth_tpu_torch.data.device_resident import DevicePipeline
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal, not device numbers]"
+    argv = ["--device", device.type]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # the main path: two epochs through the train CLI, counted
+    reset_warp_counts()
+    with LoopProbe() as run1:
+        rc = train_cli.main(["--config", str(feed_yaml(root, args, 2))]
+                            + argv)
+    counts = warp_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if rc != 0:
+        raise AssertionError(f"the train CLI exited {rc}")
+    trainer = run1.trainers[0]
+    if not isinstance(trainer.train_pipe, DevicePipeline) or \
+            trainer.val_pipe.dataset.rgb is not trainer.train_pipe.dataset.rgb:
+        raise AssertionError("the Trainer did not take the resident feed "
+                             "with one upload for both splits")
+    steps = sum(ep["steps"] for ep in run1.epochs)
+    per_epoch = len(trainer.train_pipe)
+    val_batches = len(trainer.val_pipe)
+    vis = min(trainer.cfg.training.num_vis_samples, len(trainer.val_loader))
+    panels = 2 if vis else 0
+    n_pcl = len(pcl_layers(trainer.model))
+    forwards_no_v = 2 * val_batches + panels
+    want = {"v_stores": n_pcl * steps if cuda else 0,
+            "bwd_launches": 3 * n_pcl * steps if cuda else 0,
+            "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
+            "fused": 0}
+    bsz = trainer.cfg.training.batch_size
+    log(f"  train CLI on {B32_CONFIG.relative_to(ROOT)}: "
+        f"{len(run1.epochs)} epochs of {per_epoch} steps (batch {bsz}, "
+        f"{len(trainer.train_loader)} train samples, augmented on the "
+        f"device), validation {val_batches} batches an epoch from the same "
+        f"upload, {vis} panels an epoch; two_pass_warp over the run: "
+        f"{counts['launches']} forward launches ({counts['v_stores']} "
+        f"storing V, {n_pcl} a step), {counts['bwd_launches']} backward "
+        f"launches ({3 * n_pcl} a step), fused_warp {counts['fused']}; "
+        f"expected {want}")
+    if [ep["steps"] for ep in run1.epochs] != [per_epoch] * 2:
+        raise AssertionError(f"epochs ran {run1.epochs} steps")
+    if counts != want:
+        raise AssertionError(f"warp launches {counts} != {want}")
+    losses = [float(x) for x in run1.losses]
+    ckpt_dir = root / "ckpts" / trainer.cfg.experiment.name
+    step_dirs = sorted(p.name for p in ckpt_dir.glob("step_*"))
+    log(f"  {len(losses)} step losses, first {losses[0]:.5g}, last "
+        f"{losses[-1]:.5g}; checkpoints {step_dirs} and best/")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        raise AssertionError(f"step losses {losses}")
+    if not step_dirs or not (ckpt_dir / "best" / "state.pt").exists():
+        raise AssertionError(f"checkpoints: {step_dirs}")
+
+    times = sorted(run1.step_ms())
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(round(0.95 * (len(times) - 1))))]
+    mean = sum(times) / len(times)
+    out = {"batch": bsz, "steps": steps, "warp_counts": counts,
+           "step_p50_ms": p50, "step_p95_ms": p95, "step_mean_ms": mean,
+           "images_per_sec": bsz * 1000.0 / mean, "steps_timed": len(times),
+           "epoch_wall_s": [ep["wall_s"] for ep in run1.epochs],
+           "peak_bytes": peak, "samples": len(trainer.train_loader)}
+    log(f"  [{card}] device-fed loop, batch {bsz}: step p50 {p50:.3f} ms, "
+        f"p95 {p95:.3f} ms, mean {mean:.3f} ms, "
+        f"{out['images_per_sec']:.2f} images/s ({len(times)} steps, host "
+        f"clock from step to step); epochs "
+        + ", ".join(f"{ep['wall_s']:.2f} s" for ep in run1.epochs)
+        + (f"; peak device memory {peak / 2**30:.3f} GiB" if peak else "")
+        + unit)
+    # the loop body fed by the device pipeline against the bare step on
+    # held batches, in turns
+    n = max(min(12, per_epoch - 2), 2)
+    held = []
+    for b in trainer.train_pipe:
+        held.append(b)
+        if len(held) == n:
+            break
+    pairs = [(fed_step_ms(trainer, trainer.train_pipe, n)[0],
+              bare_step_ms(trainer, held, n)) for _ in range(FEED_PAIRS)]
+    del held
+    out["loop_bare_pairs_p50_ms"] = pairs
+    diffs = sorted(a - b for a, b in pairs)
+    out["loop_minus_bare_median_ms"] = diffs[len(diffs) // 2]
+    log(f"  [{card}] loop body fed by the device pipeline ({n} steps a "
+        "block, p50 ms) / bare TrainStep on held batches, to a "
+        "synchronize, in turns: "
+        + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in pairs)
+        + f"; median difference {out['loop_minus_bare_median_ms']:.3f} ms"
+        + unit)
+    if cuda:
+        out["profile"] = busy_share(trainer)
+        prof = out["profile"]
+        # the profiler slows the host: its wall is no measure of the loop's
+        prof["busy_of_loop_p50"] = prof["busy_ms"] / p50
+        log(f"  [{card}] profile of 3 device-fed loop steps "
+            f"(torch.profiler): device busy {prof['busy_ms']:.3f} ms of "
+            f"{prof['wall_ms']:.3f} ms profiled wall "
+            f"({prof['busy_share']:.1%}), {prof['busy_of_loop_p50']:.1%} "
+            f"of the unprofiled loop's p50; {prof['kernels_per_step']} "
+            "kernels a step")
+    cfg = trainer.cfg
+    del trainer, run1
+
+    # resume from the latest checkpoint for a third epoch
+    with LoopProbe() as run2:
+        rc = train_cli.main(["--config", str(feed_yaml(root, args, 3)),
+                             "--resume", "latest"] + argv)
+    if rc != 0:
+        raise AssertionError(f"the resumed train CLI exited {rc}")
+    ep = run2.epochs[0]
+    first = float(run2.losses[0])
+    log(f"  resumed: started at epoch {ep['epoch']} with step "
+        f"{ep['step_before']} (the first run took {steps}); first loss "
+        f"{first:.5g}")
+    if ep["epoch"] != 2 or ep["step_before"] != steps or \
+            not math.isfinite(first):
+        raise AssertionError(f"resume: {ep}, first loss {first}")
+    out["resume"] = {"start_epoch": ep["epoch"], "step": ep["step_before"],
+                     "first_loss": first}
+    del run2
+
+    # the evaluate CLI on best/, sweeping the card and the host
+    rows = {}
+    for device_resident in (True, False):
+        dest = root / f"eval_{int(device_resident)}"
+        rc = evaluate_cli.main(
+            ["--checkpoint", "best", "--config",
+             str(feed_yaml(root, args, 3, device_resident)),
+             "--output", str(dest), "--max-samples", str(args.feed_val),
+             "--batch-size", str(bsz), "--num-vis", "1"] + argv)
+        if rc != 0:
+            raise AssertionError(f"the evaluate CLI exited {rc}")
+        rows[device_resident] = list(csv.reader(
+            (dest / "per_sample_metrics.csv").open()))
+    same = rows[True] == rows[False]
+    abs_rel = sum(float(r[1]) for r in rows[True][1:]) / \
+        max(len(rows[True]) - 1, 1)
+    log(f"  evaluate CLI on best/: {len(rows[True]) - 1} samples swept from "
+        f"the card and {len(rows[False]) - 1} by the host pipeline, "
+        f"per-sample metrics equal: {same}; mean abs_rel {abs_rel:.5g}")
+    if not same or len(rows[True]) - 1 != args.feed_val:
+        raise AssertionError("the device sweep's per-sample metrics differ "
+                             "from the host sweep's")
+    out["eval"] = {"samples": len(rows[True]) - 1, "abs_rel": abs_rel,
+                   "device_equals_host": same,
+                   "config": cfg.experiment.name}
+    return out
+
+
+def feed_b4_pairs(device, args, card: str, root: pathlib.Path):
+    """Phase 20e: the shipped configs/train_config.yaml (geometry_aware_full,
+    batch 4) with data.device_resident on the same pack: its loop body fed
+    by the device pipeline and by phase 19's host pipeline (4 producer
+    threads, augmentation on the host), in turns, the same steps."""
+    import yaml
+
+    from cadepth_tpu_torch.config import load_config
+    from cadepth_tpu_torch.data.pipeline import InputPipeline
+    from cadepth_tpu_torch.training.trainer import Trainer
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal, not device numbers]"
+    raw = deep_merge(yaml.safe_load(loop_yaml(root, args, 1).read_text()),
+                     {"data": {"device_resident": True},
+                      "logging": {"tensorboard": {"enabled": False}}})
+    path = root / "feed_b4.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    trainer = Trainer(load_config(str(path),
+                                  experiment="geometry_aware_full"),
+                      device=device)
+    try:
+        cfg = trainer.cfg
+        host = InputPipeline(trainer.train_loader, cfg.training.batch_size,
+                             shuffle=True, seed=cfg.experiment.seed,
+                             num_threads=4, device=device)
+        n = max(min(20, len(host) - 2), 2)
+        fed_step_ms(trainer, trainer.train_pipe, n)   # warm-up
+        blocks = [(fed_step_ms(trainer, trainer.train_pipe, n),
+                   fed_step_ms(trainer, host, n))
+                  for _ in range(FEED_B4_PAIRS)]
+    finally:
+        trainer.close()
+    pairs = [(d[0], h[0]) for d, h in blocks]
+    diffs = sorted(h - d for d, h in pairs)
+    waits = sorted(h[2] for _, h in blocks)
+    out = {"batch": cfg.training.batch_size, "steps_a_block": n,
+           "device_host_pairs_p50_ms": pairs,
+           "host_minus_device_median_ms": diffs[len(diffs) // 2],
+           "host_slower_pairs": sum(x > 0 for x in diffs),
+           "host_queue_wait_ms": waits[len(waits) // 2]}
+    log(f"  [{card}] batch {out['batch']} loop body ({n} steps a block, "
+        "p50 ms), fed from the card / by the host pipeline, in turns: "
+        + ", ".join(f"{d:.3f} / {h:.3f}" for d, h in pairs)
+        + f"; host - device, median of {FEED_B4_PAIRS} pairs "
+        f"{out['host_minus_device_median_ms']:.3f} ms "
+        f"({out['host_slower_pairs']} of {FEED_B4_PAIRS} pairs slower on "
+        f"the host feed; its consumer waited {out['host_queue_wait_ms']:.3f} "
+        f"ms a step on the queue, median){unit}")
+    return out
+
+
+def device_feed(device, args, card: str):
+    """Phase 20: the GPU-resident feed. A pack of seeded structured scenes
+    at the training size; the feed's batches on the card against the CPU
+    and the chunked feed against the resident one; the two-pass kernels
+    at batch 32; the flagship's batch-32 config trained, resumed and
+    evaluated from the card; batch 4 fed from the card against the host
+    pipeline."""
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase20_",
+                                         dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        meta = write_pack(root, args, args.feed_scenes, args.seed + 20)
+        out = {"pack": {"samples": meta["num_samples"],
+                        "build_s": time.perf_counter() - t0}}
+        out["batches"] = feed_batches(device, args, card, root / "pack")
+        out["two_pass_b32"] = check_b32_kernels(device, args, card)
+        out["train"] = feed_train(device, args, card, root)
+        out["b4_pairs"] = feed_b4_pairs(device, args, card, root)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2767,6 +3296,8 @@ def main(argv=None) -> int:
         args.timing_iters, args.bench_iters, args.mode_bench_iters = 4, 3, 3
         args.train_batch, args.train_steps, args.train_time_steps = 4, 3, 3
         args.loop_scenes, args.loop_val = 4, 8
+        args.feed_scenes, args.feed_batch, args.feed_val = 4, 4, 8
+        args.feed_chunk, args.feed_iters = 4, 3
         card = "cpu rehearsal"
     else:
         if not torch.cuda.is_available():
@@ -2781,6 +3312,10 @@ def main(argv=None) -> int:
         args.train_batch, args.train_steps, args.train_time_steps = 4, 10, 20
         # phase 19: 96 scenes (24 a sensor), validation capped at 32
         args.loop_scenes, args.loop_val = 24, 32
+        # phase 20: 512 scenes (128 a sensor), batch 32 as the flagship's
+        # b32 config ships it, validation capped at 64, chunks of 128
+        args.feed_scenes, args.feed_batch, args.feed_val = 128, 32, 64
+        args.feed_chunk, args.feed_iters = 128, 20
         card = card_info()
     sys.path.insert(0, str(ROOT))
     import cadepth_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -2929,6 +3464,9 @@ def main(argv=None) -> int:
     phase("19. the trainer loop on host data")
     loop = trainer_loop(device, args, card, train_out["p50_ms"])
 
+    phase("20. the GPU-resident feed")
+    feed = device_feed(device, args, card)
+
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
             "is printed")
@@ -2937,6 +3475,8 @@ def main(argv=None) -> int:
     from cadepth_tpu_torch.ops import fused_loss as fl
 
     dec1, bwd_dec1 = rows["dec1"], bwd_rows["dec1"]
+    b32_rows = feed["two_pass_b32"]["levels"]
+    b32_dec1, feed_counts = b32_rows["dec1"], feed["train"]["warp_counts"]
     f_dec1, f_bwd_dec1 = f_rows["dec1"], f_bwd_rows["dec1"]
     kernels = {"kernels": [{
         "name": "two_pass_warp",
@@ -2951,6 +3491,14 @@ def main(argv=None) -> int:
         "v_stores_in_training": tr["v_stores"],
         "launches_in_trainer_loop": loop["warp_counts"]["launches"],
         "v_stores_in_trainer_loop": loop["warp_counts"]["v_stores"],
+        "launches_in_device_feed": feed_counts["launches"],
+        "v_stores_in_device_feed": feed_counts["v_stores"],
+        "at_batch_32": {
+            "train_fwd_ms": b32_dec1["train_fwd_ms"],
+            "train_fwd_bound_ms": b32_dec1["train_fwd_bound_ms"],
+            "at": f"dec1 {b32_dec1['shape']} bf16, V stored",
+            "per_step_ms": level_sum(b32_rows, "train_fwd_ms"),
+            "max_abs_err_by_dtype": feed["two_pass_b32"]["fwd_max_abs_err"]},
         "max_abs_err": max(worst.values()),
         "max_abs_err_by_dtype": worst,
         "ms": dec1["kernel_ms"],
@@ -2983,6 +3531,15 @@ def main(argv=None) -> int:
         "launches": tr["bwd_launches"],
         "launches_per_step": tr["bwd_per_step"],
         "launches_in_trainer_loop": loop["warp_counts"]["bwd_launches"],
+        "launches_in_device_feed": feed_counts["bwd_launches"],
+        "at_batch_32": {
+            "ms": b32_dec1["kernel_ms"], "bound_ms": b32_dec1["bound_ms"],
+            "plain_ms": b32_dec1["plain_ms"],
+            "library_ms": b32_dec1["library_ms"],
+            "at": f"dec1 {b32_dec1['shape']} bf16",
+            "per_step_ms": level_sum(b32_rows, "kernel_ms"),
+            "per_step_bound_ms": level_sum(b32_rows, "bound_ms"),
+            "max_abs_err_by_dtype": feed["two_pass_b32"]["bwd_max_abs_err"]},
         "max_abs_err": max(bwd_worst["float32"], bwd_worst["bfloat16"]),
         "max_abs_err_by_dtype": bwd_worst,
         "ms": bwd_dec1["kernel_ms"],
@@ -3173,6 +3730,7 @@ def main(argv=None) -> int:
         kernel_vs_kernel_max_rel=ftr["kernel_vs_kernel_rel"]),
         "fused_loss": {k: v for k, v in floss.items() if k != "inputs"},
         "trainer_loop": loop,
+        "device_feed": feed,
         "pcl_modes": {"serve": modes, "train": mode_train,
                       "group_resize_serve": group_serve,
                       "gather_warp": {"levels": g_rows,

@@ -988,3 +988,88 @@ def test_trainer_epoch_on_card_matches_cpu(tmp_path):
         rel = 1e-2 if k == "pcl_max_rot" else 1e-3
         assert gm[k] == pytest.approx(cm[k], rel=rel, abs=1e-6), \
             (k, gm[k], cm[k])
+
+
+def _fixture_pack(tmp_path, augment: bool = True):
+    """(12 synthetic scenes packed at 48x64, a train loader over them)."""
+    from cadepth_tpu_torch.data.packed import (PackedSunRGBDLoader,
+                                               pack_dataset)
+    from cadepth_tpu_torch.data.sunrgbd import AugmentationConfig
+    from cadepth_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    manifest = generate_synthetic_dataset(
+        str(tmp_path / "ds"), images_per_sensor=3, seed=11,
+        sensor_specs={s: (64, 48, 64, 48)
+                      for s in ("kv1", "kv2", "realsense", "xtion")})
+    pack_dataset(f"{tmp_path}/ds/sunrgbd", manifest, str(tmp_path / "pack"),
+                 48, 64, num_threads=4)
+    loader = PackedSunRGBDLoader(str(tmp_path / "pack"), split="train",
+                                 compute_rays=True, rays_on_device=True)
+    if augment:
+        loader.enable_augmentation(AugmentationConfig(random_seed=3))
+    return loader
+
+
+_STORAGES = {"float32": {},
+             "bfloat16": {"rgb_dtype": torch.bfloat16},
+             "quantized": {"rgb_dtype": torch.uint8,
+                           "depth_dtype": torch.uint16}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", list(_STORAGES))
+def test_device_dataset_on_card_yields_the_cpu_batches(tmp_path, storage):
+    """DeviceDataset on the card against the same class on the CPU: two
+    epochs of batches, augmented and not, the remainder kept, equal bits
+    (divisions by device tensors; no fused multiply-add across ops)."""
+    from cadepth_tpu_torch.data.device_resident import DeviceDataset
+
+    _need_card()
+    loader = _fixture_pack(tmp_path)
+    card = DeviceDataset(loader, device="cuda", **_STORAGES[storage])
+    cpu = DeviceDataset(loader, device="cpu", **_STORAGES[storage])
+    assert card.nbytes() == cpu.nbytes()
+    for epoch in (0, 1):
+        for augment in (False, True):
+            args = dict(seed=2, epoch=epoch, augment=augment,
+                        drop_remainder=False)
+            got = list(card.batches(5, **args))
+            want = list(cpu.batches(5, **args))
+            assert len(got) == len(want) == 3
+            for b, w in zip(got, want):
+                assert b["rgb"].is_cuda
+                for k in w:
+                    assert torch.equal(b[k].cpu(), w[k]), (k, epoch,
+                                                            augment)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", ["thread", "serial"])
+@pytest.mark.parametrize("storage", ["float32", "quantized"])
+def test_chunked_on_card_matches_resident(tmp_path, prefetch, storage):
+    """Chunks copied on their own stream from pinned slots, the consumer's
+    stream waiting on each chunk's event: every batch of two epochs,
+    kept while later chunks restage the slots and other work allocates,
+    equals the resident dataset's on the card; a sum taken on the
+    consumer's stream as each batch arrives equals the resident one's."""
+    from cadepth_tpu_torch.data.device_resident import (ChunkedDeviceDataset,
+                                                        DeviceDataset)
+
+    _need_card()
+    loader = _fixture_pack(tmp_path)
+    kw = _STORAGES[storage]
+    resident = DeviceDataset(loader, device="cuda", **kw)
+    chunked = ChunkedDeviceDataset(loader, 3, device="cuda", **kw)
+    for epoch in (0, 1):
+        args = dict(seed=5, epoch=epoch, augment=True)
+        kept, sums = [], []
+        for b in chunked.batches(2, prefetch=prefetch, **args):
+            sums.append(b["rgb"].sum(dtype=torch.float64))
+            kept.append(b)
+            torch.empty(4 << 20, device="cuda").fill_(7.0)  # reuse bait
+        want = list(resident.batches(2, **args))
+        assert len(kept) == len(want) == 6
+        for b, w, s in zip(kept, want, sums):
+            for k in w:
+                assert torch.equal(b[k], w[k]), (k, epoch)
+            assert float(s) == float(w["rgb"].sum(dtype=torch.float64))

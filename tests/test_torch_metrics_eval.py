@@ -169,9 +169,15 @@ def test_evaluator_outputs_have_the_same_rows_and_keys(evaluated, tmp_path):
          not r.startswith(("Generated", "Inference"))]
 
 
-def test_evaluator_refuses_the_device_resident_sweep(evaluated):
+def test_evaluator_refuses_the_device_resident_sweep(evaluated, tmp_path):
+    """The device sweep needs a pack: a loader of image files is refused."""
     pm, _ = ts.build_model_and_loss(port_config.config_from_dict(RAW),
                                     device="cpu")
     ev = p_eval.ModelEvaluator(port_config.config_from_dict(RAW), pm)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        ev.evaluate(None, device_resident=True)
+    manifest = j_synthetic.generate_synthetic_dataset(
+        str(tmp_path), images_per_sensor=1, seed=6)
+    files = p_sunrgbd.SunRGBDLoader(f"{tmp_path}/sunrgbd", manifest,
+                                    split="test", target_height=32,
+                                    target_width=32, rays_on_device=True)
+    with pytest.raises(ValueError, match="packed loader"):
+        ev.evaluate(files, device_resident=True)

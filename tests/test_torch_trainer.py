@@ -399,7 +399,8 @@ def test_preemption_checkpoint_and_resume(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"data": {"device_resident": True}}, "Queue 1, item 3"),
+    ({"data": {"device_resident": True},
+      "hardware": {"spatial_parallel": 2}}, "Queue 1, item 8"),
     ({"hardware": {"spatial_parallel": 2}}, "Queue 1, item 8"),
     ({"model": {"architecture": "baseline_unet"}}, "Queue 1, item 7"),
     ({"model": {"variant": "lightweight"}}, "Queue 1, item 7"),
