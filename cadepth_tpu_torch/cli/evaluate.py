@@ -81,15 +81,11 @@ def main(argv=None) -> int:
 
     ckpt_root = Path(cfg.checkpointing.checkpoint_dir) / cfg.experiment.name
     mgr = CheckpointManager(str(ckpt_root))
-    if args.checkpoint == "best":
-        ckpt_path = str(mgr.best_dir)
-    elif args.checkpoint == "latest":
-        ckpt_path = mgr.latest_checkpoint()
-        if ckpt_path is None:
-            print(f"No checkpoints under {ckpt_root}", file=sys.stderr)
-            return 1
-    else:
-        ckpt_path = args.checkpoint
+    try:
+        ckpt_path = mgr.resolve(args.checkpoint)
+    except FileNotFoundError as exc:
+        print(f"No checkpoint: {exc}", file=sys.stderr)
+        return 1
     state, meta = mgr.restore_with_meta(ckpt_path, device)
     model.load_state_dict(state["model"])
     print(f"Loaded checkpoint {ckpt_path} (epoch {meta.get('epoch', '?')})")

@@ -4,21 +4,30 @@ One model at one batch size and input size: requests with fewer than
 ``batch_size`` images are zero-padded to the batch and the padding rows
 are dropped from the answer, so every forward runs at the same shapes.
 
-    predictor = Predictor(cfg, state_dict, batch_size=8)   # on "cuda"
+    predictor = Predictor.from_checkpoint(cfg, "best", batch_size=8)
     depth = predictor.predict(rgb_batch, intrinsics)      # numpy in/out
     stats = predictor.benchmark()                          # p50/p95/p99
+    predictor.export("depth.pt2")                          # torch.export
+    fn = load_exported("depth.pt2"); depth = fn(batch)     # no model code
 
-Weights come from :mod:`cadepth_tpu_torch.convert` (a JAX checkpoint's
-variables) or, without a ``state_dict``, from the port's seeded
-initialisation. Restoring a checkpoint by name and exporting the
-program come with a later slice (ROADMAP.md Queue 1, item 6).
+Weights come from a checkpoint the port's trainer wrote
+(:meth:`Predictor.from_checkpoint`), from
+:mod:`cadepth_tpu_torch.convert` (a JAX checkpoint's variables) or,
+without a ``state_dict``, from the port's seeded initialisation.
+
+An exported program is locked to the predictor's batch size, input size
+and device, as the JAX package's StableHLO artifact is; it is read back
+by the torch version that wrote it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, Mapping, Optional
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,7 +35,46 @@ import torch
 from cadepth_tpu_torch.config import Config
 from cadepth_tpu_torch.data.sunrgbd import SunRGBDLoader
 from cadepth_tpu_torch.models.factory import create_model, resolve_device
-from cadepth_tpu_torch.training.train_state import make_predict_fn
+from cadepth_tpu_torch.training.train_state import _inputs, make_predict_fn
+
+
+def load_exported(path: str) -> Callable[[Mapping], torch.Tensor]:
+    """Read back a :meth:`Predictor.export` program.
+
+    Returns ``fn(batch) -> depth``: ``batch`` is the dict the program was
+    exported with ('rgb', 'intrinsics', 'k4', and 'rays' where the config
+    does not derive rays from K) at its shapes, tensors on its device
+    (numpy arrays are moved there); the parameters are held in the
+    program, so no model code, config or checkpoint is needed.
+    """
+    # the warps' registered ops must exist before the program is read
+    from cadepth_tpu_torch.ops import fused_warp, two_pass_warp  # noqa: F401
+
+    program = torch.export.load(path)
+    module = program.module()
+    device = next(iter(program.state_dict.values())).device
+
+    def fn(batch: Mapping) -> torch.Tensor:
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        with torch.no_grad():
+            return module(batch)
+
+    return fn
+
+
+class _PredictModule(torch.nn.Module):
+    """``make_predict_fn``'s forward as a module, for ``torch.export``:
+    rays from K on the device (where the config derives them), then the
+    model in eval mode."""
+
+    def __init__(self, cfg: Config, model: torch.nn.Module):
+        super().__init__()
+        self.cfg = cfg
+        self.model = model
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.model(*_inputs(self.cfg, batch))
 
 
 def _default_k4(batch: int, height: int, width: int) -> np.ndarray:
@@ -47,7 +95,7 @@ def _matrix(k4: np.ndarray) -> np.ndarray:
 
 
 class Predictor:
-    """Fixed-shape depth predictor over the flagship model.
+    """Fixed-shape depth predictor over the config's model.
 
     ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; where
     CUDA is asked for and absent, construction raises. Compute runs in
@@ -71,19 +119,46 @@ class Predictor:
         self.width = width or cfg.data.input_width
         self.architecture = cfg.model.architecture
         m = cfg.model
-        self.model = create_model(
-            m.architecture, in_channels=m.in_channels,
-            init_features=m.init_features, camera_dim=m.camera_dim,
-            max_depth=m.max_depth, use_pcl=m.use_pcl,
-            use_attention=m.use_attention, variant=m.variant,
-            pcl_warp=m.pcl_warp, norm=m.norm,
-            decoder_upsample=m.decoder_upsample, sa_lowering=m.sa_lowering,
-            dtype=torch.bfloat16 if cfg.training.use_amp else torch.float32,
-            device=self.device, generator=generator)
+        # with a state_dict, the model is laid out on the meta device and
+        # filled from it: no weights are drawn only to be replaced
+        with torch.device("meta") if state_dict is not None \
+                else contextlib.nullcontext():
+            model = create_model(
+                m.architecture, in_channels=m.in_channels,
+                init_features=m.init_features, camera_dim=m.camera_dim,
+                max_depth=m.max_depth, use_pcl=m.use_pcl,
+                use_attention=m.use_attention, variant=m.variant,
+                pcl_warp=m.pcl_warp, norm=m.norm,
+                decoder_upsample=m.decoder_upsample,
+                sa_lowering=m.sa_lowering,
+                dtype=torch.bfloat16 if cfg.training.use_amp
+                else torch.float32,
+                device=self.device if state_dict is None else "meta",
+                generator=generator)
         if state_dict is not None:
-            self.model.load_state_dict(state_dict)
+            model = model.to_empty(device=self.device)
+            model.load_state_dict(state_dict)
+        self.model = model
         self._predict = make_predict_fn(cfg, self.model)
         self._default_k_dev: Optional[Dict[str, torch.Tensor]] = None
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, checkpoint: str = "best",
+                        batch_size: int = 1, height: Optional[int] = None,
+                        width: Optional[int] = None,
+                        device="cuda") -> "Predictor":
+        """Restore a checkpoint of the port's trainer from
+        ``checkpoint_dir/<experiment name>``: "best", "latest" or a path
+        (``CheckpointManager.resolve``; FileNotFoundError where there is
+        none). The model's ``state_dict`` is read on the CPU and moved to
+        ``device``."""
+        from cadepth_tpu_torch.training.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(str(Path(cfg.checkpointing.checkpoint_dir)
+                                    / cfg.experiment.name))
+        state = mgr.restore(mgr.resolve(checkpoint), map_location="cpu")
+        return cls(cfg, state["model"], batch_size=batch_size, height=height,
+                   width=width, device=device)
 
     # -- serving ------------------------------------------------------------
 
@@ -189,6 +264,24 @@ class Predictor:
         while inflight:
             out, n = inflight.popleft()
             yield out[:n].cpu().numpy()
+
+    # -- deployment artifact ------------------------------------------------
+
+    def export(self, path: str) -> int:
+        """Write the predict program, parameters and buffers included, to
+        ``path`` with ``torch.export`` (read it back with
+        :func:`load_exported`). The program takes the batch dict at this
+        predictor's shapes on its device. Returns the bytes written."""
+        zeros = np.zeros((self.batch_size, self.height, self.width, 3),
+                         np.float32)
+        batch = self._make_batch(zeros, None)
+        module = _PredictModule(self.cfg, self.model).eval()
+        # without grad the warps take their registered forward ops, which
+        # trace through their fake versions
+        with torch.no_grad():
+            program = torch.export.export(module, (batch,))
+        torch.export.save(program, path)
+        return os.path.getsize(path)
 
     # -- performance --------------------------------------------------------
 

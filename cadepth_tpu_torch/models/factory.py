@@ -19,8 +19,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from cadepth_tpu_torch.models.baseline_unet import BaselineUNet
 from cadepth_tpu_torch.models.film import FiLMLayer
-from cadepth_tpu_torch.models.geometry_aware import GeometryAwareNetwork
+from cadepth_tpu_torch.models.geometry_aware import (
+    GeometryAwareNetwork, LightweightGeometryNetwork)
+from cadepth_tpu_torch.models.intrinsics_unet import (
+    IntrinsicsAttentionUNet, IntrinsicsConditionedUNet)
 from cadepth_tpu_torch.models.pcl import (Perspective3DTransformer,
                                           PerspectiveCorrectionLayer)
 
@@ -98,25 +102,41 @@ def create_model(
     device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
-    """Build a model by architecture string and initialise it.
+    """Build a model by architecture string and initialise it, with the
+    JAX factory's dispatch: ``intrinsics_unet`` with ``use_attention`` is
+    the CBAM variant (``intrinsics_attention_unet`` an alias), and
+    ``geometry_aware`` with ``variant: lightweight`` (or
+    ``geometry_aware_lightweight``) the 4-level network at
+    ``min(init_features, 32)``.
 
     ``generator`` (a CPU ``torch.Generator``) draws the weights; without
     one, seed 0 is used. The model is returned on ``device``.
     """
     dev = resolve_device(device)
-    if architecture not in ARCHITECTURES:
+    exp_kw = dict(norm=norm, decoder_upsample=decoder_upsample, remat=remat,
+                  dtype=dtype, in_channels=in_channels, max_depth=max_depth)
+    att_kw = dict(sa_lowering=sa_lowering, **exp_kw)
+    if architecture == "baseline_unet":
+        model = BaselineUNet(init_features=init_features, **exp_kw)
+    elif architecture == "intrinsics_unet" and not use_attention:
+        model = IntrinsicsConditionedUNet(init_features=init_features,
+                                          camera_dim=camera_dim, **exp_kw)
+    elif architecture in ("intrinsics_unet", "intrinsics_attention_unet"):
+        model = IntrinsicsAttentionUNet(init_features=init_features,
+                                        camera_dim=camera_dim, **att_kw)
+    elif architecture == "geometry_aware_lightweight" or (
+            architecture == "geometry_aware" and variant == "lightweight"):
+        model = LightweightGeometryNetwork(
+            init_features=min(init_features, 32), camera_dim=camera_dim,
+            pcl_warp=pcl_warp, **att_kw)
+    elif architecture == "geometry_aware":
+        model = GeometryAwareNetwork(
+            init_features=init_features, camera_dim=camera_dim,
+            use_pcl=use_pcl, use_attention=use_attention, pcl_warp=pcl_warp,
+            **att_kw)
+    else:
         raise ValueError(f"Unknown architecture '{architecture}'; expected "
                          f"one of {ARCHITECTURES}")
-    if architecture != "geometry_aware" or variant != "full":
-        raise NotImplementedError(
-            f"architecture={architecture!r} variant={variant!r} is not "
-            "ported yet (ROADMAP.md Queue 1, item 7)")
-    model = GeometryAwareNetwork(
-        in_channels=in_channels, init_features=init_features,
-        camera_dim=camera_dim, max_depth=max_depth, use_pcl=use_pcl,
-        use_attention=use_attention, dtype=dtype, pcl_warp=pcl_warp,
-        norm=norm, decoder_upsample=decoder_upsample, sa_lowering=sa_lowering,
-        remat=remat)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

@@ -1,22 +1,21 @@
-"""The flagship geometry-aware depth network (port of
-``cadepth_tpu.models.geometry_aware``, full variant).
+"""The geometry-aware depth networks (port of
+``cadepth_tpu.models.geometry_aware``): the full variant and the
+lightweight one.
 
 Ray-direction input channels, FiLM conditioning in every conv block,
-Perspective Correction Layers in the decoder and CBAM attention: five
-encoder levels to a 32f bottleneck and five decoder levels back.
+Perspective Correction Layers in the decoder and CBAM attention. The
+full network has five encoder levels to a 32f bottleneck and five
+decoder levels back; the lightweight one four levels to a 16f
+bottleneck, with attention and a PCL on every level.
 
 Only ``enc1`` reads the rays. The JAX decoder pools rays for each level
 and hands them to the PCL, which ignores them, so the port does not pool
 them.
-
-``remat`` checkpoints blocks as the JAX package's ``maybe_remat`` does:
-True or "full" every block, "highres" the two finest levels (``enc1``,
-``enc2``, ``dec2``, ``dec1``); the backward recomputes them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,27 +24,12 @@ from torch import nn
 from cadepth_tpu_torch.geometry.intrinsics import normalize_k4
 from cadepth_tpu_torch.models.attention import CBAM
 from cadepth_tpu_torch.models.film import FiLMLayer
-from cadepth_tpu_torch.models.layers import (Conv2d, apply_norm,
-                                             checkpointed, make_norm,
-                                             pad_to_match, upsample2x)
+from cadepth_tpu_torch.models.layers import (Conv2d, DepthUNet, apply_norm,
+                                             make_norm, pad_to_match,
+                                             upsample2x)
 from cadepth_tpu_torch.models.pcl import PerspectiveCorrectionLayer
 
 Intermediates = Optional[Dict[str, List[torch.Tensor]]]
-
-# The blocks at the two finest levels ("highres" remat) and the rest.
-HIGHRES_BLOCKS = ("enc1", "enc2", "dec2", "dec1")
-LOWRES_BLOCKS = ("enc3", "enc4", "enc5", "bottleneck", "dec5", "dec4", "dec3")
-
-
-def remat_blocks(remat) -> Tuple[str, ...]:
-    """The blocks that ``remat`` (False, True, "full" or "highres")
-    checkpoints."""
-    if not remat:
-        return ()
-    if remat not in (True, "full", "highres"):
-        raise ValueError(f"Unknown remat mode: {remat!r}")
-    return HIGHRES_BLOCKS if remat == "highres" \
-        else HIGHRES_BLOCKS + LOWRES_BLOCKS
 
 
 class RayEnhancedConv(nn.Module):
@@ -123,7 +107,53 @@ class GeometryDecoderBlock(nn.Module):
         return x
 
 
-class GeometryAwareNetwork(nn.Module):
+class _GeometryUNet(DepthUNet):
+    """``levels`` encoder levels (``enc1`` a RayEnhancedConv over [rgb;
+    rays], then encoder blocks), a bottleneck at ``2**levels`` f, and
+    ``levels`` decoder blocks back, each with a PCL when ``use_pcl``."""
+
+    def __init__(self, levels: int, in_channels: int, init_features: int,
+                 camera_dim: int, max_depth: float, use_pcl: bool,
+                 use_attention: bool, dtype: torch.dtype, pcl_warp: str,
+                 norm: str, decoder_upsample: str, sa_lowering: str, remat):
+        super().__init__(dtype, max_depth, remat, camera_dim)
+        f = init_features
+        self.levels = levels
+        enc = dict(use_attention=use_attention, dtype=dtype, norm=norm,
+                   sa_lowering=sa_lowering)
+        dec = dict(use_pcl=use_pcl, pcl_warp=pcl_warp,
+                   upsample=decoder_upsample, **enc)
+        self.enc1 = RayEnhancedConv(in_channels + 3, f, dtype, norm)
+        for i in range(2, levels + 1):
+            setattr(self, f"enc{i}",
+                    GeometryEncoderBlock(f << (i - 2), f << (i - 1), **enc))
+        self.bottleneck = GeometryEncoderBlock(f << (levels - 1),
+                                               f << levels, **enc)
+        for i in range(levels, 0, -1):
+            setattr(self, f"dec{i}",
+                    GeometryDecoderBlock(f << i, f << (i - 1), **dec))
+        self.out_conv = Conv2d(f, 1, 1, dtype=torch.float32)
+
+    def forward(self, rgb: torch.Tensor, ray_directions: torch.Tensor,
+                camera_intrinsics: torch.Tensor,
+                intermediates: Intermediates = None) -> torch.Tensor:
+        """When ``intermediates`` is a dict, each PCL appends its max
+        |rotation| to ``intermediates["pcl_max_rot"]``."""
+        h, w = rgb.shape[1], rgb.shape[2]
+        cam = normalize_k4(camera_intrinsics.float(), width=w, height=h)
+        x = self._nchw(rgb, self.dtype)
+        rays = self._nchw(ray_directions, ray_directions.dtype)
+
+        skips = [self._block("enc1", x, cam, rays)]
+        for i in range(2, self.levels + 1):
+            skips.append(self._block(f"enc{i}", skips[-1], cam))
+        x = self._block("bottleneck", skips[-1], cam)
+        for i in range(self.levels, 0, -1):
+            x = self._block(f"dec{i}", x, skips[i - 1], cam, intermediates)
+        return self._depth(x)
+
+
+class GeometryAwareNetwork(_GeometryUNet):
     """Full 5-level geometry-aware network.
 
     ``forward`` takes NHWC rgb (B, H, W, 3), ray_directions (B, H, W, 3)
@@ -138,60 +168,23 @@ class GeometryAwareNetwork(nn.Module):
                  pcl_warp: str = "two_pass", norm: str = "batch",
                  decoder_upsample: str = "transpose",
                  sa_lowering: str = "toeplitz", remat=False):
-        super().__init__()
-        if camera_dim != 4:
-            raise ValueError(f"camera_dim must be 4 ([fx, fy, cx, cy]), "
-                             f"got {camera_dim}")
-        f = init_features
-        self.dtype = dtype
-        self.max_depth = max_depth
-        enc = dict(use_attention=use_attention, dtype=dtype, norm=norm,
-                   sa_lowering=sa_lowering)
-        dec = dict(use_pcl=use_pcl, pcl_warp=pcl_warp,
-                   upsample=decoder_upsample, **enc)
-        self.enc1 = RayEnhancedConv(in_channels + 3, f, dtype, norm)
-        self.enc2 = GeometryEncoderBlock(f, f * 2, **enc)
-        self.enc3 = GeometryEncoderBlock(f * 2, f * 4, **enc)
-        self.enc4 = GeometryEncoderBlock(f * 4, f * 8, **enc)
-        self.enc5 = GeometryEncoderBlock(f * 8, f * 16, **enc)
-        self.bottleneck = GeometryEncoderBlock(f * 16, f * 32, **enc)
-        self.dec5 = GeometryDecoderBlock(f * 32, f * 16, **dec)
-        self.dec4 = GeometryDecoderBlock(f * 16, f * 8, **dec)
-        self.dec3 = GeometryDecoderBlock(f * 8, f * 4, **dec)
-        self.dec2 = GeometryDecoderBlock(f * 4, f * 2, **dec)
-        self.dec1 = GeometryDecoderBlock(f * 2, f, **dec)
-        self.out_conv = Conv2d(f, 1, 1, dtype=torch.float32)
-        self.remat = frozenset(remat_blocks(remat))
+        super().__init__(5, in_channels, init_features, camera_dim,
+                         max_depth, use_pcl, use_attention, dtype, pcl_warp,
+                         norm, decoder_upsample, sa_lowering, remat)
 
-    def _block(self, name: str, *args) -> torch.Tensor:
-        block = getattr(self, name)
-        if name in self.remat:
-            return checkpointed(block, *args)
-        return block(*args)
 
-    def forward(self, rgb: torch.Tensor, ray_directions: torch.Tensor,
-                camera_intrinsics: torch.Tensor,
-                intermediates: Intermediates = None) -> torch.Tensor:
-        """When ``intermediates`` is a dict, each PCL appends its max
-        |rotation| to ``intermediates["pcl_max_rot"]``."""
-        h, w = rgb.shape[1], rgb.shape[2]
-        cam = normalize_k4(camera_intrinsics.float(), width=w, height=h)
-        cl = torch.channels_last
-        x = rgb.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=cl)
-        rays = ray_directions.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+class LightweightGeometryNetwork(_GeometryUNet):
+    """The 4-level variant, attention and a PCL on every level; the
+    factory caps ``init_features`` at 32. Takes and returns what
+    :class:`GeometryAwareNetwork` does; H and W must be divisible by 16.
+    """
 
-        skip1 = self._block("enc1", x, cam, rays)
-        skip2 = self._block("enc2", skip1, cam)
-        skip3 = self._block("enc3", skip2, cam)
-        skip4 = self._block("enc4", skip3, cam)
-        skip5 = self._block("enc5", skip4, cam)
-        x = self._block("bottleneck", skip5, cam)
-
-        x = self._block("dec5", x, skip5, cam, intermediates)
-        x = self._block("dec4", x, skip4, cam, intermediates)
-        x = self._block("dec3", x, skip3, cam, intermediates)
-        x = self._block("dec2", x, skip2, cam, intermediates)
-        x = self._block("dec1", x, skip1, cam, intermediates)
-
-        x = self.out_conv(x.float())
-        return (torch.sigmoid(x) * self.max_depth).permute(0, 2, 3, 1)
+    def __init__(self, in_channels: int = 3, init_features: int = 32,
+                 camera_dim: int = 4, max_depth: float = 10.0,
+                 dtype: torch.dtype = torch.bfloat16,
+                 pcl_warp: str = "two_pass", norm: str = "batch",
+                 decoder_upsample: str = "transpose",
+                 sa_lowering: str = "toeplitz", remat=False):
+        super().__init__(4, in_channels, init_features, camera_dim,
+                         max_depth, True, True, dtype, pcl_warp, norm,
+                         decoder_upsample, sa_lowering, remat)

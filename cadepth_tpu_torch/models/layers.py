@@ -11,12 +11,19 @@ flax's running statistics, not torch's.
 package's ``nn.remat``); while a block is recomputed for the backward,
 :func:`recomputing` is true, and the batch norms leave their running
 statistics alone, as flax's remat does.
+
+:class:`DepthUNet` is the frame every model family shares: NHWC in and
+out, named blocks checkpointed as ``remat`` says (the JAX package's
+``maybe_remat``: True or "full" every block, "highres" the two finest
+levels, ``enc1``, ``enc2``, ``dec2`` and ``dec1``), and an f32 1x1 head
+to ``sigmoid * max_depth``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -203,3 +210,97 @@ def pad_to_match(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = F.pad(x, (max(diff_w // 2, 0), max(diff_w - diff_w // 2, 0),
                       max(diff_h // 2, 0), max(diff_h - diff_h // 2, 0)))
     return x
+
+
+class DoubleConv(nn.Module):
+    """Conv3x3 -> norm -> ReLU -> Conv3x3 -> norm -> ReLU."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16, norm: str = "batch"):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = Conv2d(in_channels, features, 3, padding=1, bias=False,
+                            dtype=dtype)
+        self.bn1 = make_norm(norm, features)
+        self.conv2 = Conv2d(features, features, 3, padding=1, bias=False,
+                            dtype=dtype)
+        self.bn2 = make_norm(norm, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(apply_norm(self.conv1(x), self.bn1, self.dtype))
+        return F.relu(apply_norm(self.conv2(x), self.bn2, self.dtype))
+
+
+class EncoderBlock(nn.Module):
+    """MaxPool2 -> DoubleConv."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16, norm: str = "batch"):
+        super().__init__()
+        self.conv = DoubleConv(in_channels, features, dtype, norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.max_pool2d(x, 2))
+
+
+class DecoderBlock(nn.Module):
+    """2x upsampling -> pad to the skip -> concat [skip, x] -> DoubleConv."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16, norm: str = "batch",
+                 upsample: str = "transpose"):
+        super().__init__()
+        self.up = upsample2x(in_channels, features, upsample, dtype)
+        self.conv = DoubleConv(2 * features, features, dtype, norm)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = pad_to_match(self.up(x), skip)
+        return self.conv(torch.cat([skip, x.to(skip.dtype)], dim=1))
+
+
+# The blocks at the two finest levels ("highres" remat) and the rest.
+HIGHRES_BLOCKS = ("enc1", "enc2", "dec2", "dec1")
+LOWRES_BLOCKS = ("enc3", "enc4", "enc5", "bottleneck", "dec5", "dec4", "dec3")
+
+
+def remat_blocks(remat) -> Tuple[str, ...]:
+    """The blocks that ``remat`` (False, True, "full" or "highres")
+    checkpoints."""
+    if not remat:
+        return ()
+    if remat not in (True, "full", "highres"):
+        raise ValueError(f"Unknown remat mode: {remat!r}")
+    return HIGHRES_BLOCKS if remat == "highres" \
+        else HIGHRES_BLOCKS + LOWRES_BLOCKS
+
+
+class DepthUNet(nn.Module):
+    """The families' shared frame. Subclasses build their blocks and an
+    ``out_conv`` (f32 1x1 conv to one channel) and run the blocks through
+    :meth:`_block`."""
+
+    def __init__(self, dtype: torch.dtype, max_depth: float, remat,
+                 camera_dim: int = 4):
+        super().__init__()
+        if camera_dim != 4:
+            raise ValueError(f"camera_dim must be 4 ([fx, fy, cx, cy]), "
+                             f"got {camera_dim}")
+        self.dtype = dtype
+        self.max_depth = max_depth
+        self.remat = frozenset(remat_blocks(remat))
+
+    def _block(self, name: str, *args) -> torch.Tensor:
+        block = getattr(self, name)
+        if name in self.remat:
+            return checkpointed(block, *args)
+        return block(*args)
+
+    def _nchw(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """NHWC ``x`` as an NCHW channels_last tensor of ``dtype``."""
+        return x.permute(0, 3, 1, 2).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def _depth(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 1) f32 depth in metres from the last decoder's map."""
+        x = self.out_conv(x.float())
+        return (torch.sigmoid(x) * self.max_depth).permute(0, 2, 3, 1)

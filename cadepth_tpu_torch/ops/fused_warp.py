@@ -22,7 +22,9 @@ are dropped, and the port drops the same ones. Zeros padding only.
 :func:`fused_warp` is differentiable in ``img`` and ``theta`` while grad
 mode is on and either requires grad, through :class:`FusedWarp`, whose
 forward also stores V for the backward; otherwise (serving) it launches
-the forward alone, which keeps V in shared memory and writes none. For
+the forward alone, which keeps V in shared memory and writes none, as
+the registered op ``cadepth::fused_warp_fwd`` (:func:`fused_warp_fwd`,
+which ``torch.export`` traces as one node). For
 a CUDA tensor the forward launches its kernel (one launch) and the
 backward its three (the transposed passes, then the sum of their theta
 partials and the chain to d_theta on the card), or raise; for a CPU
@@ -412,6 +414,19 @@ class FusedWarp(torch.autograd.Function):
         return d_img, d_theta.to(theta.dtype), None
 
 
+@torch.library.custom_op("cadepth::fused_warp_fwd", mutates_args=())
+def fused_warp_fwd(img: torch.Tensor, theta: torch.Tensor,
+                   align_corners: bool) -> torch.Tensor:
+    """The banded warp's forward without V: the kernel for a CUDA tensor,
+    the plain version for a CPU one."""
+    return _forward(img, theta, align_corners, keep_v=False)[0]
+
+
+@fused_warp_fwd.register_fake
+def _(img, theta, align_corners):
+    return torch.empty_like(img)
+
+
 def fused_warp(img: torch.Tensor, theta: torch.Tensor,
                padding_mode: str = "zeros",
                align_corners: bool = False) -> torch.Tensor:
@@ -426,4 +441,4 @@ def fused_warp(img: torch.Tensor, theta: torch.Tensor,
     check_fused_args(img, theta, padding_mode)
     if torch.is_grad_enabled() and (img.requires_grad or theta.requires_grad):
         return FusedWarp.apply(img, theta, align_corners)
-    return _forward(img, theta, align_corners, keep_v=False)[0]
+    return fused_warp_fwd(img, theta, align_corners)

@@ -11,7 +11,10 @@ grad mode is on and either requires grad: it goes through
 :class:`TwoPassWarp`, whose forward also stores V (pass V's result) for
 the backward. Otherwise, as under ``torch.no_grad`` or
 ``torch.inference_mode`` while serving, it launches the forward alone,
-which keeps V in shared memory and writes none.
+which keeps V in shared memory and writes none; that forward is the
+registered op ``cadepth::two_pass_warp_fwd`` (:func:`two_pass_warp_fwd`),
+so ``torch.export`` traces it as one node through its fake (shape-only)
+version and an exported program calls the kernel again when it runs.
 
 For a CUDA tensor the forward launches its kernel (one launch) and the
 backward its three (the transposed passes, then the sum of their theta
@@ -250,6 +253,20 @@ class TwoPassWarp(torch.autograd.Function):
         return d_img, d_theta.to(theta.dtype), None, None
 
 
+@torch.library.custom_op("cadepth::two_pass_warp_fwd", mutates_args=())
+def two_pass_warp_fwd(img: torch.Tensor, theta: torch.Tensor,
+                      padding_mode: str, align_corners: bool) -> torch.Tensor:
+    """The warp's forward without V: the kernel for a CUDA tensor, the
+    plain version for a CPU one."""
+    return _forward(img, theta, padding_mode, align_corners,
+                    keep_v=False)[0]
+
+
+@two_pass_warp_fwd.register_fake
+def _(img, theta, padding_mode, align_corners):
+    return torch.empty_like(img)
+
+
 def two_pass_warp(img: torch.Tensor, theta: torch.Tensor,
                   padding_mode: str = "zeros",
                   align_corners: bool = False) -> torch.Tensor:
@@ -263,4 +280,4 @@ def two_pass_warp(img: torch.Tensor, theta: torch.Tensor,
     check_warp_args(img, theta, padding_mode)
     if torch.is_grad_enabled() and (img.requires_grad or theta.requires_grad):
         return TwoPassWarp.apply(img, theta, padding_mode, align_corners)
-    return _forward(img, theta, padding_mode, align_corners, keep_v=False)[0]
+    return two_pass_warp_fwd(img, theta, padding_mode, align_corners)

@@ -158,6 +158,23 @@ class CheckpointManager:
                        if c.is_dir())
         return str(ckpts[-1]) if ckpts else None
 
+    def resolve(self, checkpoint: str) -> str:
+        """The directory of ``checkpoint``: "best", "latest" (the newest
+        step checkpoint) or any other string as a path; FileNotFoundError
+        where it holds no checkpoint."""
+        if checkpoint == "best":
+            path = str(self.best_dir)
+        elif checkpoint == "latest":
+            path = self.latest_checkpoint()
+            if path is None:
+                raise FileNotFoundError(
+                    f"no checkpoints under {self.directory}")
+        else:
+            path = checkpoint
+        if not (Path(path) / STATE_FILE).exists():
+            raise FileNotFoundError(f"no checkpoint at {path}")
+        return path
+
     def restore(self, path: str, map_location="cpu") -> Dict[str, Any]:
         """The ``state`` saved at ``path``, its tensors on
         ``map_location``."""

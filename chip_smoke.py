@@ -133,8 +133,33 @@ Phases, each fatal on failure:
    epoch; the evaluate CLI on best/ sweeping the card and the host (equal
    per-sample metrics); configs/train_config.yaml at batch 4 fed from the
    card against phase 19's host pipeline, in turns;
-21. one JSON line describing every kernel, the train steps, the
-   Predictors, the trainer loop and the device feed; last, the ok line.
+21. the other model families, from configs/train_config.yaml as shipped
+   (240x320, batch 8, bf16): its base model baseline_unet (f=64),
+   ablation_film_only (IntrinsicsConditionedUNet, f=64), intrinsics_only
+   (IntrinsicsAttentionUNet, f=64) and geometry_aware_lightweight (f=32,
+   two_pass): 10 train steps each on seeded batches, finite, counted (the
+   lightweight network: 4 forward launches storing V and 12 backward
+   launches a step; the others none); a Predictor at batch 8 and 1
+   (depths in range, 4 launches a forward for the lightweight network);
+   step p50/p95 and images/s, the step's and the forward's device busy
+   time and kernels, peak memory; a small f32 model of the family (f=8,
+   64x64) trained 3 steps on the card and on the CPU. For the lightweight
+   network also phases 3 and 6's checks at its four levels (f32, bf16),
+   served depths against the plain warp, and the kernels' times at its
+   levels. Then the train CLI on configs/train_config.yaml (baseline_unet)
+   from phase 19's pack for one epoch, and the evaluate CLI on its best/;
+22. serving from a checkpoint: Predictor.from_checkpoint on phase 20's
+   run ("best" and "latest" at batch 8, "best" at batch 1) bit-equal to
+   Predictors built from the same state dicts, 5 two-pass launches a
+   forward; the torch.export program at batch 8 and 1 read back by
+   load_exported, against predict (max error, limit 1e-3 m), its size,
+   its launches, and its batch-8 p50 in turns with the eager forward;
+   phase 11's pcl_warp fused model exported once; the infer CLI on a
+   640x480 PNG and an intrinsics.txt (its three files, its .npy equal to a
+   batch-1 Predictor on the same resized input);
+23. one JSON line describing every kernel, the train steps, the
+   Predictors, the trainer loop, the device feed, the families and the
+   served checkpoints; the script's wall time; last, the ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -145,8 +170,10 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -281,11 +308,13 @@ def flagship_config(init_features: int, height: int, width: int,
     })
 
 
-def decoder_shapes(batch: int, height: int, width: int, f: int):
+def decoder_shapes(batch: int, height: int, width: int, f: int,
+                   levels: int = 5):
     """(level, (B, H, W, C)) of the map each PCL warps: decoder level k
-    upsamples to 2 * (size // 2**k) with f * 2**(k-1) channels."""
+    upsamples to 2 * (size // 2**k) with f * 2**(k-1) channels (levels 5
+    to 1 in the flagship, 4 to 1 in the lightweight network)."""
     return [(f"dec{k}", (batch, 2 * (height >> k), 2 * (width >> k),
-                         f << (k - 1))) for k in (5, 4, 3, 2, 1)]
+                         f << (k - 1))) for k in range(levels, 0, -1)]
 
 
 def pcl_layers(model):
@@ -708,7 +737,7 @@ def times(device, args, pred, card: str):
 
 
 def level_times(device, args, card: str, name: str, kernel, plain, counted,
-                kernel_keys, flops_per_elem: int = 6):
+                kernel_keys, flops_per_elem: int = 6, shapes=None):
     """Per decoder level at the serving batch (bf16, the rotation theta):
     ``kernel`` (CUDA events over back-to-back calls, and the device time
     of its launches from torch.profiler), its bound, ``plain`` and
@@ -717,7 +746,9 @@ def level_times(device, args, card: str, name: str, kernel, plain, counted,
     kernels' names, which the profile must hold ``counted.LAUNCHES_PER_CALL``
     times a call; ``flops_per_elem`` the f32
     operations per output element (6 for the two-pass warp: two taps, a
-    multiply-add each, per pass). Returns (rows, all-level sums)."""
+    multiply-add each, per pass); ``shapes`` the (level, shape) pairs,
+    the flagship's five decoder levels at the serving batch unless given.
+    Returns (rows, all-level sums)."""
     import torch
     import torch.nn.functional as F
 
@@ -725,11 +756,12 @@ def level_times(device, args, card: str, name: str, kernel, plain, counted,
     timer = Timer(device)
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    shapes = shapes or decoder_shapes(args.batch, args.height, args.width,
+                                      args.init_features)
     theta = (torch.tensor(THETAS["rotation"], device=device)
-             .expand(args.batch, 2, 3).contiguous())
+             .expand(shapes[0][1][0], 2, 3).contiguous())
     rows = {}
-    for level, shape in decoder_shapes(args.batch, args.height, args.width,
-                                       args.init_features):
+    for level, shape in shapes:
         img = torch.randn(shape, device=device, generator=gen) \
             .to(torch.bfloat16)
         nchw = img.permute(0, 3, 1, 2)  # channels_last NCHW view
@@ -777,7 +809,7 @@ def level_times(device, args, card: str, name: str, kernel, plain, counted,
     keys = [k for k in rows["dec1"] if k.endswith("_ms")]
     total = {k: (None if any(r[k] is None for r in rows.values())
                  else sum(r[k] for r in rows.values())) for k in keys}
-    log(f"  [{card}] {name}, all five levels per forward: "
+    log(f"  [{card}] {name}, all {len(rows)} levels per forward: "
         + ", ".join(f"{k} {v:.4f}" for k, v in total.items()
                     if v is not None) + unit)
     return rows, total
@@ -1124,10 +1156,10 @@ def metrics_card_vs_cpu(tr):
             "log10_unequal": unequal, "python_float_divisor_unequal": old}
 
 
-def cross_device_train(device, args):
-    """Phase 8: a small f32 flagship takes 3 train steps on the card
-    (kernels, TF32 off) and on the CPU (plain) from the same weights and
-    batches."""
+def cross_device_train(device, args, model=None, hw=(64, 96)):
+    """Phase 8: a small f32 flagship (or the family ``model`` names) takes
+    3 train steps at ``hw`` on the card (kernels, TF32 off) and on the CPU
+    (plain) from the same weights and batches."""
     import numpy as np
     import torch
 
@@ -1135,13 +1167,15 @@ def cross_device_train(device, args):
     from cadepth_tpu_torch.training import train_state as ts
     from cadepth_tpu_torch.training.schedule import build_lr_schedule
 
+    h, w = hw
     cfg = config_from_dict({
-        "model": {"architecture": "geometry_aware", "init_features": 8},
-        "data": {"input_height": 64, "input_width": 96},
+        "model": dict(model or {"architecture": "geometry_aware"},
+                      init_features=8),
+        "data": {"input_height": h, "input_width": w},
         "training": {"use_amp": False, "batch_size": 4}})
     schedule = build_lr_schedule(cfg.optimization, 1, 50)  # 2-step warmup
     rng = np.random.default_rng(args.seed + 5)
-    batches = [synthetic_batch(rng, 4, 64, 96, "cpu") for _ in range(3)]
+    batches = [synthetic_batch(rng, 4, h, w, "cpu") for _ in range(3)]
     runs = []
     for dev in ("cpu", device):
         gen = torch.Generator().manual_seed(args.seed + 6)
@@ -1163,7 +1197,8 @@ def cross_device_train(device, args):
     # Adam moves a parameter by about lr per step, so a gradient entry whose
     # sign is round-off can move the two sides apart by 2 lr
     bound = 2 * sum(schedule(s) for s in range(3))
-    log(f"  small f32 model (f=8, 64x96, B=4), 3 steps, {device} vs cpu: "
+    log(f"  small f32 {type(model).__name__} (f=8, {h}x{w}, B=4), 3 steps, "
+        f"{device} vs cpu: "
         f"losses max rel err {loss_err:.3g} (rtol {CROSS_TRAIN_RTOL}); "
         f"parameters and statistics max|err| {param_err:.3g} (bound "
         f"2 sum(lr) {bound:.3g})")
@@ -1172,13 +1207,15 @@ def cross_device_train(device, args):
     return loss_err, param_err
 
 
-def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
+def bwd_times(device, args, card: str, name: str = "two_pass_warp",
+              shapes=None):
     """Phase 9a (and 14a): per decoder level at the training batch, the
     backward kernels of ``name`` ("two_pass_warp" or "fused_warp"), their
     bound, the backward call's host time (the host clock over back-to-back
     calls, without a synchronize), the plain backward and the backward of
     F.grid_sample(F.affine_grid(theta)), bf16; and the training forward,
-    which stores V."""
+    which stores V. ``shapes``: the (level, shape) pairs, the flagship's
+    five decoder levels at the training batch unless given."""
     import torch
     import torch.nn.functional as F
 
@@ -1207,11 +1244,12 @@ def bwd_times(device, args, card: str, name: str = "two_pass_warp"):
     timer = Timer(device)
     unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
     gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+    shapes = shapes or decoder_shapes(args.train_batch, args.height,
+                                      args.width, args.init_features)
     theta = (torch.tensor(THETAS["rotation"], device=device)
-             .expand(args.train_batch, 2, 3).contiguous())
+             .expand(shapes[0][1][0], 2, 3).contiguous())
     rows = {}
-    for level, shape in decoder_shapes(args.train_batch, args.height,
-                                       args.width, args.init_features):
+    for level, shape in shapes:
         img = torch.randn(shape, device=device, generator=gen) \
             .to(torch.bfloat16)
         grad = torch.randn(shape, device=device, generator=gen) \
@@ -2534,17 +2572,16 @@ def fed_step_ms(trainer, batches, steps: int):
                                   int(round(0.95 * (len(d) - 1))))], wait)
 
 
-def trainer_loop(device, args, card: str, bare_p50):
+def trainer_loop(device, args, card: str, bare_p50, root: pathlib.Path):
     """Phase 19: the port's train CLI trains geometry_aware_full from a pack
     for two epochs (validation and panels each epoch, a checkpoint each),
     resumes from the latest for a third, and the evaluate CLI scores best/;
     the warp's launches are counted over the first run, the pipeline's
     batches are held against the CPU's, and the loop is timed against
-    phase 9's bare step."""
+    phase 9's bare step. The pack and the run stay under ``root`` (phase
+    21 trains from the pack)."""
     import csv
     import math
-    import shutil
-    import tempfile
 
     import torch
 
@@ -2553,223 +2590,217 @@ def trainer_loop(device, args, card: str, bare_p50):
     from cadepth_tpu_torch.data.pipeline import InputPipeline
 
     cuda = device.type == "cuda"
-    (ROOT / "build").mkdir(exist_ok=True)
-    root = pathlib.Path(tempfile.mkdtemp(prefix="phase19_",
-                                         dir=ROOT / "build"))
-    try:
-        meta = write_pack(root, args, args.loop_scenes, args.seed + 19)
-        name = "geometry_aware_full"
-        argv = ["--experiment", name, "--device", device.type]
+    meta = write_pack(root, args, args.loop_scenes, args.seed + 19)
+    name = "geometry_aware_full"
+    argv = ["--experiment", name, "--device", device.type]
 
-        # the main path: two epochs through the train CLI, counted
-        reset_warp_counts()
-        with LoopProbe() as run1:
-            rc = train_cli.main(["--config", str(loop_yaml(root, args, 2))]
-                                + argv)
-        counts = warp_counts()
-        if rc != 0:
-            raise AssertionError(f"the train CLI exited {rc}")
-        trainer = run1.trainers[0]
-        steps = sum(ep["steps"] for ep in run1.epochs)
-        per_epoch = len(trainer.train_pipe)
-        val_batches = len(trainer.val_pipe)
-        vis = min(trainer.cfg.training.num_vis_samples,
-                  len(trainer.val_loader))
-        panels = 2 if vis else 0
-        log(f"  train CLI: {len(run1.epochs)} epochs of {per_epoch} steps "
-            f"(batch {trainer.cfg.training.batch_size}, "
-            f"{len(trainer.train_loader)} train samples with the shipped "
-            f"augmentation), validation {val_batches} batches an epoch, "
-            f"{vis} panels an epoch; producers: train "
-            f"{run1.epochs[0]['producer']}, validation "
-            f"{trainer.val_pipe.producer}; TensorBoard writer "
-            f"{type(trainer.tb._writer).__name__}")
-        if [ep["steps"] for ep in run1.epochs] != [per_epoch] * 2:
-            raise AssertionError(f"epochs ran {run1.epochs} steps")
-        n_pcl = len(pcl_layers(trainer.model))
-        forwards_no_v = 2 * val_batches + panels
-        want = {"v_stores": n_pcl * steps if cuda else 0,
-                "bwd_launches": 3 * n_pcl * steps if cuda else 0,
-                "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
-                "fused": 0}
-        log(f"  two_pass_warp over the run: {counts['launches']} forward "
-            f"launches ({counts['v_stores']} storing V: {n_pcl} per train "
-            f"step; {counts['launches'] - counts['v_stores']} without: "
-            f"{n_pcl} per validation and panel forward, "
-            f"{forwards_no_v} forwards), {counts['bwd_launches']} backward "
-            f"launches ({3 * n_pcl} per step), fused_warp "
-            f"{counts['fused']}; expected {want}")
-        if counts != want:
-            raise AssertionError(f"warp launches {counts} != {want}")
+    # the main path: two epochs through the train CLI, counted
+    reset_warp_counts()
+    with LoopProbe() as run1:
+        rc = train_cli.main(["--config", str(loop_yaml(root, args, 2))]
+                            + argv)
+    counts = warp_counts()
+    if rc != 0:
+        raise AssertionError(f"the train CLI exited {rc}")
+    trainer = run1.trainers[0]
+    steps = sum(ep["steps"] for ep in run1.epochs)
+    per_epoch = len(trainer.train_pipe)
+    val_batches = len(trainer.val_pipe)
+    vis = min(trainer.cfg.training.num_vis_samples,
+              len(trainer.val_loader))
+    panels = 2 if vis else 0
+    log(f"  train CLI: {len(run1.epochs)} epochs of {per_epoch} steps "
+        f"(batch {trainer.cfg.training.batch_size}, "
+        f"{len(trainer.train_loader)} train samples with the shipped "
+        f"augmentation), validation {val_batches} batches an epoch, "
+        f"{vis} panels an epoch; producers: train "
+        f"{run1.epochs[0]['producer']}, validation "
+        f"{trainer.val_pipe.producer}; TensorBoard writer "
+        f"{type(trainer.tb._writer).__name__}")
+    if [ep["steps"] for ep in run1.epochs] != [per_epoch] * 2:
+        raise AssertionError(f"epochs ran {run1.epochs} steps")
+    n_pcl = len(pcl_layers(trainer.model))
+    forwards_no_v = 2 * val_batches + panels
+    want = {"v_stores": n_pcl * steps if cuda else 0,
+            "bwd_launches": 3 * n_pcl * steps if cuda else 0,
+            "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
+            "fused": 0}
+    log(f"  two_pass_warp over the run: {counts['launches']} forward "
+        f"launches ({counts['v_stores']} storing V: {n_pcl} per train "
+        f"step; {counts['launches'] - counts['v_stores']} without: "
+        f"{n_pcl} per validation and panel forward, "
+        f"{forwards_no_v} forwards), {counts['bwd_launches']} backward "
+        f"launches ({3 * n_pcl} per step), fused_warp "
+        f"{counts['fused']}; expected {want}")
+    if counts != want:
+        raise AssertionError(f"warp launches {counts} != {want}")
 
-        losses = [float(x) for x in run1.losses]
-        log_dir = root / "logs" / name
-        rows = list(csv.reader((log_dir / "metrics.csv").open()))
-        ckpt_dir = root / "ckpts" / name
-        step_dirs = sorted(p.name for p in ckpt_dir.glob("step_*"))
-        tb_bytes = b"".join(p.read_bytes() for p in
-                            (log_dir / "tensorboard").rglob("*")
-                            if p.is_file())
-        log(f"  {len(losses)} step losses, first {losses[0]:.5g}, last "
-            f"{losses[-1]:.5g}; metrics.csv {len(rows[0])} columns, "
-            f"{len(rows) - 1} rows; checkpoints {step_dirs} and best/; "
-            f"panels in the TensorBoard files: "
-            f"{tb_bytes.count(b'predictions/sample_')}")
-        if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
-            raise AssertionError(f"step losses {losses}")
-        if not (log_dir / "training.log").exists() or len(rows[0]) != 13 \
-                or len(rows) != 3:
-            raise AssertionError(f"training.log or metrics.csv: {rows}")
-        if not step_dirs or not (ckpt_dir / "best" / "state.pt").exists():
-            raise AssertionError(f"checkpoints: {step_dirs}")
-        if vis and b"predictions/sample_0" not in tb_bytes:
-            raise AssertionError("no panel reached the TensorBoard files")
+    losses = [float(x) for x in run1.losses]
+    log_dir = root / "logs" / name
+    rows = list(csv.reader((log_dir / "metrics.csv").open()))
+    ckpt_dir = root / "ckpts" / name
+    step_dirs = sorted(p.name for p in ckpt_dir.glob("step_*"))
+    tb_bytes = b"".join(p.read_bytes() for p in
+                        (log_dir / "tensorboard").rglob("*")
+                        if p.is_file())
+    log(f"  {len(losses)} step losses, first {losses[0]:.5g}, last "
+        f"{losses[-1]:.5g}; metrics.csv {len(rows[0])} columns, "
+        f"{len(rows) - 1} rows; checkpoints {step_dirs} and best/; "
+        f"panels in the TensorBoard files: "
+        f"{tb_bytes.count(b'predictions/sample_')}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        raise AssertionError(f"step losses {losses}")
+    if not (log_dir / "training.log").exists() or len(rows[0]) != 13 \
+            or len(rows) != 3:
+        raise AssertionError(f"training.log or metrics.csv: {rows}")
+    if not step_dirs or not (ckpt_dir / "best" / "state.pt").exists():
+        raise AssertionError(f"checkpoints: {step_dirs}")
+    if vis and b"predictions/sample_0" not in tb_bytes:
+        raise AssertionError("no panel reached the TensorBoard files")
 
-        # bits: the pipeline's first batches on the device against the
-        # same pack's get_batch on the CPU
-        cfg = trainer.cfg
-        train_pipe = InputPipeline(
-            trainer.train_loader, cfg.training.batch_size, shuffle=True,
-            seed=cfg.experiment.seed, num_threads=4, device=device)
-        val_pipe = InputPipeline(
-            trainer.val_loader, cfg.training.batch_size, shuffle=False,
-            max_samples=cfg.training.max_val_samples, device=device)
-        bits = {"train_first": batches_equal(device, train_pipe,
-                                             trainer.train_loader, 1),
-                "val_epoch": batches_equal(device, val_pipe,
-                                           trainer.val_loader,
-                                           len(val_pipe))}
-        log(f"  batches on {device.type} against get_batch on the CPU: "
-            f"train's first (augmented, {train_pipe.producer}) max |diff| "
-            f"{bits['train_first']}, validation's {len(val_pipe)} kept "
-            f"through the epoch ({val_pipe.producer}) {bits['val_epoch']}")
-        if any(bits.values()):
-            raise AssertionError(f"the pipeline's batches differ: {bits}")
+    # bits: the pipeline's first batches on the device against the
+    # same pack's get_batch on the CPU
+    cfg = trainer.cfg
+    train_pipe = InputPipeline(
+        trainer.train_loader, cfg.training.batch_size, shuffle=True,
+        seed=cfg.experiment.seed, num_threads=4, device=device)
+    val_pipe = InputPipeline(
+        trainer.val_loader, cfg.training.batch_size, shuffle=False,
+        max_samples=cfg.training.max_val_samples, device=device)
+    bits = {"train_first": batches_equal(device, train_pipe,
+                                         trainer.train_loader, 1),
+            "val_epoch": batches_equal(device, val_pipe,
+                                       trainer.val_loader,
+                                       len(val_pipe))}
+    log(f"  batches on {device.type} against get_batch on the CPU: "
+        f"train's first (augmented, {train_pipe.producer}) max |diff| "
+        f"{bits['train_first']}, validation's {len(val_pipe)} kept "
+        f"through the epoch ({val_pipe.producer}) {bits['val_epoch']}")
+    if any(bits.values()):
+        raise AssertionError(f"the pipeline's batches differ: {bits}")
 
-        # the loop against the bare step
-        unit = "" if cuda else " [CPU rehearsal, not device numbers]"
-        times = sorted(run1.step_ms())
-        p50 = times[len(times) // 2]
-        p95 = times[min(len(times) - 1, int(round(0.95 * (len(times) - 1))))]
-        mean = sum(times) / len(times)
-        bsz = cfg.training.batch_size
-        last = run1.epochs[-1]
-        wait_ms = last["wait_s"] * 1000.0 / last["steps"]
-        loop = {"step_p50_ms": p50, "step_p95_ms": p95, "step_mean_ms": mean,
-                "images_per_sec": bsz * 1000.0 / mean,
-                "steps_timed": len(times), "bare_step_p50_ms": bare_p50,
-                "queue_wait_ms_per_step": wait_ms,
-                "epoch_wall_s": [ep["wall_s"] for ep in run1.epochs],
-                "producer": last["producer"],
-                "val_producer": trainer.val_pipe.producer,
-                "warp_counts": counts, "steps": steps,
-                "bits_max_abs": bits, "samples": meta["num_samples"]}
-        log(f"  [{card}] trainer loop, batch {bsz}: step p50 {p50:.3f} ms, "
-            f"p95 {p95:.3f} ms, mean {mean:.3f} ms, "
-            f"{loop['images_per_sec']:.2f} images/s ({len(times)} steps, "
-            f"host clock from step to step); bare TrainStep p50 (phase 9) "
-            f"{bare_p50:.3f} ms; waited on the queue {wait_ms:.3f} ms a "
-            f"step (epoch {last['epoch']}); epochs "
-            + ", ".join(f"{ep['wall_s']:.2f} s" for ep in run1.epochs)
-            + f"; producer {last['producer']}{unit}")
-        loop["gap_ms"] = p50 - bare_p50
-        if cuda:
-            prof = copy_profile(trainer, 6)
-            loop["copy"] = prof
-            if prof is None or not prof["copies"]:
-                log(f"  [{card}] the copies to the card: not measured (the "
-                    "profile held no host-to-device copy on a side stream)")
-            else:
-                log(f"  [{card}] the pipeline's copies to the card "
-                    f"(torch.profiler, 6 loop steps): {prof['copies']} "
-                    f"host-to-device memcpys on stream {prof['stream']} "
-                    f"(the step's kernels on {prof['compute_stream']}), "
-                    f"{prof['ms_per_batch']:.4f} ms a batch, "
-                    f"{prof['overlapped_share']:.1%} of it while a kernel "
-                    "ran on the step's stream")
-        # where the loop's time over the bare step goes: the same loop body
-        # fed by the pipeline (its producer threads running) and from
-        # batches already on the device (no producer threads), in turns,
-        # LOOP_PAIRS pairs (phase 9's bare step ran minutes earlier, and
-        # a host-bound step's p50 moves between runs and within one)
-        n = min(20, per_epoch - 2)
-        held = []
-        for b in trainer.train_pipe:
-            held.append(b)
-            if len(held) == n + 1:
-                break
-        pairs = [(fed_step_ms(trainer, trainer.train_pipe, n),
-                  fed_step_ms(trainer, held, n)) for _ in range(LOOP_PAIRS)]
-        del held
-        diffs = sorted(p[0] - h[0] for p, h in pairs)
-        cost = diffs[len(diffs) // 2]
-        waits = sorted(p[2] for p, _ in pairs)
-        pipe_wait = waits[len(waits) // 2]
-        loop["fed_pairs_p50_p95_wait_ms"] = pairs
-        loop["producer_cost_ms"] = cost
-        above = sum(d > pipe_wait for d in diffs)
-        loop["gil_finding"] = (
-            "the producer threads take the dispatching thread's time: fed "
-            "by the pipeline, the loop body is slower than fed from held "
-            "batches by more than its queue wait"
-            if cost > pipe_wait and above >= LOOP_PAIRS - 1 else
-            "the producer threads do not slow the dispatching thread: fed "
-            "by the pipeline, the loop body is within its queue wait of "
-            "the held-fed body" if cost <= pipe_wait else
-            "unresolved: the pairs disagree")
-        log(f"  [{card}] the loop body ({n} steps a block, p50 ms), fed by "
-            "the pipeline / from batches held on the device, in turns: "
-            + ", ".join(f"{p[0]:.3f} / {h[0]:.3f}" for p, h in pairs)
-            + f"; the pipeline-fed blocks waited {pipe_wait:.3f} ms a step "
-            f"on the queue (median); bare TrainStep p50 (phase 9) "
-            f"{bare_p50:.3f} ms{unit}")
-        log(f"  [{card}] pipeline-fed p50 - held-fed p50, median of "
-            f"{LOOP_PAIRS} pairs: {cost:.3f} ms ({above} of {LOOP_PAIRS} "
-            f"pairs above the wait): {loop['gil_finding']}{unit}")
-        del trainer, run1
+    # the loop against the bare step
+    unit = "" if cuda else " [CPU rehearsal, not device numbers]"
+    times = sorted(run1.step_ms())
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(round(0.95 * (len(times) - 1))))]
+    mean = sum(times) / len(times)
+    bsz = cfg.training.batch_size
+    last = run1.epochs[-1]
+    wait_ms = last["wait_s"] * 1000.0 / last["steps"]
+    loop = {"step_p50_ms": p50, "step_p95_ms": p95, "step_mean_ms": mean,
+            "images_per_sec": bsz * 1000.0 / mean,
+            "steps_timed": len(times), "bare_step_p50_ms": bare_p50,
+            "queue_wait_ms_per_step": wait_ms,
+            "epoch_wall_s": [ep["wall_s"] for ep in run1.epochs],
+            "producer": last["producer"],
+            "val_producer": trainer.val_pipe.producer,
+            "warp_counts": counts, "steps": steps,
+            "bits_max_abs": bits, "samples": meta["num_samples"]}
+    log(f"  [{card}] trainer loop, batch {bsz}: step p50 {p50:.3f} ms, "
+        f"p95 {p95:.3f} ms, mean {mean:.3f} ms, "
+        f"{loop['images_per_sec']:.2f} images/s ({len(times)} steps, "
+        f"host clock from step to step); bare TrainStep p50 (phase 9) "
+        f"{bare_p50:.3f} ms; waited on the queue {wait_ms:.3f} ms a "
+        f"step (epoch {last['epoch']}); epochs "
+        + ", ".join(f"{ep['wall_s']:.2f} s" for ep in run1.epochs)
+        + f"; producer {last['producer']}{unit}")
+    loop["gap_ms"] = p50 - bare_p50
+    if cuda:
+        prof = copy_profile(trainer, 6)
+        loop["copy"] = prof
+        if prof is None or not prof["copies"]:
+            log(f"  [{card}] the copies to the card: not measured (the "
+                "profile held no host-to-device copy on a side stream)")
+        else:
+            log(f"  [{card}] the pipeline's copies to the card "
+                f"(torch.profiler, 6 loop steps): {prof['copies']} "
+                f"host-to-device memcpys on stream {prof['stream']} "
+                f"(the step's kernels on {prof['compute_stream']}), "
+                f"{prof['ms_per_batch']:.4f} ms a batch, "
+                f"{prof['overlapped_share']:.1%} of it while a kernel "
+                "ran on the step's stream")
+    # where the loop's time over the bare step goes: the same loop body
+    # fed by the pipeline (its producer threads running) and from
+    # batches already on the device (no producer threads), in turns,
+    # LOOP_PAIRS pairs (phase 9's bare step ran minutes earlier, and
+    # a host-bound step's p50 moves between runs and within one)
+    n = min(20, per_epoch - 2)
+    held = []
+    for b in trainer.train_pipe:
+        held.append(b)
+        if len(held) == n + 1:
+            break
+    pairs = [(fed_step_ms(trainer, trainer.train_pipe, n),
+              fed_step_ms(trainer, held, n)) for _ in range(LOOP_PAIRS)]
+    del held
+    diffs = sorted(p[0] - h[0] for p, h in pairs)
+    cost = diffs[len(diffs) // 2]
+    waits = sorted(p[2] for p, _ in pairs)
+    pipe_wait = waits[len(waits) // 2]
+    loop["fed_pairs_p50_p95_wait_ms"] = pairs
+    loop["producer_cost_ms"] = cost
+    above = sum(d > pipe_wait for d in diffs)
+    loop["gil_finding"] = (
+        "the producer threads take the dispatching thread's time: fed "
+        "by the pipeline, the loop body is slower than fed from held "
+        "batches by more than its queue wait"
+        if cost > pipe_wait and above >= LOOP_PAIRS - 1 else
+        "the producer threads do not slow the dispatching thread: fed "
+        "by the pipeline, the loop body is within its queue wait of "
+        "the held-fed body" if cost <= pipe_wait else
+        "unresolved: the pairs disagree")
+    log(f"  [{card}] the loop body ({n} steps a block, p50 ms), fed by "
+        "the pipeline / from batches held on the device, in turns: "
+        + ", ".join(f"{p[0]:.3f} / {h[0]:.3f}" for p, h in pairs)
+        + f"; the pipeline-fed blocks waited {pipe_wait:.3f} ms a step "
+        f"on the queue (median); bare TrainStep p50 (phase 9) "
+        f"{bare_p50:.3f} ms{unit}")
+    log(f"  [{card}] pipeline-fed p50 - held-fed p50, median of "
+        f"{LOOP_PAIRS} pairs: {cost:.3f} ms ({above} of {LOOP_PAIRS} "
+        f"pairs above the wait): {loop['gil_finding']}{unit}")
+    del trainer, run1
 
-        # resume from the latest checkpoint for a third epoch
-        with LoopProbe() as run2:
-            rc = train_cli.main(["--config", str(loop_yaml(root, args, 3)),
-                                 "--resume", "latest"] + argv)
-        if rc != 0:
-            raise AssertionError(f"the resumed train CLI exited {rc}")
-        ep = run2.epochs[0]
-        first = float(run2.losses[0])
-        log(f"  resumed: started at epoch {ep['epoch']} with step "
-            f"{ep['step_before']} and optimizer updates "
-            f"{ep['updates_before']} (the first run took {steps}); first "
-            f"loss {first:.5g}")
-        if ep["epoch"] != 2 or ep["step_before"] != steps or \
-                ep["updates_before"] != steps or not math.isfinite(first):
-            raise AssertionError(f"resume: {ep}, first loss {first}")
-        loop["resume"] = {"start_epoch": ep["epoch"],
-                          "step": ep["step_before"],
-                          "updates": ep["updates_before"],
-                          "first_loss": first}
-        del run2
+    # resume from the latest checkpoint for a third epoch
+    with LoopProbe() as run2:
+        rc = train_cli.main(["--config", str(loop_yaml(root, args, 3)),
+                             "--resume", "latest"] + argv)
+    if rc != 0:
+        raise AssertionError(f"the resumed train CLI exited {rc}")
+    ep = run2.epochs[0]
+    first = float(run2.losses[0])
+    log(f"  resumed: started at epoch {ep['epoch']} with step "
+        f"{ep['step_before']} and optimizer updates "
+        f"{ep['updates_before']} (the first run took {steps}); first "
+        f"loss {first:.5g}")
+    if ep["epoch"] != 2 or ep["step_before"] != steps or \
+            ep["updates_before"] != steps or not math.isfinite(first):
+        raise AssertionError(f"resume: {ep}, first loss {first}")
+    loop["resume"] = {"start_epoch": ep["epoch"],
+                      "step": ep["step_before"],
+                      "updates": ep["updates_before"],
+                      "first_loss": first}
+    del run2
 
-        # the evaluate CLI on best/
-        out = root / "eval"
-        rc = evaluate_cli.main(
-            ["--checkpoint", "best", "--config", str(loop_yaml(root, args, 3)),
-             "--output", str(out), "--max-samples", str(args.loop_val),
-             "--batch-size", str(cfg.training.batch_size), "--num-vis", "2"]
-            + argv)
-        per_sample = list(csv.reader((out / "per_sample_metrics.csv").open()))
-        summary = list(csv.reader((out / "summary_metrics.csv").open()))
-        abs_rel = {r[0]: r[1] for r in summary[1:]}.get("abs_rel")
-        log(f"  evaluate CLI on best/: exit {rc}, {len(per_sample) - 1} "
-            f"samples (validation capped at {args.loop_val}), mean abs_rel "
-            f"{abs_rel}, files {sorted(p.name for p in out.iterdir())}")
-        if rc != 0 or len(per_sample) - 1 != args.loop_val or \
-                not (out / "report.txt").exists():
-            raise AssertionError("the evaluate CLI's outputs")
-        loop["eval"] = {"samples": len(per_sample) - 1,
-                        "abs_rel": float(abs_rel)}
-        return loop
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # the evaluate CLI on best/
+    out = root / "eval"
+    rc = evaluate_cli.main(
+        ["--checkpoint", "best", "--config", str(loop_yaml(root, args, 3)),
+         "--output", str(out), "--max-samples", str(args.loop_val),
+         "--batch-size", str(cfg.training.batch_size), "--num-vis", "2"]
+        + argv)
+    per_sample = list(csv.reader((out / "per_sample_metrics.csv").open()))
+    summary = list(csv.reader((out / "summary_metrics.csv").open()))
+    abs_rel = {r[0]: r[1] for r in summary[1:]}.get("abs_rel")
+    log(f"  evaluate CLI on best/: exit {rc}, {len(per_sample) - 1} "
+        f"samples (validation capped at {args.loop_val}), mean abs_rel "
+        f"{abs_rel}, files {sorted(p.name for p in out.iterdir())}")
+    if rc != 0 or len(per_sample) - 1 != args.loop_val or \
+            not (out / "report.txt").exists():
+        raise AssertionError("the evaluate CLI's outputs")
+    loop["eval"] = {"samples": len(per_sample) - 1,
+                    "abs_rel": float(abs_rel)}
+    return loop
 
 
 
@@ -3252,31 +3283,469 @@ def feed_b4_pairs(device, args, card: str, root: pathlib.Path):
     return out
 
 
-def device_feed(device, args, card: str):
+def device_feed(device, args, card: str, root: pathlib.Path):
     """Phase 20: the GPU-resident feed. A pack of seeded structured scenes
     at the training size; the feed's batches on the card against the CPU
     and the chunked feed against the resident one; the two-pass kernels
     at batch 32; the flagship's batch-32 config trained, resumed and
     evaluated from the card; batch 4 fed from the card against the host
-    pipeline."""
-    import shutil
-    import tempfile
+    pipeline. The pack and the run stay under ``root`` (phase 22 serves
+    its checkpoints)."""
+    t0 = time.perf_counter()
+    meta = write_pack(root, args, args.feed_scenes, args.seed + 20)
+    out = {"pack": {"samples": meta["num_samples"],
+                    "build_s": time.perf_counter() - t0}}
+    out["batches"] = feed_batches(device, args, card, root / "pack")
+    out["two_pass_b32"] = check_b32_kernels(device, args, card)
+    out["train"] = feed_train(device, args, card, root)
+    out["b4_pairs"] = feed_b4_pairs(device, args, card, root)
+    return out
 
-    (ROOT / "build").mkdir(exist_ok=True)
-    root = pathlib.Path(tempfile.mkdtemp(prefix="phase20_",
-                                         dir=ROOT / "build"))
-    try:
+
+# phase 21: the other model families
+TRAIN_CONFIG = ROOT / "configs" / "train_config.yaml"
+# (case, experiment block of configs/train_config.yaml; None: its base
+# model, baseline_unet)
+FAMILY_CASES = (("baseline_unet", None),
+                ("ablation_film_only", "ablation_film_only"),
+                ("intrinsics_only", "intrinsics_only"),
+                ("geometry_aware_lightweight", "geometry_aware_lightweight"))
+FAMILY_STEPS = 10
+
+
+def family_config(args, experiment):
+    """configs/train_config.yaml with ``experiment`` as shipped: 240x320,
+    the family's width and batch (checked on the card); a CPU rehearsal
+    shrinks the size, the width and the batch."""
+    from cadepth_tpu_torch.config import load_config
+
+    cfg = load_config(str(TRAIN_CONFIG), experiment=experiment)
+    if args.height == 240:
+        d, m = cfg.data, cfg.model
+        if (d.input_height, d.input_width, m.init_features,
+                cfg.training.batch_size) != (240, 320, 64, 8):
+            raise AssertionError(f"{experiment}: not the shipped 240x320, "
+                                 "f=64, batch 8")
+    else:
+        cfg.data.input_height, cfg.data.input_width = args.height, args.width
+        cfg.model.init_features = args.init_features
+        cfg.training.batch_size = args.train_batch
+    return cfg
+
+
+def profile_steps(step, batches, n: int = 3):
+    """(device busy ms, kernels) per call of ``step`` over ``n`` profiled
+    calls (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+    rows = device_rows(prof, n)
+    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+def family_case(device, args, card: str, case: str, experiment):
+    """Phase 21a: one family as configs/train_config.yaml ships it: 10
+    train steps on seeded batches, counted; a Predictor at the batch and
+    at batch 1; times, profiles, peak memory; the small f32 model card
+    against CPU. For the lightweight network also its warp kernels
+    against plain at its four levels, served depths against the plain
+    warp and the kernels' times at its levels."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.inference import Predictor
+    from cadepth_tpu_torch.models.factory import count_parameters
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+    from cadepth_tpu_torch.ops.affine_warp import two_pass_affine_warp_plain
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    cfg = family_config(args, experiment)
+    m, bsz = cfg.model, cfg.training.batch_size
+    h, w = cfg.data.input_height, cfg.data.input_width
+    gen = torch.Generator().manual_seed(args.seed + 21)
+    model, loss_fn = ts.build_model_and_loss(cfg, device=device,
+                                             generator=gen)
+    rotate_pcl_heads(model, gen)
+    n_pcl = len(pcl_layers(model))
+    out = {"model": type(model).__name__, "architecture": m.architecture,
+           "init_features": model.out_conv.in_channels, "batch": bsz,
+           "parameters": count_parameters(model), "pcls": n_pcl}
+    log(f"  {case}: {out['model']} ({m.architecture}, variant {m.variant}, "
+        f"use_attention {m.use_attention}), f={out['init_features']}, "
+        f"{h}x{w}, batch {bsz}, {'bf16' if cfg.training.use_amp else 'f32'}"
+        f" over fp32 parameters, {out['parameters']:,} parameters")
+
+    schedule = build_lr_schedule(cfg.optimization, STEPS_PER_EPOCH,
+                                 cfg.training.num_epochs)
+    step = ts.make_train_step(
+        cfg, model, loss_fn,
+        ts.build_optimizer(cfg.optimization, model.parameters()), schedule)
+    rng = np.random.default_rng(args.seed + 21)
+    batches = [synthetic_batch(rng, bsz, h, w, device)
+               for _ in range(FAMILY_STEPS)]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # this path, counted
+    reset_warp_counts()
+    logs, times = [], []
+    for b in batches:
         t0 = time.perf_counter()
-        meta = write_pack(root, args, args.feed_scenes, args.seed + 20)
-        out = {"pack": {"samples": meta["num_samples"],
-                        "build_s": time.perf_counter() - t0}}
-        out["batches"] = feed_batches(device, args, card, root / "pack")
-        out["two_pass_b32"] = check_b32_kernels(device, args, card)
-        out["train"] = feed_train(device, args, card, root)
-        out["b4_pairs"] = feed_b4_pairs(device, args, card, root)
-        return out
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        logs.append(step(b))
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    counts = warp_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    logs = [{k: float(v) for k, v in x.items()} for x in logs]
+    calls = n_pcl * FAMILY_STEPS if cuda else 0
+    want = {"launches": calls, "bwd_launches": 3 * calls, "v_stores": calls,
+            "fused": 0}
+    losses = [x["total_loss"] for x in logs]
+    log(f"  {FAMILY_STEPS} train steps: losses "
+        + " ".join(f"{x:.5g}" for x in losses)
+        + f"; two_pass_warp {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"{case}: warp counts {counts} != {want}")
+    if not all(math.isfinite(v) for x in logs for v in x.values()):
+        raise AssertionError(f"{case}: non-finite logs {logs}")
+    timed = sorted(times[2:])
+    mean = sum(timed) / len(timed)
+    out.update(train_counts=counts, losses=losses, peak_bytes=peak,
+               step_p50_ms=timed[len(timed) // 2], step_p95_ms=timed[-1],
+               images_per_sec=bsz * 1000.0 / mean)
+    if cuda:
+        out["step_busy_ms"], out["step_kernels"] = profile_steps(step,
+                                                                 batches)
+    log(f"  [{card}] train step batch {bsz}: p50 {out['step_p50_ms']:.3f} "
+        f"ms, p95 {out['step_p95_ms']:.3f} ms, "
+        f"{out['images_per_sec']:.2f} images/s (steps 3-{FAMILY_STEPS}, host "
+        f"clock to a synchronize){unit}"
+        + (f"; device busy {out['step_busy_ms']:.3f} ms a step, "
+           f"{out['step_kernels']} kernels (torch.profiler, 3 steps); peak "
+           f"{peak / 2**30:.3f} GiB" if cuda else ""))
+
+    # serving the trained weights at the batch and at batch 1
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del step, model, loss_fn
+    req = np.random.default_rng(args.seed + 22).uniform(
+        0, 1, (bsz, h, w, 3)).astype(np.float32)
+    for b in (bsz, 1):
+        pred = Predictor(cfg, sd, batch_size=b, device=device)
+        reset_warp_counts()
+        depth = pred.predict(req[:b])
+        served = warp_counts()
+        want = {"launches": n_pcl if cuda else 0, "bwd_launches": 0,
+                "v_stores": 0, "fused": 0}
+        ok = np.isfinite(depth).all() and 0 < depth.min() and \
+            depth.max() < m.max_depth
+        if not ok or served != want:
+            raise AssertionError(f"{case} batch {b}: depths in "
+                                 f"[{depth.min()}, {depth.max()}], warp "
+                                 f"counts {served} != {want}")
+        bench = pred.benchmark(iterations=args.mode_bench_iters, warmup=3)
+        row = {"p50_ms": bench["p50_ms"], "p95_ms": bench["p95_ms"],
+               "images_per_sec": bench["images_per_sec"],
+               "warp_counts": served}
+        if cuda and b == bsz:
+            prof = profile_forward(pred, card)
+            row.update(busy_ms=prof["busy_ms"],
+                       kernels=prof["kernels_per_forward"])
+        log(f"  [{card}] Predictor batch {b}: depths in [{depth.min():.4f}, "
+            f"{depth.max():.4f}] m, two_pass_warp launches "
+            f"{served['launches']} a forward (expected {want['launches']}); "
+            f"p50 {bench['p50_ms']:.3f} ms, p95 {bench['p95_ms']:.3f} ms, "
+            f"{bench['images_per_sec']:.2f} images/s{unit}")
+        out[f"predictor_b{b}"] = row
+    if n_pcl:
+        # the served depths with the kernel against the plain warp
+        pred_b = Predictor(cfg, sd, batch_size=bsz, device=device)
+        kernel_depth = pred_b.predict(req)
+        for pcl in pcl_layers(pred_b.model):
+            pcl.warp = two_pass_affine_warp_plain
+        err = float(np.abs(kernel_depth - pred_b.predict(req)).max())
+        log(f"  served depths, kernel vs plain warp on the {device.type}: "
+            f"max|err| {err:.3g} m (atol {SERVE_ATOL})")
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"{case}: served kernel vs plain {err}")
+        out["served_vs_plain_max_err_m"] = err
+        del pred_b
+        # its four levels at its batch, serving and training alike
+        shapes = decoder_shapes(bsz, h, w, out["init_features"], levels=4)
+        out["fwd_max_abs_err"] = check_kernel(device, shapes, args.seed + 21)
+        out["bwd_max_abs_err"] = check_backward(device, shapes,
+                                                args.seed + 22)
+        out["fwd_levels"], _ = level_times(
+            device, args, card, "two_pass_warp (lightweight)",
+            tpw.two_pass_warp, two_pass_affine_warp_plain, tpw,
+            TWO_PASS_FWD_KEYS, shapes=shapes)
+        out["bwd_levels"] = bwd_times(device, args, card, shapes=shapes)
+    arch = {"architecture": m.architecture, "variant": m.variant,
+            "use_attention": m.use_attention}
+    out["card_vs_cpu_f32"] = cross_device_train(device, args, arch, (64, 64))
+    return out
+
+
+def family_cli(device, args, card: str, root: pathlib.Path,
+               pack: pathlib.Path):
+    """Phase 21b: the train CLI on configs/train_config.yaml as shipped
+    (its base model, baseline_unet) from phase 19's pack for one epoch,
+    then the evaluate CLI on its best/."""
+    import csv
+    import math
+
+    import yaml
+
+    from cadepth_tpu_torch.cli import evaluate as evaluate_cli
+    from cadepth_tpu_torch.cli import train as train_cli
+
+    raw = deep_merge(yaml.safe_load(TRAIN_CONFIG.read_text()), {
+        "data": {"packed_dir": str(pack), "input_height": args.height,
+                 "input_width": args.width},
+        "training": {"num_epochs": 1, "max_val_samples": args.loop_val},
+        "checkpointing": {"checkpoint_dir": str(root / "ckpts")},
+        "logging": {"log_dir": str(root / "logs")},
+    })
+    if args.height != 240:
+        raw["model"]["init_features"] = args.init_features
+        raw["training"]["batch_size"] = args.train_batch
+    path = root / "baseline.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    argv = ["--device", device.type]
+    reset_warp_counts()
+    t0 = time.perf_counter()
+    with LoopProbe() as run:
+        rc = train_cli.main(["--config", str(path)] + argv)
+    wall = time.perf_counter() - t0
+    counts = warp_counts()
+    trainer = run.trainers[0]
+    name = trainer.cfg.experiment.name
+    losses = [float(x) for x in run.losses]
+    best = root / "ckpts" / name / "best" / "state.pt"
+    log(f"  train CLI on {TRAIN_CONFIG.relative_to(ROOT)} "
+        f"({type(trainer.model).__name__}, f="
+        f"{trainer.cfg.model.init_features}, batch "
+        f"{trainer.cfg.training.batch_size}): exit {rc}, {len(losses)} steps "
+        f"in one epoch, losses {losses[0]:.5g} .. {losses[-1]:.5g}, "
+        f"{wall:.1f} s with validation; best/ written: {best.exists()}; "
+        f"warp counts {counts}")
+    if rc != 0 or not losses or not all(map(math.isfinite, losses)) or \
+            not best.exists() or any(counts.values()):
+        raise AssertionError("the baseline_unet train CLI run")
+    del trainer, run
+    out_dir = root / "eval"
+    rc = evaluate_cli.main(
+        ["--checkpoint", "best", "--config", str(path), "--output",
+         str(out_dir), "--max-samples", str(args.loop_val), "--batch-size",
+         "8", "--num-vis", "1"] + argv)
+    rows = list(csv.reader((out_dir / "per_sample_metrics.csv").open()))
+    summary = {r[0]: r[1] for r in list(csv.reader(
+        (out_dir / "summary_metrics.csv").open()))[1:]}
+    log(f"  evaluate CLI on best/: exit {rc}, {len(rows) - 1} samples, mean "
+        f"abs_rel {summary.get('abs_rel')}")
+    if rc != 0 or len(rows) - 1 != args.loop_val:
+        raise AssertionError("the evaluate CLI on the baseline's best/")
+    return {"steps": len(losses), "first_loss": losses[0],
+            "last_loss": losses[-1], "wall_s": wall,
+            "eval_samples": len(rows) - 1,
+            "eval_abs_rel": float(summary["abs_rel"])}
+
+
+def other_families(device, args, card: str, root: pathlib.Path,
+                   pack: pathlib.Path):
+    """Phase 21: the four other families' cases, then the baseline's train
+    and evaluate CLIs."""
+    out = {case: family_case(device, args, card, case, experiment)
+           for case, experiment in FAMILY_CASES}
+    out["train_cli"] = family_cli(device, args, card, root, pack)
+    return out
+
+
+# phase 22: serving from a checkpoint
+EXPORT_ATOL = 1e-3   # metres; the program runs the same kernels: 0 expected
+EXPORT_PAIRS = 5
+
+
+def run_ms(fn, calls: int = 10) -> float:
+    """p50 ms of ``calls`` calls of fn(), each on the host clock to a
+    synchronize."""
+    import torch
+
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return sorted(times)[calls // 2]
+
+
+def serve_checkpoint(device, args, card: str, root: pathlib.Path,
+                     run: pathlib.Path, weights):
+    """Phase 22: phase 20's run served through Predictor.from_checkpoint
+    ("best" and "latest") against Predictors built from the same state
+    dicts; the exported program at the batch and at batch 1 against
+    predict, counted and timed in turns with the eager forward; phase
+    11's pcl_warp fused model exported once; the infer CLI on a 640x480
+    PNG."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.cli import infer as infer_cli
+    from cadepth_tpu_torch.config import load_config
+    from cadepth_tpu_torch.inference import Predictor, load_exported
+    from cadepth_tpu_torch.ops import fused_warp as fw
+    from cadepth_tpu_torch.training.checkpoint import CheckpointManager
+
+    cuda = device.type == "cuda"
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    cfg_path = feed_yaml(run, args, 3)
+    cfg = load_config(str(cfg_path))
+    h, w, bsz = cfg.data.input_height, cfg.data.input_width, args.batch
+    mgr = CheckpointManager(str(run / "ckpts" / cfg.experiment.name))
+    rng = np.random.default_rng(args.seed + 22)
+    req = synthetic_batch(rng, bsz, h, w, "cpu")
+    rgb, kmat = req["rgb"].numpy(), req["intrinsics"].numpy()
+    out = {"config": cfg.experiment.name}
+    preds = {}
+    for which, b in (("best", bsz), ("latest", bsz), ("best", 1)):
+        reset_warp_counts()
+        pred = Predictor.from_checkpoint(cfg, which, batch_size=b,
+                                         device=device)
+        depth = pred.predict(rgb[:b], kmat[:b])
+        counts = warp_counts()
+        n_pcl = len(pcl_layers(pred.model))
+        want = {"launches": n_pcl if cuda else 0, "bwd_launches": 0,
+                "v_stores": 0, "fused": 0}
+        sd = mgr.restore(mgr.resolve(which))["model"]
+        same = np.array_equal(depth, Predictor(cfg, sd, batch_size=b,
+                                               device=device)
+                              .predict(rgb[:b], kmat[:b]))
+        log(f"  from_checkpoint({which!r}, batch {b}) "
+            f"[{pathlib.Path(mgr.resolve(which)).name}]: depths in "
+            f"[{depth.min():.4f}, {depth.max():.4f}] m, bit-equal to the "
+            f"state-dict Predictor: {same}; two_pass_warp {counts} "
+            f"(expected {want})")
+        if not same or counts != want or not np.isfinite(depth).all():
+            raise AssertionError(f"from_checkpoint {which} batch {b}")
+        out[f"{which}_b{b}"] = {"bit_equal": same, "warp_counts": counts}
+        if which == "best":
+            preds[b] = pred
+
+    # the exported programs
+    for b, pred in preds.items():
+        path = root / f"flagship_b{b}.pt2"
+        t0 = time.perf_counter()
+        nbytes = pred.export(str(path))
+        export_s = time.perf_counter() - t0
+        fn = load_exported(str(path))
+        batch = pred._make_batch(rgb[:b], kmat[:b])
+        reset_warp_counts()
+        got = fn(batch)
+        if cuda:
+            torch.cuda.synchronize()
+        counts = warp_counts()
+        err = float(np.abs(got.cpu().numpy()
+                           - pred.predict(rgb[:b], kmat[:b])).max())
+        row = {"max_abs_err_m": err, "mib": nbytes / 2**20,
+               "export_s": export_s, "warp_counts": counts}
+        log(f"  exported program, batch {b}: {row['mib']:.1f} MiB written in "
+            f"{export_s:.1f} s; max|program - predict| {err:.3g} m (limit "
+            f"{EXPORT_ATOL}); two_pass_warp {counts} a forward")
+        if not err <= EXPORT_ATOL or \
+                counts["launches"] != (len(pcl_layers(pred.model))
+                                       if cuda else 0):
+            raise AssertionError(f"exported program batch {b}")
+        if b == bsz:
+            eager = lambda: pred._predict(batch)  # noqa: E731
+            program = lambda: fn(batch)  # noqa: E731
+            run_ms(eager, 3)
+            run_ms(program, 3)
+            pairs = [(run_ms(eager), run_ms(program))
+                     for _ in range(EXPORT_PAIRS)]
+            row["eager_program_pairs_p50_ms"] = pairs
+            log(f"  [{card}] batch {b} forward p50 ms, eager / exported "
+                f"program, in turns (10 calls a block, host clock to a "
+                f"synchronize): " + ", ".join(f"{a:.3f} / {p:.3f}"
+                                              for a, p in pairs) + unit)
+        out[f"exported_b{b}"] = row
+        path.unlink()
+
+    # pcl_warp fused, phase 11's weights, exported once
+    fcfg = flagship_config(args.init_features, args.height, args.width,
+                           args.batch, "fused")
+    fpred = Predictor(fcfg, weights, batch_size=bsz, device=device)
+    path = root / "fused.pt2"
+    fpred.export(str(path))
+    fn = load_exported(str(path))
+    fr = synthetic_batch(rng, bsz, args.height, args.width, "cpu")
+    fbatch = fpred._make_batch(fr["rgb"].numpy(), fr["intrinsics"].numpy())
+    reset_warp_counts()
+    got = fn(fbatch)
+    if cuda:
+        torch.cuda.synchronize()
+    fcount = fw.launches
+    err = float(np.abs(got.cpu().numpy() - fpred.predict(
+        fr["rgb"].numpy(), fr["intrinsics"].numpy())).max())
+    n_pcl = len(pcl_layers(fpred.model))
+    log(f"  exported pcl_warp fused program, batch {bsz}: max|program - "
+        f"predict| {err:.3g} m; fused_warp launches {fcount} (expected "
+        f"{n_pcl if cuda else 0})")
+    if not err <= EXPORT_ATOL or fcount != (n_pcl if cuda else 0):
+        raise AssertionError("the exported fused program")
+    out["exported_fused"] = {"max_abs_err_m": err, "launches": fcount}
+    path.unlink()
+    del fpred, fn
+
+    # the infer CLI on a 640x480 PNG and an intrinsics.txt
+    png, ktxt = root / "frame.png", root / "intrinsics.txt"
+    image = cv2.GaussianBlur(rng.integers(0, 256, (480, 640, 3), np.uint8),
+                             (9, 9), 0)
+    cv2.imwrite(str(png), image)
+    k0 = np.array([[518.9, 0, 320.4], [0, 519.5, 242.1], [0, 0, 1]],
+                  np.float32)
+    np.savetxt(ktxt, k0)
+    dest = root / "infer"
+    reset_warp_counts()
+    rc = infer_cli.main(["--checkpoint", "best", "--config", str(cfg_path),
+                         "--image", str(png), "--intrinsics", str(ktxt),
+                         "--output", str(dest), "--save-npy", "--device",
+                         device.type])
+    counts = warp_counts()
+    files = sorted(p.name for p in dest.iterdir()) if dest.exists() else []
+    rgb0 = cv2.cvtColor(cv2.imread(str(png)), cv2.COLOR_BGR2RGB) \
+        .astype(np.float32) / 255.0
+    k = k0.copy()
+    k[0, 0] *= w / 640
+    k[1, 1] *= h / 480
+    k[0, 2] *= w / 640
+    k[1, 2] *= h / 480
+    want = preds[1].predict(cv2.resize(rgb0, (w, h),
+                                       interpolation=cv2.INTER_LINEAR)[None],
+                            k[None])[0, ..., 0]
+    want = cv2.resize(want, (640, 480), interpolation=cv2.INTER_NEAREST)
+    got = np.load(dest / "frame_depth.npy")
+    same = got.shape == want.shape and np.array_equal(got, want)
+    log(f"  infer CLI on a 640x480 PNG: exit {rc}, files {files}, two_pass_"
+        f"warp launches {counts['launches']}; its .npy equals a batch-1 "
+        f"Predictor on the same resized input: {same}")
+    if rc != 0 or files != ["frame_depth.npy", "frame_depth.png",
+                            "frame_depth_vis.png"] or not same:
+        raise AssertionError("the infer CLI")
+    out["infer_cli"] = {"files": files, "equals_predictor": same,
+                        "warp_counts": counts}
+    return out
 
 
 def main(argv=None) -> int:
@@ -3422,7 +3891,6 @@ def main(argv=None) -> int:
 
         phase("16. serving with pcl_warp gather, auto and separable")
         modes, banded = serve_modes(device, args, card, weights, request)
-    del weights
 
     phase("17. training with pcl_warp gather, auto and separable; remat; "
           "norm group and decoder_upsample resize")
@@ -3461,11 +3929,33 @@ def main(argv=None) -> int:
                 f"{b_floor * 1e3:.2f} us device")
     g_rows, g_total = gather_times(device, args, card)
 
-    phase("19. the trainer loop on host data")
-    loop = trainer_loop(device, args, card, train_out["p50_ms"])
+    # phases 19-22 work under one directory: phase 21 trains from phase
+    # 19's pack, phase 22 serves phase 20's checkpoints
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="smoke_", dir=ROOT / "build"))
+    roots = {k: work / f"phase{k}" for k in (19, 20, 21, 22)}
+    for r in roots.values():
+        r.mkdir()
+    try:
+        phase("19. the trainer loop on host data")
+        loop = trainer_loop(device, args, card, train_out["p50_ms"],
+                            roots[19])
 
-    phase("20. the GPU-resident feed")
-    feed = device_feed(device, args, card)
+        phase("20. the GPU-resident feed")
+        feed = device_feed(device, args, card, roots[20])
+
+        phase("21. the other model families")
+        families = other_families(device, args, card, roots[21],
+                                  roots[19] / "pack")
+
+        phase("22. serving from a checkpoint")
+        served = serve_checkpoint(device, args, card, roots[22], roots[20],
+                                  weights)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del weights
+    log(f"  wall time of the whole script: "
+        f"{time.perf_counter() - START:.1f} s")
 
     if rehearsal:
         log("== rehearsal done: every phase ran on the CPU; no result "
@@ -3478,6 +3968,11 @@ def main(argv=None) -> int:
     b32_rows = feed["two_pass_b32"]["levels"]
     b32_dec1, feed_counts = b32_rows["dec1"], feed["train"]["warp_counts"]
     f_dec1, f_bwd_dec1 = f_rows["dec1"], f_bwd_rows["dec1"]
+    light = families["geometry_aware_lightweight"]
+    fam_keys = ("kernel_ms", "kernel_wall_ms", "plain_ms", "library_ms",
+                "bound_ms")
+    bwd_keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "train_fwd_ms", "train_fwd_bound_ms")
     kernels = {"kernels": [{
         "name": "two_pass_warp",
         "route": "cuda",
@@ -3493,6 +3988,22 @@ def main(argv=None) -> int:
         "v_stores_in_trainer_loop": loop["warp_counts"]["v_stores"],
         "launches_in_device_feed": feed_counts["launches"],
         "v_stores_in_device_feed": feed_counts["v_stores"],
+        "lightweight": {
+            "launches_in_training": light["train_counts"]["launches"],
+            "v_stores_in_training": light["train_counts"]["v_stores"],
+            "launches_per_forward":
+                light[f"predictor_b{light['batch']}"]["warp_counts"]
+                ["launches"],
+            "max_abs_err_by_dtype": light["fwd_max_abs_err"],
+            "levels": {k: {m: r[m] for m in fam_keys}
+                       for k, r in light["fwd_levels"].items()},
+            "at": "B=8, 240x320, f=32, bf16"},
+        "launches_from_checkpoint": {
+            k: v["warp_counts"]["launches"] for k, v in served.items()
+            if k.startswith(("best", "latest"))},
+        "launches_in_exported_program": {
+            k: v["warp_counts"]["launches"] for k, v in served.items()
+            if k.startswith("exported_b")},
         "at_batch_32": {
             "train_fwd_ms": b32_dec1["train_fwd_ms"],
             "train_fwd_bound_ms": b32_dec1["train_fwd_bound_ms"],
@@ -3532,6 +4043,12 @@ def main(argv=None) -> int:
         "launches_per_step": tr["bwd_per_step"],
         "launches_in_trainer_loop": loop["warp_counts"]["bwd_launches"],
         "launches_in_device_feed": feed_counts["bwd_launches"],
+        "lightweight": {
+            "launches_in_training": light["train_counts"]["bwd_launches"],
+            "max_abs_err_by_dtype": light["bwd_max_abs_err"],
+            "levels": {k: {m: r[m] for m in bwd_keys}
+                       for k, r in light["bwd_levels"].items()},
+            "at": "B=8, 240x320, f=32, bf16"},
         "at_batch_32": {
             "ms": b32_dec1["kernel_ms"], "bound_ms": b32_dec1["bound_ms"],
             "plain_ms": b32_dec1["plain_ms"],
@@ -3580,6 +4097,7 @@ def main(argv=None) -> int:
         "launches_per_forward": f_per_forward,
         "launches_in_training": ftr["launches"],
         "v_stores_in_training": ftr["v_stores"],
+        "launches_in_exported_program": served["exported_fused"]["launches"],
         "max_abs_err": max(fwd_worst.values()),
         "max_abs_err_by_dtype": fwd_worst,
         "ms": f_dec1["kernel_ms"],
@@ -3731,6 +4249,8 @@ def main(argv=None) -> int:
         "fused_loss": {k: v for k, v in floss.items() if k != "inputs"},
         "trainer_loop": loop,
         "device_feed": feed,
+        "families": families,
+        "serving_from_checkpoint": served,
         "pcl_modes": {"serve": modes, "train": mode_train,
                       "group_resize_serve": group_serve,
                       "gather_warp": {"levels": g_rows,

@@ -136,13 +136,26 @@ def test_cli_refusals(tiny_yaml):
     with pytest.raises(KeyError):
         train_cli.main(["--config", str(cfg), "--experiment", "nonexistent",
                         "--device", "cpu"])
-    # baseline_unet is not ported yet
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        train_cli.main(["--config", str(cfg), "--device", "cpu"])
     with pytest.raises(SystemExit):
         train_cli.parse_args(["--device", "tpu"])
     assert train_cli.parse_args([]).device == "cuda"
     assert evaluate_cli.parse_args(["--checkpoint", "best"]).device == "cuda"
+
+
+def test_train_cli_trains_baseline_unet(tiny_yaml, tmp_path):
+    """The YAML's base model, baseline_unet at f=4, 32x32, trains through
+    the CLI (one epoch, outputs under their own directories)."""
+    _, cfg = tiny_yaml
+    text = cfg.read_text().replace("num_epochs: 2", "num_epochs: 1")
+    for key in ("ckpts", "logs"):
+        text = text.replace(f"{cfg.parent}/{key}", f"{tmp_path}/{key}")
+    base = tmp_path / "base.yaml"
+    base.write_text(text)
+    assert train_cli.main(["--config", str(base), "--tensorboard", "false",
+                           "--device", "cpu"]) == 0
+    log = (tmp_path / "logs" / "cli_run" / "training.log").read_text()
+    assert "Training complete" in log
+    assert (tmp_path / "ckpts" / "cli_run" / "best" / "state.pt").exists()
 
 
 def test_module_entry_point_runs(tiny_yaml):

@@ -1073,3 +1073,76 @@ def test_chunked_on_card_matches_resident(tmp_path, prefetch, storage):
             for k in w:
                 assert torch.equal(b[k], w[k]), (k, epoch)
             assert float(s) == float(w["rgb"].sum(dtype=torch.float64))
+
+
+# the lightweight network's four decoder maps (f=32, 240x320) at batch 2:
+# 32 to 256 channels, a 30x40 map at dec4
+LIGHT_LEVELS = [(2, 240 >> k, 320 >> k, 32 << k) for k in (3, 2, 1, 0)]
+
+
+@pytest.mark.cuda
+def test_lightweight_levels_kernels_match_plain_on_card():
+    """At the lightweight network's four levels, f32 and bf16, the PCL's
+    own padding and align_corners: the forward, served and storing V,
+    equals the plain version exactly; the backward is within
+    ``test_backward_kernel_matches_plain_on_card``'s bounds."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    for shape in LIGHT_LEVELS:
+        for name in ("identity", "rotation", "zoom_shift", "shear"):
+            for dtype, atol in ATOL.items():
+                x, theta, grad = _bwd_case(shape, name, dtype, rng)
+                what = (shape, name, dtype)
+                want, want_v = two_pass_affine_warp_plain_fwd(x, theta)
+                served, _ = warp_mod._forward(x, theta, "zeros", False,
+                                              keep_v=False)
+                out, v = warp_mod._forward(x, theta, "zeros", False,
+                                           keep_v=True)
+                for got, ref in ((served, want), (out, want), (v, want_v)):
+                    err = (got.float() - ref.float()).abs().max().item()
+                    assert err == 0.0, (what, err)
+                got = warp_mod.two_pass_warp_bwd(x, v, theta, grad)
+                ref = two_pass_affine_warp_plain_bwd(x, want_v, theta, grad)
+                scale = max(1.0, ref[0].float().abs().max().item())
+                err = (got[0].float() - ref[0].float()).abs().max().item()
+                assert err <= atol * scale, (what, err)
+                t_err = (got[1] - ref[1]).abs().max().item()
+                t_atol = 1e-5 if dtype == torch.float32 else 1e-3
+                assert t_err <= t_atol * (ref[1].abs().max().item() + 1e-12), \
+                    (what, t_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["two_pass", "fused"])
+def test_exported_program_on_card_equals_predict(tmp_path, mode):
+    """A small f32 flagship's exported program on the card gives
+    ``predict``'s depths (the same kernels run: atol 1e-6 m) and launches
+    the warp's forward kernel once per PCL."""
+    from cadepth_tpu_torch.inference import load_exported
+
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config_from_dict({
+        "model": {"architecture": "geometry_aware", "init_features": 8,
+                  "pcl_warp": mode},
+        "data": {"input_height": 64, "input_width": 96},
+        "training": {"use_amp": False}})
+    pred = Predictor(cfg, batch_size=2, device="cuda",
+                     generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for name, p in pred.model.named_parameters():
+            if name.endswith("fc_transform.bias"):
+                p.copy_(torch.tensor([1.04, 0.95, 0.03, -0.02, 0.04, 0.03]))
+    path = tmp_path / "program.pt2"
+    assert pred.export(str(path)) > 0
+    fn = load_exported(str(path))
+    rng = np.random.default_rng(2)
+    batch = _train_batch(rng, 2, 64, 96)
+    want = pred.predict(batch["rgb"], batch["intrinsics"])
+    ops = warp_mod if mode == "two_pass" else fw
+    ops.launches = ops.v_stores = 0
+    got = fn({k: batch[k] for k in ("rgb", "intrinsics", "k4")})
+    torch.cuda.synchronize()
+    assert ops.launches == 5 * ops.LAUNCHES_PER_CALL and ops.v_stores == 0
+    np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-6)

@@ -164,10 +164,13 @@ def test_config_copy_matches(path, experiment):
 
 
 def test_factory_refuses_what_is_not_ported():
-    for arch, variant in (("baseline_unet", "full"),
-                          ("geometry_aware", "lightweight")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            factory.create_model(arch, init_features=4, variant=variant,
-                                 device="cpu")
+    """Every architecture of the JAX factory is ported: what the port
+    refused before builds, and only an unknown name is refused."""
+    for arch, variant, cls in (("baseline_unet", "full", "BaselineUNet"),
+                               ("geometry_aware", "lightweight",
+                                "LightweightGeometryNetwork")):
+        model = factory.create_model(arch, init_features=4, variant=variant,
+                                     device="cpu")
+        assert type(model).__name__ == cls
     with pytest.raises(ValueError, match="Unknown architecture"):
         factory.create_model("resnet", device="cpu")

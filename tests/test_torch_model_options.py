@@ -34,8 +34,8 @@ from cadepth_tpu_torch.models.attention import (
     CameraAwareSpatialAttention,
     DepthSpatialAttention,
 )
-from cadepth_tpu_torch.models.geometry_aware import remat_blocks
-from cadepth_tpu_torch.models.layers import make_norm, upsample2x
+from cadepth_tpu_torch.models.layers import (make_norm, remat_blocks,
+                                             upsample2x)
 from cadepth_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 from torch_port_common import init_random, jax_variables, load_port, nchw, nhwc

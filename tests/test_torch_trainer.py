@@ -402,13 +402,31 @@ def test_preemption_checkpoint_and_resume(dataset, tmp_path):
     ({"data": {"device_resident": True},
       "hardware": {"spatial_parallel": 2}}, "Queue 1, item 8"),
     ({"hardware": {"spatial_parallel": 2}}, "Queue 1, item 8"),
-    ({"model": {"architecture": "baseline_unet"}}, "Queue 1, item 7"),
-    ({"model": {"variant": "lightweight"}}, "Queue 1, item 7"),
 ])
 def test_unported_options_raise(dataset, tmp_path, overrides, match):
     cfg = port_config_of(dataset, tmp_path, **overrides)
     with pytest.raises(NotImplementedError, match=match):
         p_trainer.Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("model,cls", [
+    ({"architecture": "baseline_unet"}, "BaselineUNet"),
+    ({"variant": "lightweight"}, "LightweightGeometryNetwork"),
+])
+def test_trainer_trains_the_other_families(dataset, tmp_path, model, cls):
+    """The families the port once refused train one tiny epoch (f=4,
+    32x32): a finite loss, validation metrics and a checkpoint."""
+    cfg = port_config_of(dataset, tmp_path, model=model,
+                         training={"num_epochs": 1})
+    tr = p_trainer.Trainer(cfg, device="cpu")
+    try:
+        assert type(tr.model).__name__ == cls
+        tr.train()
+        assert [h["epoch"] for h in tr.history] == [0]
+        assert np.isfinite(tr.history[0]["train_loss"])
+        assert tr.ckpt.latest_checkpoint() is not None
+    finally:
+        tr.close()
 
 
 def test_more_than_one_card_with_data_parallel_raises(dataset, tmp_path,

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from cadepth_tpu import config as jax_config
+from cadepth_tpu.models import factory as jax_factory
 from cadepth_tpu.training import train_state as jax_ts
 from cadepth_tpu.training.schedule import build_lr_schedule as jax_schedule
 from cadepth_tpu_torch import config as port_config
@@ -143,13 +144,14 @@ TRAIN_RAW = {"model": {"architecture": "geometry_aware", "init_features": 8},
                           "num_epochs": 20}}
 
 
-def make_train_batch(rng: np.random.Generator) -> Dict[str, np.ndarray]:
+def make_train_batch(rng: np.random.Generator, b: int = TRAIN_B,
+                     h: int = TRAIN_H, w: int = TRAIN_W
+                     ) -> Dict[str, np.ndarray]:
     """rgb in (0, 1), gt depth in (0, 10) with ~10 % of pixels at or below
     the 0.1 m validity floor, a distinct K per sample drawn wide (fx, fy
     in 0.5-1.5 W, the principal point in 0.3-0.7 of the image): FiLM's
     BatchNorm1d normalises the 4 camera vectors, and similar ones make its
     gradient ill-conditioned."""
-    b, h, w = TRAIN_B, TRAIN_H, TRAIN_W
     rgb = rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32)
     depth = rng.uniform(0.3, 9.5, (b, h, w, 1)).astype(np.float32)
     low = rng.uniform(0, 1, depth.shape) < 0.1
@@ -163,6 +165,16 @@ def make_train_batch(rng: np.random.Generator) -> Dict[str, np.ndarray]:
     return {"rgb": rgb, "depth": depth, "intrinsics": k, "k4": k4}
 
 
+def sample_inputs(architecture: str, h: int = TRAIN_H, w: int = TRAIN_W,
+                  b: int = TRAIN_B) -> tuple:
+    """The positional JAX model inputs of a family at (b, h, w), as
+    ``init_random`` takes them to read the variables' shapes."""
+    sample = make_train_batch(np.random.default_rng(0), b, h, w)
+    sample["rays"] = sample["rgb"]
+    return jax_factory.model_inputs(
+        architecture, {k: jnp.asarray(v) for k, v in sample.items()})[0]
+
+
 def setup_training(raw: Dict[str, Any], seed: int, steps: int):
     """Both sides of a train-step comparison from one seed: (JAX config,
     model, loss, optimizer, state), (port config, model, loss, optimizer,
@@ -172,10 +184,9 @@ def setup_training(raw: Dict[str, Any], seed: int, steps: int):
     jcfg = jax_config.config_from_dict(raw)
     pcfg = port_config.config_from_dict(raw)
     jm, jloss = jax_ts.build_model_and_loss(jcfg)
-    sample = make_train_batch(np.random.default_rng(0))
-    params, stats = init_random(jm, rng, jnp.asarray(sample["rgb"]),
-                                jnp.asarray(sample["rgb"]),
-                                jnp.asarray(sample["k4"]))
+    params, stats = init_random(jm, rng, *sample_inputs(
+        jcfg.model.architecture, jcfg.data.input_height,
+        jcfg.data.input_width))
     tx = jax_ts.build_optimizer(
         jcfg.optimization,
         jax_schedule(jcfg.optimization, STEPS_PER_EPOCH,
@@ -218,3 +229,167 @@ def chain_theta(theta: torch.Tensor, partials: torch.Tensor, height: int,
         co = warp_coeffs(th, height, width, align_corners)
         (d_theta,) = torch.autograd.grad(co, th, partials)
     return d_theta
+
+
+# -- the model families at a small size --------------------------------------
+
+FAMILY_F = 8
+
+
+def family_raw(architecture: str, use_amp: bool = False, **model):
+    """A config dict of one family at f=8, 64x64 (f32 unless
+    ``use_amp``)."""
+    return {"model": {"architecture": architecture,
+                      "init_features": FAMILY_F, **model},
+            "data": {"input_height": TRAIN_H, "input_width": TRAIN_W},
+            "training": {"use_amp": use_amp, "batch_size": TRAIN_B,
+                         "num_epochs": 20}}
+
+
+def build_family(raw: Dict[str, Any], seed: int):
+    """(JAX config, model, loss), (port config, model in eval mode,
+    loss), and the JAX variables (params, batch_stats) drawn from
+    ``seed`` (rotating PCL heads where the family has PCLs), loaded into
+    the port's model."""
+    jcfg = jax_config.config_from_dict(raw)
+    pcfg = port_config.config_from_dict(raw)
+    jm, jloss = jax_ts.build_model_and_loss(jcfg)
+    params, stats = init_random(jm, np.random.default_rng(seed),
+                                *sample_inputs(jcfg.model.architecture))
+    model, loss_fn = ts.build_model_and_loss(pcfg, device="cpu")
+    load_port(model, params, stats)
+    return (jcfg, jm, jloss), (pcfg, model, loss_fn), (params, stats)
+
+
+def family_args(architecture: str, batch: Dict[str, np.ndarray]):
+    """(JAX, port) positional model inputs of ``batch``, the rays from
+    the JAX package's ``ray_grid_batch`` on both sides."""
+    from cadepth_tpu.geometry.rays import ray_grid_batch
+
+    b = dict(batch)
+    b["rays"] = np.array(ray_grid_batch(jnp.asarray(b["intrinsics"]),
+                                        b["rgb"].shape[1], b["rgb"].shape[2]))
+    args = jax_factory.model_inputs(architecture, b)[0]
+    return ([jnp.asarray(a) for a in args],
+            [torch.from_numpy(np.asarray(a)) for a in args])
+
+
+def family_grads(family, batch: Dict[str, np.ndarray], mask: np.ndarray):
+    """(port, JAX) gradients of ``mean(depth * mask)`` with the model in
+    training mode (batch statistics), the measure of
+    ``tests/test_torch_parity.py``, as flax-shaped trees of numpy arrays.
+
+    The port runs in f32. JAX's reference is its model built at
+    ``dtype=float64`` under ``jax.enable_x64`` (the modules' own f32
+    parts, the batch-norm statistics, FiLM's MLP and the PCL head, stay
+    f32): the port's f32 gradient is much closer to it than JAX's own
+    f32 gradient on the CPU
+    (``test_torch_families_geometry.py::
+    test_jax_f32_gradient_strays_further_than_the_ports``).
+    """
+    (_, jm, _), (pcfg, model, _), (params, stats) = family
+    arch = pcfg.model.architecture
+    ja, pa = family_args(arch, batch)
+    with jax.enable_x64(True):
+        jm64 = jm.clone(dtype=jnp.float64)
+        ja64 = [jnp.asarray(np.asarray(a), jnp.float64) for a in ja]
+        mask64 = jnp.asarray(mask, jnp.float64)
+
+        def loss_of(p):
+            out, _ = jm64.apply({"params": p, "batch_stats": stats}, *ja64,
+                                train=True, mutable=["batch_stats",
+                                                     "intermediates"])
+            return jnp.mean(out * mask64)
+
+        want = jax.tree_util.tree_map(
+            lambda g: np.asarray(g, np.float32),
+            jax.jit(jax.grad(loss_of))(jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64), params)))
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    names, ps = zip(*model.named_parameters())
+    loss = (model(*pa) * torch.from_numpy(mask)).mean()
+    grads = torch.autograd.grad(loss, ps)
+    model.load_state_dict(saved)
+    model.eval()
+    got, _ = convert.to_jax({**dict(zip(names, grads)),
+                             **dict(model.named_buffers())})
+    return got, want
+
+
+def assert_grads_close(got, want, tol: float) -> None:
+    """Each parameter's gradient within relative L2 ``tol`` of JAX's, and
+    the whole tree within ``tol / 10`` (``tests/test_torch_parity.py``'s
+    measure). The biases of the FiLM MLP's two layers feed a batch norm,
+    so their gradient is zero but for round-off on both sides: those are
+    held at an absolute 1e-5."""
+    paths = dict(leaves(want))
+    assert len(leaves(got)) == len(paths)
+    num = den = 0.0
+    for path, g in leaves(got):
+        name = jax.tree_util.keystr(path)
+        w = paths[path].astype(np.float64)
+        if "film" in name and ("fc1" in name or "fc2" in name) \
+                and name.endswith("['bias']"):
+            assert np.abs(g).max() < 1e-5 and np.abs(w).max() < 1e-5, name
+            continue
+        num += float(np.sum((g - w) ** 2))
+        den += float(np.sum(w ** 2))
+        err = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-10)
+        assert err < tol, f"{name}: rel-L2 {err:.3e} (tol {tol})"
+    assert np.sqrt(num / max(den, 1e-20)) < tol / 10.0
+
+
+def family_forward(family, b: int, seed: int, use_amp: bool = False):
+    """(port, JAX) eval-mode depths of a family on a seeded batch of
+    ``b``, and the port's intermediates dict; with ``use_amp`` both
+    models compute in bf16 over the same f32 variables."""
+    (jcfg, _, _), (pcfg, model, _), (params, stats) = family
+    arch = pcfg.model.architecture
+    if use_amp:
+        import dataclasses
+
+        jcfg = dataclasses.replace(jcfg, training=dataclasses.replace(
+            jcfg.training, use_amp=True))
+        pcfg = dataclasses.replace(pcfg, training=dataclasses.replace(
+            pcfg.training, use_amp=True))
+        model = ts.build_model_and_loss(pcfg, device="cpu")[0]
+        load_port(model, params, stats)
+    jm = jax_ts.build_model_and_loss(jcfg)[0]
+    ja, pa = family_args(arch, make_train_batch(np.random.default_rng(seed),
+                                                b))
+    want = np.asarray(jax.jit(jm.apply)(jax_variables(params, stats), *ja))
+    record: Dict[str, Any] = {}
+    with torch.no_grad():
+        got = model.eval()(*pa, record).numpy()
+    return got, want, record
+
+
+def full_width_counts(architecture: str, **model) -> Tuple[int, int]:
+    """(port, JAX) parameter counts of a family at the shipped width
+    (f=64; the lightweight network caps it at 32), from shapes alone."""
+    from cadepth_tpu_torch.models import factory as port_factory
+
+    jm = jax_factory.create_model(architecture, init_features=64, **model)
+    args = [jax.ShapeDtypeStruct(np.shape(a), jnp.float32)
+            for a in sample_inputs(architecture, 32, 32, 1)]
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *args)
+    with torch.device("meta"):
+        port = port_factory.create_model(architecture, init_features=64,
+                                         device="meta", **model)
+    return (port_factory.count_parameters(port),
+            jax_factory.count_parameters(shapes["params"]))
+
+
+def assert_round_trip_exact(family) -> None:
+    """``to_jax(to_torch(p)) == p`` for the family's variables, and from
+    the loaded model's own ``state_dict``."""
+    _, (_, model, _), (params, stats) = family
+    for p2, s2 in (convert.to_jax(convert.to_torch(params, stats)),
+                   convert.to_jax(model.state_dict())):
+        for got, want in ((p2, params), (s2, stats)):
+            paths = dict(leaves(want))
+            assert len(leaves(got)) == len(paths)
+            for path, g in leaves(got):
+                assert np.array_equal(g, paths[path]), \
+                    jax.tree_util.keystr(path)

@@ -3,11 +3,14 @@
 through the PyTorch port's train CLI.
 
     python3 torch_convergence.py [workdir] [--arch geometry_aware]
-                                 [--epochs 120] [--device cuda|cpu]
+                                 [--epochs 120] [--seed 7]
+                                 [--device cuda|cpu]
 
 The same data and configuration as the shell script: the structured
 synthetic set (60 scenes a sensor at 128x96, seed 9, written by the
-port's generator), split by hash, seed 7, init_features 16, AdamW at
+port's generator), split by hash, experiment seed 7 (``--seed``: the
+weights, the shuffle and the augmentation; the data stay those of seed
+9), init_features 16, AdamW at
 5e-4 with a cosine schedule and 2 warmup epochs, batch 16, flips and
 colour jitter, no early stopping. It prints the final and the best
 validation abs_rel, rmse and delta1 from metrics.csv, and the card's
@@ -33,6 +36,9 @@ def main(argv=None) -> int:
                     default=str(ROOT / "build" / "convergence"))
     ap.add_argument("--arch", default="geometry_aware")
     ap.add_argument("--epochs", type=int, default=120)
+    ap.add_argument("--seed", type=int, default=7,
+                    help="experiment.seed: the weights, the shuffle and "
+                         "the augmentation")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -47,9 +53,11 @@ def main(argv=None) -> int:
         sensor_specs={s: (128, 96, 128, 96)
                       for s in ("kv1", "kv2", "realsense", "xtion")})
     name = f"convergence_demo_{args.arch}"
-    config = work / "demo_config.yaml"
+    if args.seed != 7:
+        name += f"_seed{args.seed}"
+    config = work / f"{name}.yaml"
     config.write_text(f"""\
-experiment: {{name: "{name}", seed: 7}}
+experiment: {{name: "{name}", seed: {args.seed}}}
 data:
   data_dir: "{work}/sunrgbd"
   manifest_path: "{manifest}"
@@ -84,7 +92,8 @@ early_stopping: {{enabled: false}}
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0]
-    out = {"arch": args.arch, "epochs": len(rows), "card": card,
+    out = {"arch": args.arch, "seed": args.seed, "epochs": len(rows),
+           "card": card,
            "wall_s": wall,
            "final": {k: float(last[k]) for k in ("abs_rel", "rmse", "a1")},
            "best": {"abs_rel": float(best["abs_rel"]),
