@@ -14,6 +14,6 @@ Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain PyTorch version instead.
 """
 
-__version__ = "0.1.0"
+from cadepth_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

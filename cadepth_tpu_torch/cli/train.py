@@ -3,11 +3,17 @@
     python -m cadepth_tpu_torch.cli.train --config configs/train_config.yaml \
         [--experiment geometry_aware_full] [--resume latest|<path>] \
         [--debug] [--tensorboard true|false] [--devices N] \
-        [--profile] [--nan-check] [--device cuda|cpu]
+        [--profile] [--nan-check] [--device cuda|cpu] [--multihost]
 
 ``--device`` (default ``cuda``) takes the place of the JAX CLI's
-``--platform``; without a card, ``cuda`` raises. Multi-host training
-(``--multihost``) is ROADMAP.md Queue 1, item 8.
+``--platform``; without a card, ``cuda`` raises. ``--multihost`` joins
+the process group first (``parallel.initialize_distributed``) and trains
+data-parallel, one process a card; launch it on every card with
+
+    torchrun --nproc-per-node N -m cadepth_tpu_torch.cli.train \
+        --config configs/train_config.yaml --multihost
+
+(``--device cpu`` trains N processes over Gloo on the CPU).
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ def parse_args(argv=None):
                    help="Enable autograd anomaly detection (slow)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="Where to train (cuda raises without a card)")
+    p.add_argument("--multihost", action="store_true",
+                   help="Join the torch.distributed process group "
+                        "(torchrun's or COORDINATOR_ADDRESS/NUM_PROCESSES/"
+                        "PROCESS_ID) and train data-parallel")
     return p.parse_args(argv)
 
 
@@ -44,6 +54,15 @@ def main(argv=None) -> int:
 
     import numpy as np
     import torch
+    import torch.distributed as dist
+
+    joined = False
+    if args.multihost:
+        # before anything touches a card: it picks this process's card
+        from cadepth_tpu_torch.parallel import initialize_distributed
+
+        joined = initialize_distributed(
+            backend="gloo" if args.device == "cpu" else None)
 
     from cadepth_tpu_torch.config import load_config
     from cadepth_tpu_torch.training.trainer import Trainer
@@ -67,15 +86,20 @@ def main(argv=None) -> int:
 
         enable_nan_debugging()
 
-    trainer = Trainer(cfg, device=args.device)
     try:
-        if args.profile:
-            # traces the FIRST training epoch in place (no extra epoch that
-            # would advance the optimizer/LR schedule before the real run)
-            trainer.profile_dir = str(trainer.log_dir / "profile")
-        metrics = trainer.train()
+        trainer = Trainer(cfg, device=args.device)
+        try:
+            if args.profile:
+                # traces the FIRST training epoch in place (no extra epoch
+                # that would advance the optimizer/LR schedule before the
+                # real run)
+                trainer.profile_dir = str(trainer.log_dir / "profile")
+            metrics = trainer.train()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if joined:
+            dist.destroy_process_group()
     if metrics:
         from cadepth_tpu_torch.metrics.depth_metrics import format_metrics
 

@@ -39,8 +39,15 @@ What differs from the JAX module, and why:
   tensors, so the CPU and the card give the same bits.
 * Quantized depth (uint16 millimetres) is stored as its int16 bits: the
   int16 gather works on every device.
-* A sharded dataset over several cards (``mesh=``) is ROADMAP.md Queue 1,
-  item 8, and raises.
+* Data parallel (``mesh=``, a ``parallel.DataParallel``): each rank holds
+  its shard of the split on its own card, JAX's sharded layout: W equal
+  shards of ceil(N / W) rows, the last padded by wrap-around. Each epoch
+  draws one permutation a shard from ``default_rng([seed, epoch])`` in
+  shard order, as JAX's ``_sharded_batches``; a rank takes ``batch / W``
+  rows a step from its own, smaller shards wrapping round to the largest
+  shard's count, and its draws are keyed by the padded global row.
+  ``ChunkedDeviceDataset`` streams the same rows through its chunks (JAX
+  refuses chunks on a mesh).
 """
 
 from __future__ import annotations
@@ -323,10 +330,17 @@ def _check_pack(loader, what: str) -> None:
 
 
 class _ResidentSplit:
-    """What both datasets keep of their loader, the epoch counts, and the
-    epoch's draws table on the device."""
+    """What both datasets keep of their loader, the shard this rank holds,
+    the epoch's order and counts, and the epoch's draws table on the
+    device.
 
-    def _take_identity(self, loader, device) -> None:
+    Positions: a split's N samples have positions 0..N-1 (``rows`` maps
+    them to pack rows); padded to W shards of S, padded position P holds
+    position ``P`` for P < N, else ``(P - N) % N``. This rank's shard is
+    padded positions ``shard_lo .. shard_lo + S - 1``; without a group,
+    W = 1, S = N and the shard is the split."""
+
+    def _take_identity(self, loader, device, mesh=None) -> None:
         self.height = loader.target_height
         self.width = loader.target_width
         self.aug_config = loader.aug_config
@@ -334,11 +348,36 @@ class _ResidentSplit:
         self.split = loader.split
         self.rows = tuple(s["row"] for s in loader.sample_paths)
         self.device = device
+        self.mesh = mesh
+        self.n_shards = 1 if mesh is None else mesh.world_size
+        self.shard_size = -(-len(self.rows) // self.n_shards)
+        self.shard_lo = (0 if mesh is None else mesh.rank) * self.shard_size
         self._draws_epoch: Optional[int] = None
         self._draws_table: Optional[torch.Tensor] = None
 
     def __len__(self) -> int:
         return len(self.rows)
+
+    def _positions(self, padded: np.ndarray) -> np.ndarray:
+        """The split positions that ``padded`` positions hold."""
+        n = len(self.rows)
+        return np.where(padded < n, padded, (padded - n) % n)
+
+    def _shard_positions(self) -> np.ndarray:
+        """The positions this rank's shard holds, in padded order."""
+        return self._positions(
+            np.arange(self.shard_lo, self.shard_lo + self.shard_size))
+
+    def _shard_valid_counts(self, n_total: int) -> list:
+        """Real (non-pad, within max_samples) sample count per shard."""
+        s = self.shard_size
+        return [max(0, min(n_total - d * s, s)) for d in range(self.n_shards)]
+
+    def _local_batch(self, batch_size: int) -> int:
+        if batch_size % self.n_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{self.n_shards} dataset shards")
+        return batch_size // self.n_shards
 
     def batches_per_epoch(self, batch_size: int,
                           max_samples: Optional[int] = None,
@@ -346,26 +385,52 @@ class _ResidentSplit:
         n = len(self.rows)
         if max_samples is not None:
             n = min(n, max_samples)
-        return n // batch_size if drop_remainder else -(-n // batch_size)
+        b = self._local_batch(batch_size)
+        n = max(max(self._shard_valid_counts(n)), int(self.n_shards > 1))
+        return n // b if drop_remainder else -(-n // b)
 
     def _epoch_table(self, epoch: int) -> torch.Tensor:
-        """The epoch's (len(rows), 6) draws on the device, copied once."""
+        """The epoch's draws of every padded position on the device,
+        copied once."""
         if self._draws_epoch != epoch:
             self._draws_table = _host_to(
-                epoch_draws(self.aug_config, int(epoch), len(self.rows)),
-                self.device)
+                epoch_draws(self.aug_config, int(epoch),
+                            self.n_shards * self.shard_size), self.device)
             self._draws_epoch = epoch
         return self._draws_table
 
     def _index(self, idx) -> torch.Tensor:
         return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
 
-    def _epoch_order(self, n: int, shuffle: bool, seed: int,
-                     epoch: int) -> np.ndarray:
-        order = np.arange(n)
-        if shuffle:
-            np.random.default_rng([seed, epoch]).shuffle(order)
-        return order
+    def _epoch_stream(self, batch_size: int, shuffle: bool, seed: int,
+                      epoch: int, drop_remainder: bool,
+                      max_samples: Optional[int]):
+        """(padded positions, local batch size, batches): this rank's
+        samples of the epoch, in order, a batch after another. Without a
+        group: a permutation of the (first max_samples) positions keyed on
+        (seed, epoch), the last batch short unless ``drop_remainder``.
+        Over W > 1 shards: JAX's sharded sampling, every batch full."""
+        n = len(self.rows)
+        if max_samples is not None:
+            n = min(n, max_samples)
+        num = self.batches_per_epoch(batch_size, max_samples,
+                                     drop_remainder)
+        if self.n_shards == 1:
+            order = np.arange(n)
+            if shuffle:
+                np.random.default_rng([seed, epoch]).shuffle(order)
+            return order, batch_size, num
+        b = self._local_batch(batch_size)
+        rng = np.random.default_rng([seed, epoch])
+        perms = []
+        for valid in self._shard_valid_counts(n):
+            # every shard's permutation is drawn, in shard order, so each
+            # rank's is the one JAX draws for its shard; a shard left empty
+            # by max_samples takes its first (wrapped) row
+            perms.append(rng.permutation(valid) if shuffle and valid
+                         else np.arange(max(valid, 1)))
+        mine = perms[self.mesh.rank]
+        return self.shard_lo + mine[np.arange(num * b) % len(mine)], b, num
 
 
 class DeviceDataset(_ResidentSplit):
@@ -382,10 +447,6 @@ class DeviceDataset(_ResidentSplit):
                  depth_dtype=torch.float32, mesh=None,
                  share_storage_from: Optional["DeviceDataset"] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a DeviceDataset sharded over several cards (mesh=) is not "
-                "ported yet (ROADMAP.md Queue 1, item 8)")
         if share_storage_from is not None:
             # Shared-storage construction: reuse another instance's device
             # buffers (one upload for train+val when the reference's
@@ -404,7 +465,7 @@ class DeviceDataset(_ResidentSplit):
                     "share_storage_from requires matching resolution "
                     f"({loader.target_height}x{loader.target_width} vs "
                     f"donor {donor.height}x{donor.width})")
-            self._take_identity(loader, donor.device)
+            self._take_identity(loader, donor.device, donor.mesh)
             self.rows = donor.rows
             self.rgb_dtype, self.depth_dtype = (donor.rgb_dtype,
                                                 donor.depth_dtype)
@@ -416,9 +477,9 @@ class DeviceDataset(_ResidentSplit):
             raise ValueError(
                 f"storage rgb {rgb_dtype}, depth {depth_dtype}: rgb takes "
                 "float32, bfloat16 or uint8, depth float32 or uint16")
-        self._take_identity(loader, resolve_device(device))
+        self._take_identity(loader, resolve_device(device), mesh)
         self.rgb_dtype, self.depth_dtype = rgb_dtype, depth_dtype
-        rows = list(self.rows)
+        rows = [self.rows[i] for i in self._shard_positions()]
         if _is_quant_rgb(rgb_dtype):
             self.rgb = torch.from_numpy(_encode_rows(
                 loader._rgb, rows, np.uint8, _host_encode_rgb)
@@ -449,11 +510,13 @@ class DeviceDataset(_ResidentSplit):
         return self.rgb.nbytes + self.depth.nbytes + self.k.nbytes
 
     def _gather(self, idx, epoch: int = 0, augment: bool = False) -> Batch:
-        """Rows ``idx`` (positions in ``rows``) as a batch; augmented on
-        the ``epoch``'s draws."""
+        """Padded positions ``idx`` of this rank's shard as a batch;
+        augmented on the ``epoch``'s draws."""
         idx = self._index(idx)
         draws = (self._epoch_table(epoch).index_select(0, idx)
                  if augment else None)
+        if self.shard_lo:
+            idx = idx - self.shard_lo
         return _make_batch(self.rgb, self.depth, self.k, idx, draws,
                            self.height, self.width, self.aug_config)
 
@@ -462,17 +525,16 @@ class DeviceDataset(_ResidentSplit):
                 drop_remainder: bool = True,
                 max_samples: Optional[int] = None) -> Iterator[Batch]:
         """One epoch of device batches; same ordering contract as
-        InputPipeline (per-epoch reshuffle keyed on (seed, epoch)).
+        InputPipeline (per-epoch reshuffle keyed on (seed, epoch)); under
+        a group, this rank's ``batch_size / W`` rows of each global batch
+        (see the module docstring).
 
         ``drop_remainder=False`` pads the tail gather to the full batch
         size but yields the batch TRIMMED to its real samples — no sample
         is double-counted."""
-        n = len(self.rows)
-        if max_samples is not None:
-            n = min(n, max_samples)
-        order = _host_to(self._epoch_order(n, shuffle, seed, epoch),
-                         self.device)
-        num = n // batch_size if drop_remainder else -(-n // batch_size)
+        order, batch_size, num = self._epoch_stream(
+            batch_size, shuffle, seed, epoch, drop_remainder, max_samples)
+        order = _host_to(order, self.device)
         for b in range(num):
             idx = order[b * batch_size:(b + 1) * batch_size]
             valid = idx.shape[0]
@@ -515,7 +577,7 @@ class ChunkedDeviceDataset(_ResidentSplit):
 
     def __init__(self, loader, chunk_samples: int,
                  rgb_dtype=torch.float32, depth_dtype=torch.float32,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         _check_pack(loader, "ChunkedDeviceDataset")
         if chunk_samples < 1:
             raise ValueError("chunk_samples must be >= 1")
@@ -523,20 +585,21 @@ class ChunkedDeviceDataset(_ResidentSplit):
             raise ValueError(
                 "quantized chunked storage is all-or-nothing: use "
                 "rgb_dtype=uint8 with depth_dtype=uint16")
-        self._take_identity(loader, resolve_device(device))
-        self.chunk_samples = min(chunk_samples, len(self.rows))
+        self._take_identity(loader, resolve_device(device), mesh)
+        self.chunk_samples = min(chunk_samples, self.shard_size)
         self.rgb_dtype, self.depth_dtype = rgb_dtype, depth_dtype
         # Host-side source arrays. Plain mode reads straight from the pack
         # views (memmap or preloaded RAM); quantized mode encodes this
-        # split's rows ONCE into compact uint8/uint16 copies.
+        # rank's shard ONCE into compact uint8/uint16 copies, in padded
+        # order.
         self._compact = _is_quant_rgb(rgb_dtype)
         if self._compact:
-            self._host_rgb = _encode_rows(loader._rgb, self.rows,
+            rows = [self.rows[i] for i in self._shard_positions()]
+            self._host_rgb = _encode_rows(loader._rgb, rows,
                                           np.uint8, _host_encode_rgb)
-            self._host_depth = _encode_rows(loader._depth, self.rows,
+            self._host_depth = _encode_rows(loader._depth, rows,
                                             np.uint16, _host_encode_depth)
-            self._host_k = np.asarray(
-                loader._intrinsics[list(self.rows)], np.float32)
+            self._host_k = np.asarray(loader._intrinsics[rows], np.float32)
         else:
             self._host_rgb = loader._rgb
             self._host_depth = loader._depth
@@ -557,7 +620,7 @@ class ChunkedDeviceDataset(_ResidentSplit):
         """(Re)allocate the two staging slots to hold ``capacity``
         samples. No-op when already big enough; otherwise waits for any
         copy still reading the old slots first."""
-        capacity = min(max(capacity, 1), len(self.rows))
+        capacity = min(max(capacity, 1), self.shard_size)
         if self._slots is not None and self._slot_capacity >= capacity:
             return
         for event in self._slot_events:
@@ -611,14 +674,19 @@ class ChunkedDeviceDataset(_ResidentSplit):
         """Stage one chunk in ``slot`` and copy it to the device (prefetch
         thread or inline).
 
-        ``order_slice`` holds global dataset positions (0..n-1); rows maps
-        them to pack rows (compact quantized copies are already
-        position-indexed). Returns the chunk's tensors ("rgb", "depth",
-        "k", and "gids", the global ids the draws are keyed on) and
-        "event", recorded after the copy on a card (None on the CPU).
-        ``block`` waits for the copy before returning (serial mode)."""
-        rows = (np.asarray(order_slice) if self._compact
-                else np.asarray([self.rows[i] for i in order_slice]))
+        ``order_slice`` holds padded positions of this rank's shard; rows
+        maps their positions to pack rows (compact quantized copies hold
+        the shard in padded order). Returns the chunk's tensors ("rgb",
+        "depth", "k", and "gids", the padded positions the draws are
+        keyed on) and "event", recorded after the copy on a card (None on
+        the CPU). ``block`` waits for the copy before returning (serial
+        mode)."""
+        order_slice = np.asarray(order_slice)
+        if self._compact:
+            rows = order_slice - self.shard_lo
+        else:
+            rows = np.asarray([self.rows[i]
+                               for i in self._positions(order_slice)])
         n = len(rows)
         s = self._slots[slot]
         if self._slot_events[slot] is not None:
@@ -709,17 +777,14 @@ class ChunkedDeviceDataset(_ResidentSplit):
                     f"CADEPTH_CHUNK_PREFETCH must be thread|serial, "
                     f"got {prefetch!r}")
 
-        n = len(self.rows)
-        if max_samples is not None:
-            n = min(n, max_samples)
-        order = self._epoch_order(n, shuffle, seed, epoch)
+        order, batch_size, total = self._epoch_stream(
+            batch_size, shuffle, seed, epoch, drop_remainder, max_samples)
         # chunk boundary must not split a batch, or batch composition
         # would diverge from the resident path
         c = max(self.chunk_samples - self.chunk_samples % batch_size,
                 batch_size)
         self._ensure_slots(c)   # batch_size may exceed chunk_samples
-        chunk_slices = [order[s:s + c] for s in range(0, n, c)]
-        total = n // batch_size if drop_remainder else -(-n // batch_size)
+        chunk_slices = [order[s:s + c] for s in range(0, len(order), c)]
         state = {"emitted": 0}
 
         def chunk_batches(buf):

@@ -22,8 +22,8 @@ with ``jax.device_put`` in the producer thread:
   stream).
 
 ``process_index`` / ``process_count`` slice each global batch as the JAX
-pipeline does; each process then yields its local slice (a data-parallel
-trainer is ROADMAP.md Queue 1, item 8).
+pipeline does; each process then yields its local slice (the Trainer
+passes its rank and the group's size under data parallelism).
 """
 
 from __future__ import annotations

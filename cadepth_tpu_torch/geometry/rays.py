@@ -38,3 +38,33 @@ def ray_grid_batch(intrinsics: torch.Tensor, height: int, width: int,
     rays = torch.stack([x, y, torch.ones_like(x)], dim=-1)
     inv_norm = torch.rsqrt(torch.sum(rays * rays, dim=-1, keepdim=True))
     return (rays * inv_norm).to(dtype)
+
+
+def rays_to_world(rays: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """Rotate camera-frame rays into the world frame, r_world = R @ r, and
+    re-normalize with ``rsqrt(max(|w|^2, 1e-12))``.
+
+    Args:
+      rays: (..., 3) camera-frame rays.
+      pose: (4, 4) or (3, 3) camera-to-world transform; only the rotation
+        block is used (rays are directions).
+
+    Returns:
+      (..., 3) world-frame unit rays.
+
+    The product is three multiply-adds per component in the rays' dtype
+    (JAX's einsum runs at ``precision="highest"``): no matrix unit, so
+    TF32 settings never reach it.
+    """
+    rot = pose[:3, :3].to(device=rays.device, dtype=rays.dtype)
+    world = (rays[..., 0, None] * rot[:, 0] + rays[..., 1, None] * rot[:, 1]
+             + rays[..., 2, None] * rot[:, 2])
+    inv_norm = torch.rsqrt(torch.clamp_min(
+        torch.sum(world * world, dim=-1, keepdim=True), 1e-12))
+    return world * inv_norm
+
+
+def ray_depth(ray: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Depth of ``point`` along the unit ``ray``: their dot product over
+    the last axis."""
+    return torch.sum(ray * point, dim=-1)

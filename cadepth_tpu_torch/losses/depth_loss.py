@@ -10,12 +10,26 @@ differ: ``abs`` has derivative +1 at 0 (torch: 0), and a clip passes half
 the gradient on a bound (torch's ``clamp``: all of it). Depth
 differences can be exactly 0 (equal neighbours, gt zeros clamped to the
 same floor), so :func:`_abs` and :func:`_clip` carry JAX's rules.
+
+Under a data-parallel group (:class:`CombinedDepthLoss`'s ``dp``, a
+``parallel.DataParallel``) each term is the single process's over the
+global batch, as under JAX's mesh: the masked sums of SILog and of the
+reprojection loss go into one all-reduce before their ratios (SILog's
+``lam * (sum d)^2 / n^2`` is not linear in them, and a rank with fewer
+valid pixels weighs less), beside the plain means of the
+gradient-matching and smoothness terms, which are averaged over the
+ranks (they hold as many pixels each). Every rank then holds the same
+total loss. The all-reduce's backward sums the gradients over the ranks,
+so each rank back-propagates ``loss / W`` and the parameter gradients are
+summed over the ranks (``training/train_state.py``): that is the
+gradient of the global loss. Without ``dp`` the arithmetic is the single
+process's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,12 +48,38 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of ``values`` over ``mask``; 0 if the mask is empty."""
+def _masked_sums(values: torch.Tensor, mask: torch.Tensor
+                 ) -> List[torch.Tensor]:
+    """(sum of ``values`` over ``mask``, the mask's count)."""
     mask = mask.to(values.dtype)
-    n = mask.sum()
-    total = (values * mask).sum()
+    return [(values * mask).sum(), mask.sum()]
+
+
+def _ratio(total: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """``total / n``; 0 if ``n`` is 0 (an empty mask)."""
     return torch.where(n > 0, total / n.clamp_min(1.0), 0.0)
+
+
+def _si_sums(pred: torch.Tensor, gt: torch.Tensor,
+             valid_mask: Optional[torch.Tensor], eps: float
+             ) -> List[torch.Tensor]:
+    """SILog's (sum d^2, sum d, n) over the mask."""
+    pred = pred.float()
+    gt = gt.float()
+    mask = (gt > eps) if valid_mask is None else valid_mask
+    maskf = mask.float()
+    d = torch.log(_clip(pred, eps, _CLAMP_MAX)) - \
+        torch.log(_clip(gt, eps, _CLAMP_MAX))
+    d = d * maskf
+    return [(d * d).sum(), d.sum(), maskf.sum()]
+
+
+def _si_from_sums(sum_sq: torch.Tensor, sum_d: torch.Tensor,
+                  n: torch.Tensor, lam: float) -> torch.Tensor:
+    n_safe = n.clamp_min(1.0)
+    term1 = sum_sq / n_safe
+    term2 = lam * sum_d.square() / (n_safe * n_safe)
+    return torch.where(n > 0, term1 - term2, 0.0)
 
 
 def scale_invariant_loss(pred: torch.Tensor, gt: torch.Tensor,
@@ -48,18 +88,7 @@ def scale_invariant_loss(pred: torch.Tensor, gt: torch.Tensor,
     """Eigen'14 SILog loss: mean(d^2) - lam * (sum d)^2 / n^2,
     d = log p - log g over the mask (default gt > eps), depths clipped to
     [eps, 1000]; 0 on an empty mask."""
-    pred = pred.float()
-    gt = gt.float()
-    mask = (gt > eps) if valid_mask is None else valid_mask
-    maskf = mask.float()
-    d = torch.log(_clip(pred, eps, _CLAMP_MAX)) - \
-        torch.log(_clip(gt, eps, _CLAMP_MAX))
-    d = d * maskf
-    n = maskf.sum()
-    n_safe = n.clamp_min(1.0)
-    term1 = (d * d).sum() / n_safe
-    term2 = lam * d.sum().square() / (n_safe * n_safe)
-    return torch.where(n > 0, term1 - term2, 0.0)
+    return _si_from_sums(*_si_sums(pred, gt, valid_mask, eps), lam)
 
 
 def _gradient_loss_single_scale(pred_log: torch.Tensor,
@@ -112,13 +141,10 @@ def smoothness_loss(pred: torch.Tensor, image: torch.Tensor,
     return (dgx * torch.exp(-igx)).mean() + (dgy * torch.exp(-igy)).mean()
 
 
-def reprojection_loss(pred: torch.Tensor, gt: torch.Tensor,
-                      intrinsics: torch.Tensor,
-                      valid_mask: Optional[torch.Tensor] = None,
-                      eps: float = 1e-6) -> torch.Tensor:
-    """Mean L2 distance between the point clouds of pred and gt, both
-    back-projected through K (per sample, or one K for the batch), with
-    sqrt(diff^2 + eps), over the mask (default gt > eps); 0 on an empty
+def _reproj_sums(pred: torch.Tensor, gt: torch.Tensor,
+                 intrinsics: torch.Tensor, valid_mask: Optional[torch.Tensor],
+                 eps: float) -> List[torch.Tensor]:
+    """The reprojection loss's (sum of point errors, count) over the
     mask."""
     pred = pred.float()
     gt = gt.float()
@@ -142,7 +168,18 @@ def reprojection_loss(pred: torch.Tensor, gt: torch.Tensor,
     point_error = torch.sqrt(diff_x * diff_x + diff_y * diff_y
                              + diff_z * diff_z + eps)
     mask = (gt > eps) if valid_mask is None else valid_mask
-    return _masked_mean(point_error, mask)
+    return _masked_sums(point_error, mask)
+
+
+def reprojection_loss(pred: torch.Tensor, gt: torch.Tensor,
+                      intrinsics: torch.Tensor,
+                      valid_mask: Optional[torch.Tensor] = None,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Mean L2 distance between the point clouds of pred and gt, both
+    back-projected through K (per sample, or one K for the batch), with
+    sqrt(diff^2 + eps), over the mask (default gt > eps); 0 on an empty
+    mask."""
+    return _ratio(*_reproj_sums(pred, gt, intrinsics, valid_mask, eps))
 
 
 def reprojection_loss_photometric(pred: torch.Tensor, gt: torch.Tensor,
@@ -158,7 +195,9 @@ def reprojection_loss_photometric(pred: torch.Tensor, gt: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class CombinedDepthLoss:
     """Weighted sum of the four depth loss terms, with every component
-    from the same evaluation (defaults 1.0 / 0.1 / 0.001 / 0.01)."""
+    from the same evaluation (defaults 1.0 / 0.1 / 0.001 / 0.01), over the
+    global batch of ``dp`` (a ``parallel.DataParallel``) when one is
+    given."""
 
     si_weight: float = 1.0
     grad_weight: float = 0.1
@@ -167,6 +206,7 @@ class CombinedDepthLoss:
     si_lambda: float = 0.5
     grad_num_scales: int = 4
     eps: float = 1e-6
+    dp: Optional[object] = None
 
     def __call__(self, pred: torch.Tensor, gt: torch.Tensor,
                  image: torch.Tensor,
@@ -175,18 +215,26 @@ class CombinedDepthLoss:
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total_loss, components). Without ``intrinsics`` there is no
         reprojection term."""
-        si = scale_invariant_loss(pred, gt, valid_mask, self.si_lambda,
-                                  self.eps)
-        grad = gradient_matching_loss(pred, gt, valid_mask,
-                                      self.grad_num_scales, self.eps)
-        smooth = smoothness_loss(pred, image, self.eps)
+        sums = _si_sums(pred, gt, valid_mask, self.eps) + [
+            gradient_matching_loss(pred, gt, valid_mask,
+                                   self.grad_num_scales, self.eps),
+            smoothness_loss(pred, image, self.eps)]
+        if intrinsics is not None:
+            sums += _reproj_sums(pred, gt, intrinsics, valid_mask, self.eps)
+        if self.dp is not None:
+            # every term's sums in one all-reduce; the plain means averaged
+            sums = list(self.dp.sum(torch.stack(sums)).unbind())
+            ranks = torch.full((), float(self.dp.world_size),
+                               dtype=sums[3].dtype, device=sums[3].device)
+            sums[3], sums[4] = sums[3] / ranks, sums[4] / ranks
+        si = _si_from_sums(*sums[:3], self.si_lambda)
+        grad, smooth = sums[3], sums[4]
         components = {"si_loss": si, "grad_loss": grad,
                       "smooth_loss": smooth}
         total = (self.si_weight * si + self.grad_weight * grad
                  + self.smooth_weight * smooth)
         if intrinsics is not None:
-            reproj = reprojection_loss(pred, gt, intrinsics, valid_mask,
-                                       self.eps)
+            reproj = _ratio(*sums[5:])
             components["reproj_loss"] = reproj
             total = total + self.reproj_weight * reproj
         components["total_loss"] = total

@@ -1,1 +1,2 @@
-"""Depth metrics of the eval step (port of ``cadepth_tpu.metrics``)."""
+"""Depth metrics of the eval step, and the statistics and tables that
+compare evaluated models (port of ``cadepth_tpu.metrics``)."""

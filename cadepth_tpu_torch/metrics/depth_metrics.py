@@ -33,20 +33,18 @@ METRIC_NAMES = (
 def compute_depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
                           valid_mask: Optional[torch.Tensor] = None,
                           min_depth: float = 0.1,
-                          max_depth: float = 10.0) -> Dict[str, torch.Tensor]:
+                          max_depth: float = 10.0,
+                          dp=None) -> Dict[str, torch.Tensor]:
     """Every metric over the valid pixels of a map of any leading shape,
-    as float32 scalars; all zero when no pixel is valid."""
+    as float32 scalars; all zero when no pixel is valid. Under ``dp`` (a
+    ``parallel.DataParallel``) the masked sums are all-reduced first, so
+    every rank gets the metrics of the global batch."""
     pred = pred.float()
     gt = gt.float()
     mask = (gt > min_depth) & (gt < max_depth)
     if valid_mask is not None:
         mask = mask & valid_mask.bool()
     maskf = mask.float()
-    n = maskf.sum()
-    n_safe = n.clamp_min(1.0)
-
-    def mmean(x: torch.Tensor) -> torch.Tensor:
-        return (x * maskf).sum() / n_safe
 
     one = torch.ones((), dtype=torch.float32, device=pred.device)
     # logs and ratios of pixels outside the mask are zeroed by maskf, but
@@ -57,25 +55,34 @@ def compute_depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
     abs_diff = diff.abs()
     log_diff = torch.log(p) - torch.log(g)
     ratio = torch.maximum(p / g, g / p)
-    metrics = {
-        "abs_rel": mmean(abs_diff / g),
-        "sq_rel": mmean(diff * diff / g),
-        "rmse": torch.sqrt(mmean(diff * diff)),
-        "rmse_log": torch.sqrt(mmean(log_diff * log_diff)),
-        "mae": mmean(abs_diff),
+    terms = {
+        "abs_rel": abs_diff / g,
+        "sq_rel": diff * diff / g,
+        "rmse": diff * diff,
+        "rmse_log": log_diff * log_diff,
+        "mae": abs_diff,
         # a tensor divisor: PyTorch's CUDA division by a Python float
         # multiplies by its reciprocal, which can differ by an ulp from
         # the division the CPU and JAX compute
-        "log10": mmean(log_diff.abs() / g.new_tensor(math.log(10.0))),
-        "delta_1.25": mmean((ratio < 1.25).float()),
-        "delta_1.25^2": mmean((ratio < 1.25 ** 2).float()),
-        "delta_1.25^3": mmean((ratio < 1.25 ** 3).float()),
-        "num_valid_pixels": n,
-        "mean_pred_depth": mmean(p),
-        "mean_gt_depth": mmean(g),
+        "log10": log_diff.abs() / g.new_tensor(math.log(10.0)),
+        "delta_1.25": (ratio < 1.25).float(),
+        "delta_1.25^2": (ratio < 1.25 ** 2).float(),
+        "delta_1.25^3": (ratio < 1.25 ** 3).float(),
+        "mean_pred_depth": p,
+        "mean_gt_depth": g,
     }
+    sums = {k: (v * maskf).sum() for k, v in terms.items()}
+    n = maskf.sum()
+    if dp is not None:
+        total = dp.sum(torch.stack(list(sums.values()) + [n]))
+        sums, n = dict(zip(sums, total[:-1].unbind())), total[-1]
+    n_safe = n.clamp_min(1.0)
+    means = {k: v / n_safe for k, v in sums.items()}
+    for k in ("rmse", "rmse_log"):
+        means[k] = torch.sqrt(means[k])
+    means["num_valid_pixels"] = n
     zero = torch.zeros((), dtype=torch.float32, device=pred.device)
-    return {k: torch.where(n > 0, v, zero) for k, v in metrics.items()}
+    return {k: torch.where(n > 0, means[k], zero) for k in METRIC_NAMES}
 
 
 def compute_depth_metrics_per_sample(

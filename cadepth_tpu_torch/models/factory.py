@@ -159,3 +159,70 @@ def model_inputs(architecture: str,
 def count_parameters(model: nn.Module) -> int:
     """Total parameter count (batch statistics are buffers, not counted)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def estimate_memory_mb(model: nn.Module, batch_size: int, height: int,
+                       width: int, init_features: int = 64, levels: int = 5,
+                       activation_bytes: int = 2,
+                       tensors_per_block: int = 4) -> float:
+    """Activation and parameter memory estimate in MB from the NHWC
+    pyramid, the JAX factory's arithmetic: level l holds (H/2^l, W/2^l,
+    f*2^l) activations in the encoder and the decoder (the bottleneck
+    once), ``tensors_per_block`` live tensors a conv block of
+    ``activation_bytes`` each; parameters fp32 with two fp32 Adam moments
+    (x3). :func:`compiled_memory_analysis` measures one forward instead."""
+    act = 0.0
+    for lvl in range(levels + 1):  # encoder levels + bottleneck
+        h, w = height >> lvl, width >> lvl
+        c = init_features << lvl
+        act += batch_size * h * w * c
+    for lvl in range(levels):      # decoder mirrors the encoder
+        h, w = height >> lvl, width >> lvl
+        c = init_features << lvl
+        act += batch_size * h * w * c
+    act_bytes = act * tensors_per_block * activation_bytes
+    param_bytes = count_parameters(model) * 4 * 3  # params + 2 Adam moments
+    return (act_bytes + param_bytes) / (1024.0 * 1024.0)
+
+
+def compiled_memory_analysis(model: nn.Module,
+                             batch: Dict[str, torch.Tensor],
+                             architecture: str) -> Dict[str, float]:
+    """Memory of one eval-mode forward of ``model`` over ``batch``, in MB,
+    with the keys of the JAX factory's: ``argument_mb`` (parameters,
+    buffers and the model's inputs), ``output_mb``, ``temp_mb`` and their
+    sum ``total_mb``.
+
+    JAX reads XLA's plan of the compiled forward; eager PyTorch has no such
+    plan, so this measures the caching allocator on the card: ``temp_mb``
+    is the peak of ``torch.cuda.max_memory_allocated`` during the forward,
+    under ``no_grad``, less the bytes allocated before it and less the
+    output. It resets the device's peak statistics. Off the card it
+    returns ``{}``, as JAX's does when XLA gives no analysis."""
+    dev = next(model.parameters()).device
+    if dev.type != "cuda":
+        return {}
+    args = model_inputs(architecture, batch)
+    arg_bytes = sum(t.nbytes for t in model.parameters()) + \
+        sum(t.nbytes for t in model.buffers()) + sum(t.nbytes for t in args)
+    was_training = model.training
+    model.eval()
+    try:
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            out = model(*args)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+    finally:
+        model.train(was_training)
+    out_bytes = out.nbytes
+    scale = 1.0 / (1024.0 * 1024.0)
+    temp = max(peak - out_bytes, 0)
+    return {
+        "argument_mb": arg_bytes * scale,
+        "output_mb": out_bytes * scale,
+        "temp_mb": temp * scale,
+        "total_mb": (arg_bytes + out_bytes + temp) * scale,
+    }

@@ -121,7 +121,18 @@ class _FlaxTrainingNorm:
     ``use_fast_variance``), and the running statistics moved as
     ``0.99 * old + 0.01 * batch``, with the biased variance. torch's own
     training mode keeps the unbiased variance in ``running_var``.
+
+    Under a data-parallel group (``dp``, set by :func:`sync_batch_norms`),
+    E[x] and E[x^2] are those of the global batch, as flax's under JAX's
+    mesh: one all-reduce of the two per-channel means, divided by the
+    ranks (every rank holds as many rows). Its backward all-reduces their
+    gradients, so the batch norm's gradient is exact. (torch's
+    ``SyncBatchNorm`` keeps the unbiased variance and another formula.)
     """
+
+    # the parallel.DataParallel whose global batch the training
+    # statistics cover; None: this process's batch
+    dp = None
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -132,7 +143,10 @@ class _FlaxTrainingNorm:
         x = x.float()
         dims = [0] + list(range(2, x.dim()))
         mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        mean_sq = (x * x).mean(dims)
+        if self.dp is not None:
+            mean, mean_sq = self.dp.mean(torch.cat([mean, mean_sq])).chunk(2)
+        var = (mean_sq - mean * mean).clamp_min(0.0)
         if not recomputing():
             with torch.no_grad():
                 keep = 1.0 - BN_MOMENTUM
@@ -145,6 +159,15 @@ class _FlaxTrainingNorm:
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + \
             self.bias.view(shape)
+
+
+def sync_batch_norms(model: nn.Module, dp) -> None:
+    """Have every batch norm of ``model`` take its training statistics over
+    the global batch of ``dp`` (a ``parallel.DataParallel``; None: this
+    process's batch)."""
+    for m in model.modules():
+        if isinstance(m, _FlaxTrainingNorm):
+            m.dp = dp
 
 
 class BatchNorm2d(_FlaxTrainingNorm, nn.BatchNorm2d):

@@ -13,7 +13,9 @@ back-projection through a per-sample K in PIXELS, k4 = [fx, fy, cx, cy]
 (the model's K4 is normalized; this one is not). The op is
 differentiable in ``pred`` only. As in the JAX package it is a public
 op that no module calls; the train step's losses are
-``losses/depth_loss.py``'s.
+``losses/depth_loss.py``'s. Its sums are over the tensors it is given:
+in a data-parallel process group they are this rank's, not the global
+batch's (the train step's losses all-reduce theirs).
 
 For CUDA tensors the statistics and the gradient launch their kernels
 (one launch each, and nothing else) or raise; for CPU tensors they

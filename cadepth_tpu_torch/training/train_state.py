@@ -14,6 +14,16 @@ The JAX step is one jitted program over an immutable state; here the
 model's parameters and BN statistics and the optimizer's moments are
 updated in place, and the step counts its updates itself. Logs are
 0-dim tensors on the device, so a step does not wait for the card.
+
+Data parallel: ``build_model_and_loss(cfg, dp=make_mesh())`` gives a
+model whose batch norms and a loss whose terms cover the group's global
+batch (``parallel/mesh.py``); each rank feeds its rows of it. The steps
+read the group from ``loss_fn.dp``: the train step back-propagates
+``loss / W`` and all-reduces the parameter gradients once per update (on
+every call, or with ``grad_accum_steps`` k on the k-th, the running mean
+of the k micro-batches), so every rank clips and updates with the same
+gradient, as JAX's replicated state does; the eval step's metrics are
+those of the global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from cadepth_tpu_torch.geometry.rays import ray_grid_batch
 from cadepth_tpu_torch.losses.depth_loss import CombinedDepthLoss
 from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
 from cadepth_tpu_torch.models.factory import create_model, model_inputs
+from cadepth_tpu_torch.models.layers import sync_batch_norms
+from cadepth_tpu_torch.parallel.mesh import DataParallel
 
 Batch = Dict[str, torch.Tensor]
 
@@ -61,9 +73,11 @@ def _inputs(cfg: Config, batch: Batch):
 
 
 def build_model_and_loss(cfg: Config, device="cuda",
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         dp: Optional[DataParallel] = None):
     """(model, loss_fn) as the config says: bf16 compute over fp32
-    parameters when ``training.use_amp`` is set, else float32."""
+    parameters when ``training.use_amp`` is set, else float32; with
+    ``dp``, batch norms and losses over the group's global batch."""
     m = cfg.model
     model = create_model(
         m.architecture, in_channels=m.in_channels,
@@ -75,11 +89,12 @@ def build_model_and_loss(cfg: Config, device="cuda",
         remat=m.remat,
         dtype=torch.bfloat16 if cfg.training.use_amp else torch.float32,
         device=device, generator=generator)
+    sync_batch_norms(model, dp)
     lc = cfg.loss
     loss_fn = CombinedDepthLoss(
         si_weight=lc.si_weight, grad_weight=lc.grad_weight,
         smooth_weight=lc.smooth_weight, reproj_weight=lc.reproj_weight,
-        si_lambda=lc.si_lambda, grad_num_scales=lc.grad_num_scales)
+        si_lambda=lc.si_lambda, grad_num_scales=lc.grad_num_scales, dp=dp)
     return model, loss_fn
 
 
@@ -142,11 +157,15 @@ class Optimizer:
         self.updates += 1
 
     def update(self, schedule: Callable[[int], float],
-               norm: Optional[torch.Tensor] = None) -> bool:
+               norm: Optional[torch.Tensor] = None,
+               reduce: Optional[Callable[[List[torch.Tensor]], None]] = None
+               ) -> bool:
         """One micro-batch: ``step(schedule(updates), norm)`` when it
         completes an update (every call when ``accum_steps`` is 1; then
         ``norm``, the gradient's global norm, saves recomputing it).
-        Returns whether the parameters were updated."""
+        With ``accum_steps`` > 1, ``reduce`` (a data-parallel all-reduce)
+        takes the completed mean in place before the step. Returns
+        whether the parameters were updated."""
         if self.accum_steps > 1:
             params = self.params()
             if self._mean is None:
@@ -162,6 +181,8 @@ class Optimizer:
                 return False
             for m, p in zip(self._mean, params):
                 p.grad = m
+            if reduce is not None:
+                reduce(self._mean)
             self._mean, self._micro, norm = None, 0, None
         self.step(schedule(self.updates), norm)
         return True
@@ -211,6 +232,15 @@ def build_optimizer(opt: OptimizationConfig,
 
 # -- steps -------------------------------------------------------------------
 
+def _seed(total: torch.Tensor, dp: Optional[DataParallel]):
+    """The gradient a rank starts its backward from: 1, or 1/W under a
+    group, where every rank holds the same global loss and the parameter
+    gradients are then summed over the W ranks."""
+    if dp is None:
+        return None
+    return torch.full_like(total, 1.0 / dp.world_size)
+
+
 class TrainStep:
     """One micro-batch per call: forward in training mode (batch
     statistics, running statistics moved), the combined loss over
@@ -219,7 +249,12 @@ class TrainStep:
     :meth:`Optimizer.update`: clipping, the learning rate
     ``schedule(optimizer.updates)`` and the update, on every call or,
     with ``grad_accum_steps`` k, on the mean of every k calls' gradients.
-    ``updates`` counts the calls, as the JAX state's ``step``."""
+    ``updates`` counts the calls, as the JAX state's ``step``.
+
+    Under ``loss_fn.dp`` the logs are the global batch's: the losses, and
+    with k = 1 the gradient's norm, max and min (with k > 1 the gradient
+    is all-reduced once per update, so those three are this rank's part
+    of the micro-batch's gradient)."""
 
     def __init__(self, cfg: Config, model: nn.Module,
                  loss_fn: CombinedDepthLoss, optimizer: Optimizer,
@@ -229,6 +264,7 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.schedule = schedule
+        self.dp = loss_fn.dp
         self.updates = 0
 
     def __call__(self, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -239,17 +275,23 @@ class TrainStep:
         pred = self.model(*_inputs(self.cfg, batch))
         total, comps = self.loss_fn(pred, gt, batch["rgb"],
                                     batch["intrinsics"], valid)
-        total.backward()
+        total.backward(_seed(total, self.dp))
         params = self.optimizer.params()
         for p in params:  # JAX gives an unused parameter a zero gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        reduce = None
+        if self.dp is not None:
+            if self.optimizer.accum_steps == 1:
+                self.dp.all_reduce_(grads)
+            else:
+                reduce = self.dp.all_reduce_
         logs = {k: v.detach() for k, v in comps.items()}
         logs["grad_norm"] = global_norm(grads)
         logs["grad_max"] = torch.stack(torch._foreach_max(grads)).max()
         logs["grad_min"] = torch.stack([g.min() for g in grads]).min()
-        self.optimizer.update(self.schedule, logs["grad_norm"])
+        self.optimizer.update(self.schedule, logs["grad_norm"], reduce)
         self.updates += 1
         return logs
 
@@ -278,8 +320,10 @@ def make_train_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss,
 def make_grad_fn(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
                  ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Gradient-only pass for observability: ``grad_fn(batch)`` returns
-    {parameter name: gradient} of the training loss. As in JAX, the
+    {parameter name: gradient} of the training loss (of the global batch
+    under ``loss_fn.dp``, where every rank calls it). As in JAX, the
     running statistics and the parameters' ``.grad`` stay as they were."""
+    dp = loss_fn.dp
 
     def grad_fn(batch: Batch) -> Dict[str, torch.Tensor]:
         model.train()
@@ -289,8 +333,10 @@ def make_grad_fn(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
         pred = model(*_inputs(cfg, batch))
         total, _ = loss_fn(pred, gt, batch["rgb"], batch["intrinsics"],
                            gt > cfg.loss.min_depth)
-        grads = torch.autograd.grad(total, params, allow_unused=True,
-                                    materialize_grads=True)
+        grads = torch.autograd.grad(total, params, _seed(total, dp),
+                                    allow_unused=True, materialize_grads=True)
+        if dp is not None:
+            dp.all_reduce_(list(grads))
         with torch.no_grad():
             for k, v in model.named_buffers():
                 v.copy_(saved[k])
@@ -304,7 +350,9 @@ def make_eval_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
     """Validation step: the loss components, the 12 depth metrics over
     (validation.min_depth, validation.max_depth) and ``pcl_max_rot``, the
     largest |predicted rotation| of any PCL (the two-pass warp is
-    sub-pixel only below a rotation bound)."""
+    sub-pixel only below a rotation bound); under ``loss_fn.dp``, of the
+    global batch on every rank."""
+    dp = loss_fn.dp
 
     @torch.inference_mode()
     def eval_fn(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -317,9 +365,10 @@ def make_eval_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
         out = dict(comps)
         out.update(compute_depth_metrics(
             pred, gt, min_depth=cfg.validation.min_depth,
-            max_depth=cfg.validation.max_depth))
+            max_depth=cfg.validation.max_depth, dp=dp))
         if record.get("pcl_max_rot"):
-            out["pcl_max_rot"] = torch.stack(record["pcl_max_rot"]).max()
+            rot = torch.stack(record["pcl_max_rot"]).max()
+            out["pcl_max_rot"] = rot if dp is None else dp.max(rot)
         return out
 
     return eval_fn

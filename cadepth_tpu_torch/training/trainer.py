@@ -17,8 +17,17 @@ With ``data.device_resident`` the batches come from the GPU-resident
 feed (``data/device_resident.py``): the pack uploaded once, each batch
 gathered and augmented on the device.
 
-Not ported yet, and refused: ``hardware.spatial_parallel > 1`` and data
-parallelism over more than one visible card (ROADMAP.md Queue 1, item 8).
+Data parallel: started in a process group (``torchrun ... --multihost``,
+``parallel/distributed.py``) with ``hardware.data_parallel``, each of the
+W ranks drives one card, feeds ``batch_size / W`` rows of every global
+batch (the host pipeline's process slice, or its shard of the device
+feed) and trains a replica through the data-parallel steps
+(``training/train_state.py``), so every rank holds the same state and
+metrics. Only rank 0 writes ``training.log``, the CSV, TensorBoard and
+checkpoints; the others wait for each checkpoint at a barrier. A SIGTERM
+on any rank stops every rank at the same batch boundary.
+``hardware.spatial_parallel > 1`` is not ported (ROADMAP.md Queue 1,
+item 8).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from cadepth_tpu_torch.config import Config
 from cadepth_tpu_torch.convert import to_jax
@@ -35,6 +45,8 @@ from cadepth_tpu_torch.data.pipeline import InputPipeline
 from cadepth_tpu_torch.data.sunrgbd import AugmentationConfig, SunRGBDLoader
 from cadepth_tpu_torch.metrics.depth_metrics import MetricsAccumulator
 from cadepth_tpu_torch.models.factory import count_parameters, resolve_device
+from cadepth_tpu_torch.parallel.mesh import (DataParallel, make_mesh,
+                                             replicate_state)
 from cadepth_tpu_torch.training.checkpoint import CheckpointManager
 from cadepth_tpu_torch.training.schedule import build_lr_schedule
 from cadepth_tpu_torch.training.tb_logger import TensorBoardLogger
@@ -96,18 +108,49 @@ def build_loaders(cfg: Config):
     return train_loader, val_loader
 
 
-def check_ported(cfg: Config, device: torch.device) -> None:
-    """Raise for the options of the JAX trainer the port lacks."""
-    if cfg.hardware.spatial_parallel > 1:
+def data_parallel_group(cfg: Config, device: torch.device
+                        ) -> Optional[DataParallel]:
+    """The data-parallel group to train in, by the JAX trainer's rule for
+    processes: with ``hardware.data_parallel`` and a process group, its W
+    ranks, where ``hardware.num_devices`` (0 = any) must be W and W must
+    divide ``training.batch_size`` (the global batch); else None. A group
+    of one gives None too: its steps are the single process's bit for
+    bit, and each collective would cost host time for nothing.
+
+    A run that sees several cards, with ``hardware.data_parallel`` and no
+    ``num_devices: 1``, but was started outside a process group raises:
+    it never trains on one card of several unasked. So does a group of
+    several ranks without ``hardware.data_parallel`` (each would train a
+    copy of its own), and ``hardware.spatial_parallel > 1``."""
+    hw = cfg.hardware
+    if hw.spatial_parallel > 1:
         raise NotImplementedError(
             "hardware.spatial_parallel > 1 is not ported yet (ROADMAP.md "
-            "Queue 1, item 8)")
-    if cfg.hardware.data_parallel and device.type == "cuda" and \
-            torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"hardware.data_parallel over {torch.cuda.device_count()} cards "
-            "is not ported yet (ROADMAP.md Queue 1, item 8); set "
-            "hardware.data_parallel: false or make one card visible")
+            "Queue 1, item 8: spatial parallelism)")
+    if not dist.is_initialized():
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if hw.data_parallel and cards > 1 and hw.num_devices != 1:
+            raise RuntimeError(
+                f"{cards} cards are visible but this process was not "
+                "started in a process group; launch one process a card: "
+                f"torchrun --nproc-per-node {cards} -m "
+                "cadepth_tpu_torch.cli.train --multihost --config ... (or "
+                "set hardware.num_devices: 1, or make one card visible)")
+        return None
+    world = dist.get_world_size()
+    if not hw.data_parallel:
+        if world > 1:
+            raise ValueError(
+                f"hardware.data_parallel is false but {world} processes "
+                "were started in a group")
+        return None
+    if cfg.training.batch_size % world != 0:
+        raise ValueError(
+            f"batch_size {cfg.training.batch_size} is not divisible by "
+            f"hardware.num_devices {world}")
+    if world == 1 and hw.num_devices in (0, 1):
+        return None
+    return make_mesh(hw.num_devices)    # raises on another num_devices
 
 
 def _flat_jax(named: Dict[str, torch.Tensor]):
@@ -132,7 +175,8 @@ class Trainer:
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        check_ported(cfg, self.device)
+        self.dp = data_parallel_group(cfg, self.device)
+        self.rank0 = self.dp is None or self.dp.rank == 0
         if train_loader is None or val_loader is None:
             train_loader, val_loader = build_loaders(cfg)
         self.train_loader = train_loader
@@ -176,6 +220,7 @@ class Trainer:
                 torch.bfloat16 if cfg.data.device_resident_dtype ==
                 "bfloat16" else torch.float32), depth_dtype=torch.float32)
         ds_kw["device"] = self.device
+        ds_kw["mesh"] = self.dp
         chunk = cfg.data.device_resident_chunk_samples
         if chunk > 0:
             # pack bigger than device memory: rotate it through two chunk
@@ -210,7 +255,8 @@ class Trainer:
             num_threads=max(cfg.training.num_workers, 1),
             prefetch_depth=cfg.training.prefetch_factor,
             max_samples=debug_limits.get("num_train_samples"),
-            use_native=cfg.data.use_native_loader, device=self.device)
+            use_native=cfg.data.use_native_loader, device=self.device,
+            **self._process_slice())
         # Validation capped at max_val_samples (production_trainer.h:242-281).
         # drop_remainder keeps eval batch shapes static; up to
         # batch_size-1 tail samples are skipped per pass.
@@ -221,14 +267,22 @@ class Trainer:
             prefetch_depth=cfg.training.prefetch_factor,
             max_samples=debug_limits.get(
                 "num_val_samples", cfg.training.max_val_samples),
-            use_native=cfg.data.use_native_loader, device=self.device)
+            use_native=cfg.data.use_native_loader, device=self.device,
+            **self._process_slice())
+
+    def _process_slice(self) -> Dict[str, int]:
+        if self.dp is None:
+            return {}
+        return {"process_index": self.dp.rank,
+                "process_count": self.dp.world_size}
 
     def _finish_init(self) -> None:
         cfg = self.cfg
         # -- model / optimizer / steps
         self.model, self.loss_fn = build_model_and_loss(
             cfg, device=self.device,
-            generator=torch.Generator().manual_seed(cfg.experiment.seed))
+            generator=torch.Generator().manual_seed(cfg.experiment.seed),
+            dp=self.dp)
         # With grad accumulation the schedule advances only on effective
         # updates (optax.MultiSteps), so express epochs in update counts.
         accum = max(cfg.optimization.grad_accum_steps, 1)
@@ -246,15 +300,18 @@ class Trainer:
         self._last_train_batch = None
         self.num_params = count_parameters(self.model)
 
-        # -- observability
+        # -- observability (rank 0's alone under a group)
         log_dir = Path(cfg.logging.log_dir) / cfg.experiment.name
-        log_dir.mkdir(parents=True, exist_ok=True)
         self.log_dir = log_dir
-        self.tb = TensorBoardLogger(str(log_dir / "tensorboard"),
-                                    enabled=cfg.logging.tensorboard_enabled)
-        self._train_log = open(log_dir / "training.log", "a")
+        self.tb = TensorBoardLogger(
+            str(log_dir / "tensorboard"),
+            enabled=cfg.logging.tensorboard_enabled and self.rank0)
+        self._train_log = None
         self._csv = None
-        if cfg.logging.csv_enabled:
+        if self.rank0:
+            log_dir.mkdir(parents=True, exist_ok=True)
+            self._train_log = open(log_dir / "training.log", "a")
+        if cfg.logging.csv_enabled and self.rank0:
             self._csv = open(log_dir / cfg.logging.metrics_file, "a")
             if self._csv.tell() == 0:
                 self._csv.write(CSV_HEADER)
@@ -317,10 +374,14 @@ class Trainer:
                     pick = min if cfg.validation.metric_mode == "min" else max
                     self.best_metric = pick(candidates)
                 self.log(f"Resumed from {path} at epoch {self.start_epoch}")
+        if self.dp is not None:
+            replicate_state(self.train_step, self.dp)
 
     # -- logging helpers ------------------------------------------------------
 
     def log(self, message: str) -> None:
+        if self._train_log is None:
+            return
         stamp = time.strftime("%Y-%m-%d %H:%M:%S")
         line = f"[{stamp}] {message}"
         if self.cfg.logging.verbose:
@@ -334,6 +395,25 @@ class Trainer:
             return value < self.best_metric - delta
         return value > self.best_metric + delta
 
+    def _stop_agreed(self) -> bool:
+        """Whether to stop at this batch boundary for a SIGTERM: this
+        process's, or under a group any rank's (every rank asks at the
+        same boundaries, so all stop at the same one)."""
+        if self.dp is not None:
+            self._preempted = self.dp.any(self._preempted)
+        return self._preempted
+
+    def _save(self, epoch: int, metrics: Dict[str, float], is_best: bool,
+              blocking: bool) -> None:
+        """A checkpoint, written by rank 0 (blocking under a group) while
+        the other ranks wait, so a resume finds it whole."""
+        if self.rank0:
+            self.ckpt.save(self.train_step.state_dict(), epoch, metrics,
+                           is_best=is_best,
+                           blocking=blocking or self.dp is not None)
+        if self.dp is not None:
+            self.dp.barrier()
+
     # -- loops ------------------------------------------------------------
 
     def train_epoch(self, epoch: int) -> float:
@@ -343,7 +423,7 @@ class Trainer:
         last_logs = None
         timer = StepTimer()
         for batch_idx, batch in enumerate(self.train_pipe):
-            if self._preempted:
+            if self._stop_agreed():
                 break
             logs = self.train_step(batch)
             if self.cfg.logging.log_histogram_interval:
@@ -392,7 +472,8 @@ class Trainer:
     def visualize(self, epoch: int) -> None:
         """Log [RGB | GT | Pred | Error] panels (tensorboard_trainer_enhanced.h:444-470)."""
         n = min(self.cfg.training.num_vis_samples, len(self.val_loader))
-        if n == 0 or not self.cfg.training.save_predictions:
+        if n == 0 or not self.cfg.training.save_predictions or \
+                not self.rank0:
             return
         batch = self.val_loader.get_batch(range(n))
         pred = self.predict_fn(device_batch(batch, self.device)).float() \
@@ -425,7 +506,9 @@ class Trainer:
         self.log(f"cadepth_tpu_torch trainer — experiment "
                  f"'{cfg.experiment.name}'")
         self.log(f"model={cfg.model.architecture} params={self.num_params:,}")
-        self.log(f"device={self.device} batch={cfg.training.batch_size}")
+        self.log(f"device={self.device} batch={cfg.training.batch_size}"
+                 + (f" over {self.dp.world_size} ranks"
+                    if self.dp is not None else ""))
         self.log(f"train_samples={len(self.train_loader)} "
                  f"val_samples={len(self.val_loader)}")
         self.log("=" * 55)
@@ -453,9 +536,8 @@ class Trainer:
                 self.log(f"Profile trace written to {self.profile_dir}")
             else:
                 train_loss = self.train_epoch(epoch)
-            if self._preempted:
-                self.ckpt.save(self.train_step.state_dict(), epoch, {},
-                               is_best=False, blocking=True)
+            if self._stop_agreed():
+                self._save(epoch, {}, is_best=False, blocking=True)
                 self.log(f"Preempted during epoch {epoch + 1}; checkpoint "
                          f"saved at step {self.train_step.updates} — resume "
                          "with --resume latest")
@@ -539,9 +621,8 @@ class Trainer:
                         and (epoch + 1) % max(cfg.checkpointing.save_interval, 1) == 0)
             is_last = epoch == cfg.training.num_epochs - 1
             if periodic or is_best or (is_last and cfg.checkpointing.save_last):
-                self.ckpt.save(self.train_step.state_dict(), epoch,
-                               val_metrics, is_best=is_best,
-                               blocking=not cfg.checkpointing.async_save)
+                self._save(epoch, val_metrics, is_best,
+                           blocking=not cfg.checkpointing.async_save)
 
             msg = (f"epoch {epoch + 1}/{cfg.training.num_epochs} "
                    f"loss={train_loss:.4f} lr={lr:.2e} time={epoch_time:.1f}s")
@@ -572,6 +653,7 @@ class Trainer:
             signal.signal(signal.SIGTERM, self._orig_sigterm)
             self._orig_sigterm = None
         self.tb.close()
-        self._train_log.close()
+        if self._train_log is not None:
+            self._train_log.close()
         if self._csv is not None:
             self._csv.close()

@@ -157,9 +157,30 @@ Phases, each fatal on failure:
    phase 11's pcl_warp fused model exported once; the infer CLI on a
    640x480 PNG and an intrinsics.txt (its three files, its .npy equal to a
    batch-1 Predictor on the same resized input);
-23. one JSON line describing every kernel, the train steps, the
-   Predictors, the trainer loop, the device feed, the families and the
-   served checkpoints; the script's wall time; last, the ok line.
+23. data parallel on the card: (a) the flagship as phase 7 trains it
+   (f=64, 240x320, batch 4, bf16, rotating PCL heads) for 10 steps
+   without a process group and through the data-parallel path in an
+   NCCL group of one, in turns (A B A B) with deterministic cuDNN: the
+   logs, the parameters after step 10 and the BN running statistics
+   equal bit for bit, the group's first run counted (5 forward launches
+   storing V and 15 backward launches a step), both step p50s and
+   3 profiled steps of each (device busy, kernels, NCCL); (b) two
+   processes on the one card over Gloo with CUDA tensors (NCCL refuses
+   two ranks on one device), the f32 flagship at full width, global
+   batch 8 split 4 + 4, 3 steps, against one process over the global
+   batch: total_loss to rtol 1e-5 (grad_norm while the parameters agree
+   to 5e-3), the parameters' median within the bound of
+   tests/test_torch_parallel.py and their largest difference within
+   twice its sum(lr) (a sign flip at every step); (c)
+   compiled_memory_analysis of the flagship's forward at batch 8 beside
+   estimate_memory_mb; (d) the
+   data-tool CLIs on phase 19's tree: validate, rays on the card, a pack
+   that equals phase 19's byte for byte, then compare_models over phase
+   21's and phase 19's evaluate outputs;
+24. one JSON line describing every kernel, the train steps, the
+   Predictors, the trainer loop, the device feed, the families, the
+   served checkpoints and the data-parallel runs; the script's wall
+   time; last, the ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -169,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -3336,15 +3358,8 @@ def family_config(args, experiment):
 def profile_steps(step, batches, n: int = 3):
     """(device busy ms, kernels) per call of ``step`` over ``n`` profiled
     calls (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            step(batches[i % len(batches)])
-        torch.cuda.synchronize()
-    rows = device_rows(prof, n)
-    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+    out = step_profile(step, batches, n)
+    return out["busy_ms"], out["kernels"]
 
 
 def family_case(device, args, card: str, case: str, experiment):
@@ -3748,15 +3763,491 @@ def serve_checkpoint(device, args, card: str, root: pathlib.Path,
     return out
 
 
+# phase 23: data parallel on the card
+DP_STEPS = 10        # 23a: steps of the flagship, without and with a group
+DP_RANK_STEPS = 3    # 23b: steps of the two ranks against one process
+DP_RANKS = 2
+DP_WORKER_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_train(cfg, init, batches, device, dp=None):
+    """``batches`` train steps of the flagship from the state dict
+    ``init`` (None: the seeded initialisation) through ``make_train_step``, over ``dp``'s global batch when
+    one is given: the logs, the parameters, the BN running statistics and
+    each step's host time to a synchronize (ms)."""
+    import torch
+
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    model, loss_fn = ts.build_model_and_loss(cfg, device=device, dp=dp)
+    if init is not None:
+        model.load_state_dict(init)
+    schedule = build_lr_schedule(cfg.optimization, STEPS_PER_EPOCH,
+                                 cfg.training.num_epochs)
+    step = ts.make_train_step(
+        cfg, model, loss_fn,
+        ts.build_optimizer(cfg.optimization, model.parameters()), schedule)
+    logs, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        logs.append(step(b))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+    return {"logs": [{k: float(v) for k, v in x.items()} for x in logs],
+            "params": {k: v.detach().clone()
+                       for k, v in model.named_parameters()},
+            "stats": {k: v.clone() for k, v in model.named_buffers()
+                      if "running" in k},
+            "ms": ms, "step": step}
+
+
+def step_profile(step, batches, n: int = 3):
+    """Device busy ms, kernels, and the NCCL kernels' ms and count, a call
+    of ``step`` over ``n`` profiled calls (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+    rows = device_rows(prof, n)
+    return {"busy_ms": sum(r[0] for r in rows),
+            "kernels": sum(r[1] for r in rows),
+            "nccl_ms": sum(r[0] for r in rows if "nccl" in r[2].lower()),
+            "nccl_kernels": sum(r[1] for r in rows
+                                if "nccl" in r[2].lower())}
+
+
+def collective_cost(device, calls: int = 200) -> dict:
+    """Where a collective's host time goes, in the process group: the
+    host time of one all-reduce of three floats (us, p50 of ``calls``
+    calls issued back to back) beside a one-element add's, the five host
+    operations with the most self time a call under torch.profiler, and
+    the flight recorder's buffer sizes (initialize_distributed sets 0
+    under NCCL unless they are set)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(3, device=device)
+
+    def p50_us(fn) -> float:
+        for _ in range(10):
+            fn()
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return float(np.median(times))
+
+    out = {"all_reduce_host_us": p50_us(lambda: dist.all_reduce(x)),
+           "add_host_us": p50_us(lambda: x.add_(0.0))}
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            dist.all_reduce(x)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:5]
+    out["top_host_us"] = {e.key: e.self_cpu_time_total / n for e in top}
+    out["env"] = {k: os.environ.get(k) for k in (
+        "TORCH_NCCL_TRACE_BUFFER_SIZE", "TORCH_FR_BUFFER_SIZE")}
+    return out
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Whether two dp_train runs gave the same logs, parameters and BN
+    running statistics, bit for bit."""
+    import torch
+
+    return a["logs"] == b["logs"] and all(
+        torch.equal(a[key][k], b[key][k])
+        for key in ("params", "stats") for k in a[key])
+
+
+def dp_group_of_one(device, args, card: str):
+    """Phase 23a: the flagship's train steps at the training batch, without
+    a group and through the data-parallel path in a process group of one
+    (NCCL on the card, Gloo in a rehearsal), twice each in turns (A B A B),
+    deterministic cuDNN: equal logs, parameters and BN statistics, bit for
+    bit; the group's first run counted."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+    from cadepth_tpu_torch.parallel import initialize_distributed, make_mesh
+    from cadepth_tpu_torch.training import train_state as ts
+
+    cuda = device.type == "cuda"
+    f, h, w, bsz = args.init_features, args.height, args.width, \
+        args.train_batch
+    cfg = flagship_config(f, h, w, bsz)
+    gen = torch.Generator().manual_seed(args.seed + 23)
+    model, _ = ts.build_model_and_loss(cfg, device=device, generator=gen)
+    rotate_pcl_heads(model, gen)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_pcl = len(pcl_layers(model))
+    del model
+    rng = np.random.default_rng(args.seed + 24)
+    steps = DP_STEPS if cuda else args.train_steps
+    batches = [synthetic_batch(rng, bsz, h, w, device) for _ in range(steps)]
+    backend = "nccl" if cuda else "gloo"
+    assert initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                  backend=backend)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        dp = make_mesh()
+        plain = dp_train(cfg, init, batches, device)
+        # the main path, counted
+        reset_warp_counts()
+        group = dp_train(cfg, init, batches, device, dp)
+        if cuda:
+            torch.cuda.synchronize()
+        counts = warp_counts()
+        plain2 = dp_train(cfg, init, batches, device)
+        group2 = dp_train(cfg, init, batches, device, dp)
+        prof = ({k: step_profile(r["step"], batches)
+                 for k, r in (("plain", plain2), ("group", group2))}
+                if cuda else {})
+        cost = collective_cost(device)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved
+        dist.destroy_process_group()
+    want = {"launches": tpw.LAUNCHES_PER_CALL * n_pcl * steps if cuda else 0,
+            "bwd_launches": tpw.BWD_LAUNCHES_PER_CALL * n_pcl * steps
+            if cuda else 0,
+            "v_stores": n_pcl * steps if cuda else 0, "fused": 0}
+    log(f"  {backend} group of 1: flagship f={f}, {h}x{w}, batch {bsz}, "
+        f"bf16, {steps} steps through the data-parallel path: two_pass_warp "
+        f"launches {counts['launches']} (expected {want['launches']}), "
+        f"two_pass_warp_bwd launches {counts['bwd_launches']} (expected "
+        f"{want['bwd_launches']}), V stores {counts['v_stores']}, fused "
+        f"{counts['fused']}")
+    if counts != want:
+        raise AssertionError(f"data-parallel launch counts {counts} != "
+                             f"{want}")
+    equal = {"group_vs_plain": same_bits(group, plain),
+             "plain_vs_plain": same_bits(plain2, plain),
+             "group_vs_group": same_bits(group2, group)}
+    for i, x in enumerate(group["logs"]):
+        if not all(np.isfinite(v) for v in x.values()):
+            raise AssertionError(f"step {i}: non-finite logs {x}")
+    p50 = {"plain_p50_ms": float(np.median(plain2["ms"])),
+           "group_p50_ms": float(np.median(group2["ms"])),
+           "p50_ms_in_turns": [float(np.median(r["ms"]))
+                               for r in (plain, group, plain2, group2)]}
+    log(f"  [{card}] logs, parameters after step {steps} and BN running "
+        f"statistics bit-equal: with the group against without "
+        f"{equal['group_vs_plain']}, without twice "
+        f"{equal['plain_vs_plain']}, with twice {equal['group_vs_group']}; "
+        f"step p50 {p50['plain_p50_ms']:.2f} ms without the group, "
+        f"{p50['group_p50_ms']:.2f} ms with it (the second run of each; "
+        f"A B A B: {', '.join(f'{x:.2f}' for x in p50['p50_ms_in_turns'])} "
+        f"ms); "
+        f"a step's device busy ms, kernels, NCCL ms and NCCL kernels "
+        f"(3 profiled steps): {prof or 'not measured (no card)'}; one "
+        f"all-reduce of 3 floats in the group: {cost}")
+    if not all(equal.values()):
+        raise AssertionError(f"a group of one changed the steps: {equal}")
+    return {"steps": steps, "batch": bsz, "backend": backend,
+            "warp_counts": counts, "bit_equal": equal, **p50,
+            "profile": prof, "collective": cost,
+            "last_logs": group["logs"][-1]}
+
+
+def dp_worker(rank: int, port: int, work: pathlib.Path,
+              rehearsal: bool) -> int:
+    """A rank of phase 23b: joins the group that ``work``'s setup names,
+    trains its rows of the global batches written there and writes its
+    logs and parameters there."""
+    import torch
+    import torch.distributed as dist
+
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+    from cadepth_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh, shard_batch)
+
+    setup = torch.load(work / "setup.pt", weights_only=False)
+    if rehearsal:   # the ranks share the host's cores
+        torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # under NCCL the process takes card ``rank`` (initialize_distributed)
+    assert initialize_distributed(f"127.0.0.1:{port}", setup["ranks"], rank,
+                                  backend=setup["backend"])
+    device = torch.device("cpu") if rehearsal else \
+        torch.device("cuda", torch.cuda.current_device())
+    dp = make_mesh()
+    f, h, w, bsz = setup["size"]
+    cfg = flagship_config(f, h, w, bsz)
+    cfg.training.use_amp = False
+    batches = [shard_batch({k: v.to(device) for k, v in b.items()}, dp)
+               for b in setup["batches"]]
+    out = dp_train(cfg, setup["init"], batches, device, dp)
+    del out["step"]
+    out["launches"] = (tpw.launches, tpw.bwd_launches)
+    out["params"] = {k: v.cpu() for k, v in out["params"].items()}
+    out["stats"] = {k: v.cpu() for k, v in out["stats"].items()}
+    torch.save(out, work / f"out_{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_ranks(device, args, card: str, root: pathlib.Path):
+    """Phase 23b: two processes on the one card (Gloo carries CUDA
+    tensors, since NCCL refuses two ranks on one device), the f32 flagship
+    at full width, global batch 2 x the training batch split evenly,
+    against one process over the global batch: total_loss at every step
+    to rtol 1e-5, and the gradient's norm at the steps that start from
+    equal parameters (the first update's learning rate is 0) to
+    tests/test_torch_train_step.py's rtol 5e-3 (cuDNN runs other
+    algorithms at another batch, and this norm moves 1.5e-4 under 1e-6
+    parameter noise in JAX itself). The parameters: their median
+    difference within 0.02 sum(lr), tests/test_torch_parallel.py's bound,
+    and at most one in a million of them further apart than sum(lr), the
+    largest difference that test allows. Among 129 million parameters a
+    few gradient entries are round-off in sign, and Adam moves each by
+    about +-lr a step whatever the gradient's size, so a few entries part
+    by up to twice sum(lr); a wrong gradient flips the signs of many."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    cuda = device.type == "cuda"
+    ranks, backend = DP_RANKS, "gloo"
+    f, h, w, bsz = args.init_features, args.height, args.width, \
+        ranks * args.train_batch
+    size = (f, h, w, bsz)
+    cfg = flagship_config(*size)
+    cfg.training.use_amp = False
+    gen = torch.Generator().manual_seed(args.seed + 25)
+    model, _ = ts.build_model_and_loss(cfg, device="cpu", generator=gen)
+    rotate_pcl_heads(model, gen)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.default_rng(args.seed + 26)
+    batches = [synthetic_batch(rng, bsz, h, w, "cpu")
+               for _ in range(DP_RANK_STEPS)]
+    work = root / f"ranks_{ranks}"
+    work.mkdir()
+    torch.save({"size": size, "init": init, "batches": batches,
+                "ranks": ranks, "backend": backend}, work / "setup.pt")
+    if cuda:
+        torch.cuda.empty_cache()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+         str(r), str(port), str(work)]
+        + (["--cpu-rehearsal"] if not cuda else []),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(ranks)]
+    outputs = {}
+    try:
+        for r, p in enumerate(procs):
+            outputs[r] = p.communicate(timeout=DP_WORKER_TIMEOUT_S)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of the {backend} group exited "
+                                 f"{p.returncode}:\n{outputs[r][-3000:]}")
+    outs = [torch.load(work / f"out_{r}.pt", weights_only=False)
+            for r in range(ranks)]
+    one = dp_train(cfg, init, [{k: v.to(device) for k, v in b.items()}
+                               for b in batches], device)
+    lrs = [build_lr_schedule(cfg.optimization, STEPS_PER_EPOCH,
+                             cfg.training.num_epochs)(s)
+           for s in range(DP_RANK_STEPS)]
+    bound = sum(lrs)
+
+    def rel(key, steps):
+        return max(abs(outs[0]["logs"][i][key] - one["logs"][i][key])
+                   / abs(one["logs"][i][key]) for i in steps)
+
+    loss_rel = rel("total_loss", range(DP_RANK_STEPS))
+    norm_rel = rel("grad_norm", [i for i in range(DP_RANK_STEPS)
+                                 if not any(lrs[:i])])
+    diffs = torch.cat([(outs[0]["params"][k] - v.cpu()).abs().flatten()
+                       for k, v in one["params"].items()])
+    p_max, p_median = float(diffs.max()), float(diffs.median())
+    over = int((diffs > bound).sum())
+    over_cap = diffs.numel() // 1_000_000
+    same = all(torch.equal(outs[0]["params"][k], o["params"][k])
+               for o in outs[1:] for k in outs[0]["params"])
+    log(f"  [{card}] {ranks} {backend} ranks on one device, f32 flagship "
+        f"f={f}, {h}x{w}, global batch {bsz} split {ranks} x "
+        f"{bsz // ranks}, {DP_RANK_STEPS} steps ({wall:.1f} s with the "
+        f"processes' start), against one process over the global batch: "
+        f"total_loss max rel diff {loss_rel:.3g} (rtol 1e-5), grad_norm at "
+        f"equal parameters {norm_rel:.3g} (rtol 5e-3); parameters: {over} of "
+        f"{diffs.numel()} further apart than sum(lr) {bound:.3g} (at most "
+        f"{over_cap}), max |diff| {p_max:.3g}, median {p_median:.3g} "
+        f"(bound {0.02 * bound:.3g}); the ranks' parameters "
+        f"equal: {same}; two_pass_warp launches (fwd, bwd) by rank "
+        f"{[x['launches'] for x in outs]}")
+    if not (loss_rel <= 1e-5 and norm_rel <= 5e-3
+            and over <= over_cap and p_median <= 0.02 * bound and same):
+        raise AssertionError(f"{ranks} ranks differ from one process")
+    return {"ranks": ranks, "backend": backend, "global_batch": bsz,
+            "steps": DP_RANK_STEPS, "total_loss_max_rel": loss_rel,
+            "grad_norm_max_rel": norm_rel, "params_max_abs": p_max,
+            "params_median_abs": p_median, "sum_lr": bound,
+            "params_above_sum_lr": over, "params_above_cap": over_cap,
+            "rank_launches": [x["launches"] for x in outs],
+            "wall_s": wall}
+
+
+def dp_memory(device, args, card: str):
+    """Phase 23c: compiled_memory_analysis of the flagship's forward at
+    the serving batch beside estimate_memory_mb."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.geometry.rays import ray_grid_batch
+    from cadepth_tpu_torch.models import factory
+    from cadepth_tpu_torch.training import train_state as ts
+
+    f, h, w, bsz = args.init_features, args.height, args.width, args.batch
+    cfg = flagship_config(f, h, w, bsz)
+    model, _ = ts.build_model_and_loss(
+        cfg, device=device, generator=torch.Generator().manual_seed(0))
+    batch = synthetic_batch(np.random.default_rng(args.seed + 27), bsz, h,
+                            w, device)
+    batch["rays"] = ray_grid_batch(batch["intrinsics"], h, w)
+    measured = factory.compiled_memory_analysis(model, batch,
+                                                "geometry_aware")
+    estimate = factory.estimate_memory_mb(model, bsz, h, w, f)
+    log(f"  [{card}] flagship f={f}, {h}x{w}, batch {bsz}, bf16 forward: "
+        f"compiled_memory_analysis {measured or 'not measured (no card)'}; "
+        f"estimate_memory_mb {estimate:.1f} MB (activations of the "
+        f"training step and Adam's state)")
+    if device.type == "cuda" and not (
+            measured and measured["temp_mb"] > 0
+            and measured["total_mb"] > measured["argument_mb"]):
+        raise AssertionError(f"compiled_memory_analysis {measured}")
+    return {"compiled_memory_analysis": measured,
+            "estimate_memory_mb": estimate, "batch": bsz}
+
+
+def dp_data_tools(device, args, card: str, loop_root: pathlib.Path,
+                  family_root: pathlib.Path, root: pathlib.Path):
+    """Phase 23d: the data-tool CLIs on phase 19's synthetic tree
+    (validate; rays on the device; pack, which must give phase 19's pack
+    byte for byte), then compare_models over phase 21's and phase 19's
+    evaluate outputs."""
+    import json as json_mod
+
+    import numpy as np
+
+    from cadepth_tpu_torch.cli import compare_models, pack_dataset
+    from cadepth_tpu_torch.cli import preprocess_rays, validate_sunrgbd
+    from cadepth_tpu_torch.geometry.io import load_ray_directions
+
+    data = loop_root / "data" / "sunrgbd"
+    manifest = loop_root / "data" / "sunrgbd_manifest.json"
+    out = {}
+    t0 = time.perf_counter()
+    rc = validate_sunrgbd.main([str(data), str(root / "manifest.json")])
+    found = json_mod.loads((root / "manifest.json").read_text())
+    out["validate"] = {"exit": rc, "valid_images": found["valid_images"]}
+    rc = preprocess_rays.main(["--data_dir", str(data),
+                               "--native-resolution", "--device",
+                               device.type])
+    files = sorted(data.rglob("rays.bin"))
+    rays = load_ray_directions(files[0])
+    norm_err = float(np.abs(np.linalg.norm(rays, axis=-1) - 1.0).max())
+    out["preprocess_rays"] = {"exit": rc, "files": len(files),
+                              "shape": list(rays.shape),
+                              "unit_norm_max_err": norm_err}
+    rc = pack_dataset.main(["--data-dir", str(data), "--manifest",
+                            str(manifest), "--out", str(root / "pack"),
+                            "--height", str(args.height), "--width",
+                            str(args.width)])
+    names = sorted(p.name for p in (root / "pack").iterdir())
+    same = [n for n in names if (root / "pack" / n).read_bytes()
+            == (loop_root / "pack" / n).read_bytes()]
+    out["pack_dataset"] = {"exit": rc, "files": names,
+                           "equal_to_phase_19": same}
+    # the evaluate outputs under their runs' names (both are "eval")
+    runs = [root / "runs" / "phase21_baseline_unet",
+            root / "runs" / "phase19_geometry_aware_full"]
+    for src, dst in zip((family_root / "eval", loop_root / "eval"), runs):
+        shutil.copytree(src, dst)
+    rc = compare_models.main([str(r) for r in runs]
+                             + ["--output", str(root / "compare")])
+    report = (root / "compare" / "comparison_report.md").read_text()
+    out["compare_models"] = {"exit": rc, "report_lines":
+                             len(report.splitlines()),
+                             "paired_tests": "Paired t-test" in report}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  the data-tool CLIs on phase 19's tree ({out['wall_s']:.1f} s): "
+        + json_mod.dumps(out))
+    n = len(files)
+    if not (out["validate"]["exit"] == 0 and found["valid_images"] == n
+            and out["preprocess_rays"]["exit"] == 0 and n > 0
+            and norm_err < 1e-5 and out["pack_dataset"]["exit"] == 0
+            and same == names and out["compare_models"]["exit"] == 0
+            and out["compare_models"]["paired_tests"]):
+        raise AssertionError(f"the data-tool CLIs: {out}")
+    return out
+
+
+def data_parallel(device, args, card: str, roots):
+    """Phase 23: data parallel on the card, memory analysis and the data
+    tools."""
+    out = {"group_of_one": dp_group_of_one(device, args, card),
+           "two_ranks": dp_ranks(device, args, card, roots[23]),
+           "memory": dp_memory(device, args, card)}
+    out["data_tools"] = dp_data_tools(device, args, card, roots[19],
+                                      roots[21], roots[23])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at a tiny size with the "
                          "plain warp; prints no result")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
+
+    if args.dp_worker:
+        sys.path.insert(0, str(ROOT))
+        rank, port, work = args.dp_worker
+        return dp_worker(int(rank), int(port), pathlib.Path(work),
+                         args.cpu_rehearsal)
 
     rehearsal = args.cpu_rehearsal
     if rehearsal:
@@ -3933,7 +4424,7 @@ def main(argv=None) -> int:
     # 19's pack, phase 22 serves phase 20's checkpoints
     (ROOT / "build").mkdir(exist_ok=True)
     work = pathlib.Path(tempfile.mkdtemp(prefix="smoke_", dir=ROOT / "build"))
-    roots = {k: work / f"phase{k}" for k in (19, 20, 21, 22)}
+    roots = {k: work / f"phase{k}" for k in (19, 20, 21, 22, 23)}
     for r in roots.values():
         r.mkdir()
     try:
@@ -3951,6 +4442,10 @@ def main(argv=None) -> int:
         phase("22. serving from a checkpoint")
         served = serve_checkpoint(device, args, card, roots[22], roots[20],
                                   weights)
+
+        phase("23. data parallel on the card; memory analysis; the data "
+              "tools")
+        dp = data_parallel(device, args, card, roots)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del weights
@@ -3988,6 +4483,10 @@ def main(argv=None) -> int:
         "v_stores_in_trainer_loop": loop["warp_counts"]["v_stores"],
         "launches_in_device_feed": feed_counts["launches"],
         "v_stores_in_device_feed": feed_counts["v_stores"],
+        "launches_in_data_parallel":
+            dp["group_of_one"]["warp_counts"]["launches"],
+        "v_stores_in_data_parallel":
+            dp["group_of_one"]["warp_counts"]["v_stores"],
         "lightweight": {
             "launches_in_training": light["train_counts"]["launches"],
             "v_stores_in_training": light["train_counts"]["v_stores"],
@@ -4043,6 +4542,8 @@ def main(argv=None) -> int:
         "launches_per_step": tr["bwd_per_step"],
         "launches_in_trainer_loop": loop["warp_counts"]["bwd_launches"],
         "launches_in_device_feed": feed_counts["bwd_launches"],
+        "launches_in_data_parallel":
+            dp["group_of_one"]["warp_counts"]["bwd_launches"],
         "lightweight": {
             "launches_in_training": light["train_counts"]["bwd_launches"],
             "max_abs_err_by_dtype": light["bwd_max_abs_err"],
@@ -4251,6 +4752,7 @@ def main(argv=None) -> int:
         "device_feed": feed,
         "families": families,
         "serving_from_checkpoint": served,
+        "data_parallel": dp,
         "pcl_modes": {"serve": modes, "train": mode_train,
                       "group_resize_serve": group_serve,
                       "gather_warp": {"levels": g_rows,

@@ -1146,3 +1146,33 @@ def test_exported_program_on_card_equals_predict(tmp_path, mode):
     torch.cuda.synchronize()
     assert ops.launches == 5 * ops.LAUNCHES_PER_CALL and ops.v_stores == 0
     np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_compiled_memory_analysis_on_card():
+    """The allocator's account of one eval-mode forward of a small f32
+    flagship at batch 4: JAX's keys, arguments counted exactly
+    (parameters, buffers, the three inputs), the output's bytes, a
+    positive temporary peak, and the estimate beside it finite."""
+    from cadepth_tpu_torch.models import factory
+
+    _need_card()
+    model = factory.create_model("geometry_aware", init_features=8,
+                                 dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(12)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(rng, 4, 64, 96).items()}
+    batch["rays"] = batch["rgb"]
+    out = factory.compiled_memory_analysis(model, batch, "geometry_aware")
+    mb = 1.0 / 2**20
+    args = sum(t.nbytes for t in model.parameters()) + \
+        sum(t.nbytes for t in model.buffers()) + \
+        sum(batch[k].nbytes for k in ("rgb", "rays", "k4"))
+    assert set(out) == {"argument_mb", "output_mb", "temp_mb", "total_mb"}
+    assert out["argument_mb"] == pytest.approx(args * mb)
+    assert out["output_mb"] == pytest.approx(4 * 64 * 96 * 4 * mb)
+    assert out["temp_mb"] > 0
+    assert out["total_mb"] == pytest.approx(
+        out["argument_mb"] + out["output_mb"] + out["temp_mb"])
+    assert model.training
+    assert 0 < factory.estimate_memory_mb(model, 4, 64, 96, 8) < 1e6

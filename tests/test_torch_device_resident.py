@@ -31,6 +31,7 @@ from cadepth_tpu.data import synthetic as j_synthetic
 from cadepth_tpu_torch.data import device_resident as pdr
 from cadepth_tpu_torch.data import packed as p_packed
 from cadepth_tpu_torch.data import sunrgbd as p_sunrgbd
+from cadepth_tpu_torch.parallel import DataParallel
 
 H, W = 48, 64
 # the three storages: JAX's dtypes, the port's
@@ -419,8 +420,9 @@ def test_share_storage_from_keeps_identity_and_rejects(pack_dir):
 
 def test_refusals(pack_dir, monkeypatch):
     _, pl = loaders(pack_dir)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        pdr.DeviceDataset(pl, mesh=object(), device="cpu")
+    sharded = pdr.DeviceDataset(pl, mesh=DataParallel(2, 1), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by 2 dataset"):
+        sharded.batches_per_epoch(3)
     with pytest.raises(ValueError, match="all-or-nothing"):
         pdr.ChunkedDeviceDataset(pl, 5, rgb_dtype=torch.uint8, device="cpu")
     with pytest.raises(ValueError, match="chunk_samples"):

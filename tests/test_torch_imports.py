@@ -1,6 +1,6 @@
-"""``cadepth_tpu_torch`` and ``chip_smoke.py`` stand alone: the package
-imports with JAX and the JAX package blocked, and no code of either
-imports them."""
+"""``cadepth_tpu_torch`` (its CLIs included), ``chip_smoke.py`` and
+``torch_convergence.py`` stand alone: the package imports with JAX and
+the JAX package blocked, and no code of any of them imports them."""
 
 from __future__ import annotations
 
@@ -56,7 +56,8 @@ def test_sources_import_no_jax():
     scan reads the code's syntax tree, not its text."""
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "cadepth_tpu"}
     offenders = []
-    for path in sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                 REPO / "torch_convergence.py"]:
         for name in _imported_roots(ast.parse(path.read_text())):
             if name.split(".")[0] in forbidden:
                 offenders.append(f"{path.relative_to(REPO)}: {name}")

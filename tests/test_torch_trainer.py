@@ -431,14 +431,36 @@ def test_trainer_trains_the_other_families(dataset, tmp_path, model, cls):
 
 def test_more_than_one_card_with_data_parallel_raises(dataset, tmp_path,
                                                       monkeypatch):
+    """Several cards seen outside a process group: the Trainer names the
+    launch command instead of training on one of them; a single process
+    otherwise trains without a group."""
     cfg = port_config_of(dataset, tmp_path)
     assert cfg.hardware.data_parallel
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        p_trainer.check_ported(cfg, torch.device("cuda"))
-    p_trainer.check_ported(cfg, torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        p_trainer.data_parallel_group(cfg, torch.device("cuda"))
+    assert p_trainer.data_parallel_group(cfg, torch.device("cpu")) is None
+    cfg.hardware.num_devices = 1
+    assert p_trainer.data_parallel_group(cfg, torch.device("cuda")) is None
+    cfg.hardware.num_devices = 0
     cfg.hardware.data_parallel = False
-    p_trainer.check_ported(cfg, torch.device("cuda"))
+    assert p_trainer.data_parallel_group(cfg, torch.device("cuda")) is None
+
+
+def test_a_group_of_one_trains_without_collectives(dataset, tmp_path,
+                                                   monkeypatch):
+    """A process group of one rank gives no DataParallel (its steps are
+    the single process's, and each collective would cost host time), but
+    a num_devices that is not the group's size still raises."""
+    cfg = port_config_of(dataset, tmp_path)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 1)
+    for n in (0, 1):
+        cfg.hardware.num_devices = n
+        assert p_trainer.data_parallel_group(cfg, torch.device("cpu")) is None
+    cfg.hardware.num_devices = 2
+    with pytest.raises(ValueError, match="num_devices 2"):
+        p_trainer.data_parallel_group(cfg, torch.device("cpu"))
 
 
 def test_trainer_asks_for_the_card_by_default(dataset, tmp_path,
