@@ -13,7 +13,13 @@ data-parallel, one process a card; launch it on every card with
     torchrun --nproc-per-node N -m cadepth_tpu_torch.cli.train \
         --config configs/train_config.yaml --multihost
 
-(``--device cpu`` trains N processes over Gloo on the CPU).
+(``--device cpu`` trains N processes over Gloo on the CPU). With
+``hardware.spatial_parallel: S`` in the config, the N processes form
+N / S data rows of S ranks (JAX's data x space mesh): each row takes
+``training.batch_size / (N / S)`` samples of a global batch, and each of
+its S ranks a band of ``data.input_height / S`` rows of those images
+(``parallel.make_mesh_2d``). N must divide by S, the batch by N / S and
+the height by S, else the trainer raises.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="Join the torch.distributed process group "
                         "(torchrun's or COORDINATOR_ADDRESS/NUM_PROCESSES/"
-                        "PROCESS_ID) and train data-parallel")
+                        "PROCESS_ID) and train data-parallel (and "
+                        "spatially, with hardware.spatial_parallel)")
     return p.parse_args(argv)
 
 

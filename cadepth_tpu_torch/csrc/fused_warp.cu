@@ -382,7 +382,7 @@ cudaError_t launch_bwd(const void* grad, const void* v, const void* img,
   if (err != cudaSuccess) return err;
   two_pass_bwd_h_kernel<T, VEC><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(grad), static_cast<const T*>(v),
-      static_cast<T*>(d_v), part_h, theta, k, H, W, C, c_chunk, n_chunks, 0);
+      static_cast<T*>(d_v), part_h, theta, k, 0, H, W, C, c_chunk, n_chunks, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fused_bwd_v_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
@@ -392,7 +392,7 @@ cudaError_t launch_bwd(const void* grad, const void* v, const void* img,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   two_pass_theta_kernel<<<B, kThreads, 0, stream>>>(
-      part_h, part_v, H * n_chunks, theta, k, d_theta);
+      part_h, part_v, H * n_chunks, H * n_chunks, theta, k, d_theta);
   return cudaGetLastError();
 }
 

@@ -108,30 +108,46 @@
 // flight a thread (several candidates grouped, the next item prefetched,
 // G and V both staged) take more registers or shared memory, so fewer
 // blocks an SM.
+//
+// A window of output rows. Under spatial parallelism a rank holds a band
+// of the map's rows and warps only those: the forward and the backward
+// take `row0` and `rows`, the output rows row0 .. row0 + rows - 1 of the
+// warp of the whole (H-row) input. The coefficients come from the whole
+// map's H and W and every position from the map's row index row0 + i,
+// so a window's rows are those rows of the whole warp, bit for bit. The
+// forward's blocks and out and V cover the window's rows only; bwd H
+// reads the window's cotangent and V; bwd V visits, for each input row,
+// only the output rows inside the window and writes the whole input's
+// d_img; the theta kernel chains the window's partials, so summing the
+// windows' d_img and d_theta over a partition of H gives the whole
+// warp's (chain_to_theta is linear in the partials). row0 0 and rows H
+// are the whole map, and launch exactly what they did before.
 
 #include "warp_common.cuh"
 
 namespace {
 
 // Forward: pass V into shared memory, pass H out of it; V also to `v`
-// when it is not null.
+// when it is not null. img has H rows a batch element, out and v the
+// window's `rows`; block (b, i, chunk) computes the map's row row0 + i.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 two_pass_fwd_kernel(const T* __restrict__ img, T* __restrict__ v,
                     T* __restrict__ out, const float* __restrict__ theta,
-                    Consts k, int H, int W, int C, int c_chunk, int n_chunks,
-                    int border) {
+                    Consts k, int H, int row0, int rows, int W, int C,
+                    int c_chunk, int n_chunks, int border) {
   using P = Pack<T, VEC>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* vrow = reinterpret_cast<T*>(smem_raw);  // V[b, i, :, chunk], pixel stride cc
-  const Chunk ch = chunk_of(H, C, c_chunk, n_chunks);
+  const Chunk ch = chunk_of(rows, C, c_chunk, n_chunks);
   const int cvn = ch.cc / VEC;
   const int items = W * cvn;
   const Lines l = lines(theta + 6 * ch.b, k);
   const int64_t row_at = ch.row * W * C + ch.c_lo;
   const T* plane = img + (int64_t)ch.b * H * W * C + ch.c_lo;
+  const int i = row0 + ch.i;
 
-  const float qi = __fmul_rn(l.q, (float)ch.i);
+  const float qi = __fmul_rn(l.q, (float)i);
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int x = item / cvn;
     const int c = (item - x * cvn) * VEC;
@@ -146,23 +162,26 @@ two_pass_fwd_kernel(const T* __restrict__ img, T* __restrict__ v,
   }
   __syncthreads();
 
-  pass_h_row<T, VEC>(out + row_at, vrow, l, ch.i, W, C, ch.cc, border != 0);
+  pass_h_row<T, VEC>(out + row_at, vrow, l, i, W, C, ch.cc, border != 0);
 }
 
-// Bwd V: block (b, y, chunk); thread pixel x, loop over i reading d_v's
-// column; own = img, writes d_img and the triple (s_p, s_q, s_r).
+// Bwd V: block (b, y, chunk) over the H input rows; thread pixel x, loop
+// over the window's output rows i reading d_v's column (d_v holds the
+// window's `rows` rows, i = row0 ..); own = img, writes d_img and the
+// triple (s_p, s_q, s_r).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, 4)
 two_pass_bwd_v_kernel(const T* __restrict__ d_v, const T* __restrict__ img,
                       T* __restrict__ d_img, float* __restrict__ part,
-                      const float* __restrict__ theta, Consts k, int H, int W,
-                      int C, int c_chunk, int n_chunks, int border) {
+                      const float* __restrict__ theta, Consts k, int H,
+                      int row0, int rows, int W, int C, int c_chunk,
+                      int n_chunks, int border) {
   using P = Pack<T, VEC>;
   const Chunk ch = chunk_of(H, C, c_chunk, n_chunks);
   const int cvn = ch.cc / VEC;
   const int items = W * cvn;
   const int64_t row_at = ch.row * W * C + ch.c_lo;
-  const T* plane = d_v + (int64_t)ch.b * H * W * C + ch.c_lo;
+  const T* plane = d_v + (int64_t)ch.b * rows * W * C + ch.c_lo;
   const Lines l = lines(theta + 6 * ch.b, k);
   const Slope sl = slope_of(l.q);
   const float hi = (float)(H - 1);
@@ -180,11 +199,13 @@ two_pass_bwd_v_kernel(const T* __restrict__ d_v, const T* __restrict__ img,
     }
     const float fixed = __fmul_rn(l.p, (float)x);
     const double mag = fabs((double)l.q) * H + fabs((double)fixed) + fabs((double)l.r);
-    const Range rg = span(sl, (double)fixed + (double)l.r, mag, ch.i, H, H,
-                          border != 0);
+    Range rg = span(sl, (double)fixed + (double)l.r, mag, ch.i, H,
+                    row0 + rows, border != 0);
+    rg.lo = max(rg.lo, row0);
     float ti = 0.0f, t = 0.0f;
-    visit<T, VEC, false>(plane + (int64_t)x * C + c, (int64_t)W * C, mine, acc,
-                         rg, l.q, fixed, l.r, ch.i, hi, border, ti, t);
+    visit<T, VEC, false>(plane + (int64_t)x * C + c, (int64_t)W * C, row0,
+                         mine, acc, rg, l.q, fixed, l.r, ch.i, hi, border, ti,
+                         t);
     s0 += t * (float)x;
     s1 += ti;
     s2 += t;
@@ -198,62 +219,74 @@ two_pass_bwd_v_kernel(const T* __restrict__ d_v, const T* __restrict__ img,
 
 template <typename T, int VEC>
 cudaError_t launch_fwd(const void* img, void* v, void* out, const float* theta,
-                       const Consts& k, int blocks, int H, int W, int C,
-                       int c_chunk, int n_chunks, int smem, int border,
-                       cudaStream_t stream) {
+                       const Consts& k, int blocks, int H, int row0, int rows,
+                       int W, int C, int c_chunk, int n_chunks, int smem,
+                       int border, cudaStream_t stream) {
   cudaError_t err = allow_smem(two_pass_fwd_kernel<T, VEC>, smem);
   if (err != cudaSuccess) return err;
   two_pass_fwd_kernel<T, VEC><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(img), static_cast<T*>(v), static_cast<T*>(out),
-      theta, k, H, W, C, c_chunk, n_chunks, border);
+      theta, k, H, row0, rows, W, C, c_chunk, n_chunks, border);
   return cudaGetLastError();
 }
 
+// blocks_h cover the window's rows (bwd H), blocks_v the input's H rows
+// (bwd V).
 template <typename T, int VEC>
 cudaError_t launch_bwd(const void* grad, const void* v, const void* img,
                        void* d_v, void* d_img, float* part_h, float* part_v,
                        float* d_theta, const float* theta, const Consts& k,
-                       int B, int blocks, int H, int W, int C, int c_chunk,
-                       int n_chunks, int smem, int border, cudaStream_t stream) {
+                       int B, int blocks_h, int blocks_v, int H, int row0,
+                       int rows, int W, int C, int c_chunk, int n_chunks,
+                       int smem, int border, cudaStream_t stream) {
   cudaError_t err = allow_smem(two_pass_bwd_h_kernel<T, VEC>, smem);
   if (err != cudaSuccess) return err;
-  two_pass_bwd_h_kernel<T, VEC><<<blocks, kThreads, smem, stream>>>(
+  two_pass_bwd_h_kernel<T, VEC><<<blocks_h, kThreads, smem, stream>>>(
       static_cast<const T*>(grad), static_cast<const T*>(v),
-      static_cast<T*>(d_v), part_h, theta, k, H, W, C, c_chunk, n_chunks,
-      border);
+      static_cast<T*>(d_v), part_h, theta, k, row0, rows, W, C, c_chunk,
+      n_chunks, border);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  two_pass_bwd_v_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
+  two_pass_bwd_v_kernel<T, VEC><<<blocks_v, kThreads, 0, stream>>>(
       static_cast<const T*>(d_v), static_cast<const T*>(img),
-      static_cast<T*>(d_img), part_v, theta, k, H, W, C, c_chunk, n_chunks,
-      border);
+      static_cast<T*>(d_img), part_v, theta, k, H, row0, rows, W, C, c_chunk,
+      n_chunks, border);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   two_pass_theta_kernel<<<B, kThreads, 0, stream>>>(
-      part_h, part_v, H * n_chunks, theta, k, d_theta);
+      part_h, part_v, rows * n_chunks, H * n_chunks, theta, k, d_theta);
   return cudaGetLastError();
+}
+
+bool window_ok(int H, int row0, int rows) {
+  return row0 >= 0 && rows >= 0 && (int64_t)row0 + rows <= H;
 }
 
 }  // namespace
 
 extern "C" {
 
-// img, v and out are contiguous NHWC (B, H, W, C) device buffers of one
-// dtype (0 = float32, 1 = bfloat16); v may be null (nothing stored);
-// theta is a contiguous (B, 2, 3) float32 device buffer. `vec` channels
-// per thread (1, or 4 f32 / 8 bf16 with C a multiple and the buffers
-// 16-byte aligned), `c_chunk` channels per block and `smem` = W *
-// c_chunk * sizeof(dtype) come from ops/two_pass_warp.py: fwd_plan.
-// Launches two_pass_fwd_kernel on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a plan the kernel does not take).
+// img is a contiguous NHWC (B, H, W, C) device buffer; out and v are
+// contiguous (B, rows, W, C) buffers of the same dtype (0 = float32, 1 =
+// bfloat16) for the output rows row0 .. row0 + rows - 1 (the whole map:
+// row0 0, rows H); v may be null (nothing stored); theta is a contiguous
+// (B, 2, 3) float32 device buffer. `vec` channels per thread (1, or 4
+// f32 / 8 bf16 with C a multiple and the buffers 16-byte aligned),
+// `c_chunk` channels per block and `smem` = W * c_chunk * sizeof(dtype)
+// come from ops/two_pass_warp.py: fwd_plan. Launches
+// two_pass_fwd_kernel on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a plan or a window the kernel does not
+// take).
 int cadepth_two_pass_warp_fwd(const void* img, void* v, void* out,
-                              const void* theta, int B, int H, int W, int C,
-                              int dtype, int border, int align_corners,
-                              int vec, int c_chunk, int smem, void* stream) {
-  if (B == 0 || H == 0 || W == 0 || C == 0) return (int)cudaSuccess;
+                              const void* theta, int B, int H, int row0,
+                              int rows, int W, int C, int dtype, int border,
+                              int align_corners, int vec, int c_chunk,
+                              int smem, void* stream) {
+  if (!window_ok(H, row0, rows)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || rows == 0 || W == 0 || C == 0) return (int)cudaSuccess;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(img) && aligned16(out) && (v == nullptr || aligned16(v));
-  const int64_t blocks = plan_blocks(B, H, W, C, dtype == 0 ? 4 : 2, vec,
+  const int64_t blocks = plan_blocks(B, rows, W, C, dtype == 0 ? 4 : 2, vec,
                                      c_chunk, smem, aligned);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   const int n_chunks = (C + c_chunk - 1) / c_chunk;
@@ -263,67 +296,84 @@ int cadepth_two_pass_warp_fwd(const void* img, void* v, void* out,
   const int nb = (int)blocks;
   if (dtype == 0) {
     if (vec == 4)
-      return (int)launch_fwd<float, 4>(img, v, out, th, k, nb, H, W, C, c_chunk,
-                                       n_chunks, smem, border, s);
-    return (int)launch_fwd<float, 1>(img, v, out, th, k, nb, H, W, C, c_chunk,
-                                     n_chunks, smem, border, s);
+      return (int)launch_fwd<float, 4>(img, v, out, th, k, nb, H, row0, rows,
+                                       W, C, c_chunk, n_chunks, smem, border, s);
+    return (int)launch_fwd<float, 1>(img, v, out, th, k, nb, H, row0, rows, W,
+                                     C, c_chunk, n_chunks, smem, border, s);
   }
   if (vec == 8)
-    return (int)launch_fwd<__nv_bfloat16, 8>(img, v, out, th, k, nb, H, W, C,
-                                             c_chunk, n_chunks, smem, border, s);
-  return (int)launch_fwd<__nv_bfloat16, 1>(img, v, out, th, k, nb, H, W, C,
-                                           c_chunk, n_chunks, smem, border, s);
+    return (int)launch_fwd<__nv_bfloat16, 8>(img, v, out, th, k, nb, H, row0,
+                                             rows, W, C, c_chunk, n_chunks,
+                                             smem, border, s);
+  return (int)launch_fwd<__nv_bfloat16, 1>(img, v, out, th, k, nb, H, row0,
+                                           rows, W, C, c_chunk, n_chunks, smem,
+                                           border, s);
 }
 
-// The backward of cadepth_two_pass_warp_fwd. grad (the cotangent of
-// out), v (the forward's V), img, d_v (scratch) and d_img are contiguous
-// NHWC (B, H, W, C) device buffers of one dtype; theta is (B, 2, 3)
-// float32; part is a float32 scratch buffer of 2 * B * H * n_chunks * 3
-// values (n_chunks = ceil(C / c_chunk)); d_theta a float32 (B, 2, 3)
-// output. vec, c_chunk and smem as for the forward. Launches bwd H (grad,
-// v -> d_v, part[0]), bwd V (d_v, img -> d_img, part[1]) and the theta
-// kernel (part -> d_theta) on `stream` and returns cudaGetLastError().
+// The backward of cadepth_two_pass_warp_fwd over the same window. grad
+// (the cotangent of out), v (the forward's V) and d_v (scratch) are
+// contiguous (B, rows, W, C) device buffers, img and d_img contiguous
+// (B, H, W, C) ones, all of one dtype; theta is (B, 2, 3) float32; part
+// is a float32 scratch buffer of B * (rows + H) * n_chunks * 3 values
+// (n_chunks = ceil(C / c_chunk)); d_theta a float32 (B, 2, 3) output.
+// vec, c_chunk and smem as for the forward. Launches bwd H (grad, v ->
+// d_v, the first B * rows * n_chunks triples of part), bwd V (d_v, img
+// -> d_img, the rest) and the theta kernel (part -> d_theta) on
+// `stream` and returns cudaGetLastError().
 int cadepth_two_pass_warp_bwd(const void* grad, const void* v, const void* img,
                               const void* theta, void* d_v, void* d_img,
-                              void* part, void* d_theta, int B, int H, int W,
-                              int C, int dtype, int border, int align_corners,
-                              int vec, int c_chunk, int smem, void* stream) {
+                              void* part, void* d_theta, int B, int H,
+                              int row0, int rows, int W, int C, int dtype,
+                              int border, int align_corners, int vec,
+                              int c_chunk, int smem, void* stream) {
+  if (!window_ok(H, row0, rows)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int n_chunks = C > 0 && c_chunk > 0 ? (C + c_chunk - 1) / c_chunk : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H == 0 || W == 0 || C == 0) {
     // nothing to visit: every partial is 0, and so is d_theta
-    return (int)cudaMemsetAsync(d_theta, 0, (size_t)B * 6 * sizeof(float),
-                                static_cast<cudaStream_t>(stream));
+    return (int)cudaMemsetAsync(d_theta, 0, (size_t)B * 6 * sizeof(float), s);
+  }
+  if (rows == 0) {
+    // an empty window reads no input row
+    cudaError_t err = cudaMemsetAsync(
+        d_img, 0, (size_t)B * H * W * C * (dtype == 0 ? 4 : 2), s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaMemsetAsync(d_theta, 0, (size_t)B * 6 * sizeof(float), s);
   }
   const bool aligned = aligned16(grad) && aligned16(v) && aligned16(img) &&
                        aligned16(d_v) && aligned16(d_img);
-  const int64_t blocks = plan_blocks(B, H, W, C, dtype == 0 ? 4 : 2, vec,
-                                     c_chunk, smem, aligned);
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  const int size = dtype == 0 ? 4 : 2;
+  const int64_t blocks_h = plan_blocks(B, rows, W, C, size, vec, c_chunk, smem,
+                                       aligned);
+  const int64_t blocks_v = plan_blocks(B, H, W, C, size, vec, c_chunk, smem,
+                                       aligned);
+  if (blocks_h == 0 || blocks_v == 0) return (int)cudaErrorInvalidValue;
   const Consts k = make_consts(H, W, align_corners);
   const float* th = static_cast<const float*>(theta);
   float* ph = static_cast<float*>(part);
-  float* pv = ph + blocks * 3;
+  float* pv = ph + blocks_h * 3;
   float* dt = static_cast<float*>(d_theta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (int)blocks;
+  const int bh = (int)blocks_h, bv = (int)blocks_v;
   if (dtype == 0) {
     if (vec == 4)
       return (int)launch_bwd<float, 4>(grad, v, img, d_v, d_img, ph, pv, dt, th,
-                                       k, B, nb, H, W, C, c_chunk, n_chunks,
-                                       smem, border, s);
+                                       k, B, bh, bv, H, row0, rows, W, C,
+                                       c_chunk, n_chunks, smem, border, s);
     return (int)launch_bwd<float, 1>(grad, v, img, d_v, d_img, ph, pv, dt, th,
-                                     k, B, nb, H, W, C, c_chunk, n_chunks, smem,
-                                     border, s);
+                                     k, B, bh, bv, H, row0, rows, W, C, c_chunk,
+                                     n_chunks, smem, border, s);
   }
   if (vec == 8)
     return (int)launch_bwd<__nv_bfloat16, 8>(grad, v, img, d_v, d_img, ph, pv,
-                                             dt, th, k, B, nb, H, W, C, c_chunk,
-                                             n_chunks, smem, border, s);
+                                             dt, th, k, B, bh, bv, H, row0,
+                                             rows, W, C, c_chunk, n_chunks,
+                                             smem, border, s);
   return (int)launch_bwd<__nv_bfloat16, 1>(grad, v, img, d_v, d_img, ph, pv, dt,
-                                           th, k, B, nb, H, W, C, c_chunk,
-                                           n_chunks, smem, border, s);
+                                           th, k, B, bh, bv, H, row0, rows, W,
+                                           C, c_chunk, n_chunks, smem, border,
+                                           s);
 }
 
 const char* cadepth_cuda_error_string(int err) {

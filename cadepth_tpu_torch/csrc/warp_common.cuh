@@ -302,13 +302,14 @@ __device__ __forceinline__ void block_sum3(float s0, float s1, float s2,
 }
 
 // One visit of a transposed pass: the forward outputs m in `rg` whose
-// position reaches `target` add their cotangent vector (cot + m * step)
-// to acc with the tent weight; t = <cot, mine> * dtent * dclip of each
+// position reaches `target` add their cotangent vector (cot + (m - m0) *
+// step: `cot` holds outputs m0 onwards) to acc with the tent weight; t = <cot, mine> * dtent * dclip of each
 // adds to t_sum, and t * m to tm_sum. The position of m is the
 // forward's: bwd H ((A*m) + (B*i)) + C, bwd V ((p*x) + (q*m)) + r.
 template <typename T, int VEC, bool H_PASS>
 __device__ __forceinline__ void visit(const T* __restrict__ cot, int64_t step,
-                                      const float* mine, float* acc, Range rg,
+                                      int m0, const float* mine, float* acc,
+                                      Range rg,
                                       float slope, float fixed, float tail,
                                       int target, float hi, int border,
                                       float& tm_sum, float& t_sum) {
@@ -321,7 +322,7 @@ __device__ __forceinline__ void visit(const T* __restrict__ cot, int64_t step,
     const float diff = __fsub_rn(pp, (float)target);
     const float ad = fabsf(diff);
     if (!(ad <= 1.0f)) continue;
-    const P cv = *reinterpret_cast<const P*>(cot + (int64_t)m * step);
+    const P cv = *reinterpret_cast<const P*>(cot + (int64_t)(m - m0) * step);
     const float wgt = fmaxf(__fsub_rn(1.0f, ad), 0.0f);
     float dot = 0.0f;
 #pragma unroll
@@ -342,20 +343,25 @@ __device__ __forceinline__ void visit(const T* __restrict__ cot, int64_t step,
 
 // Bwd H: block (b, i, chunk); G's row chunk staged in shared memory;
 // thread pixel x, loop over j; own = V, writes d_v and the block's triple
-// (s_a, s_b, s_c) to part[blockIdx.x].
+// (s_a, s_b, s_c) to part[blockIdx.x]. grad, v and d_v hold `rows` rows
+// a batch element: the output rows row0 .. row0 + rows - 1 of the warp
+// (the whole map: row0 0, rows H), and the positions take the map's row
+// index row0 + i.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, 4)
 two_pass_bwd_h_kernel(const T* __restrict__ grad, const T* __restrict__ v,
                       T* __restrict__ d_v, float* __restrict__ part,
-                      const float* __restrict__ theta, Consts k, int H, int W,
-                      int C, int c_chunk, int n_chunks, int border) {
+                      const float* __restrict__ theta, Consts k, int row0,
+                      int rows, int W, int C, int c_chunk, int n_chunks,
+                      int border) {
   using P = Pack<T, VEC>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* grow = reinterpret_cast<T*>(smem_raw);  // G[b, i, :, chunk], pixel stride cc
-  const Chunk ch = chunk_of(H, C, c_chunk, n_chunks);
+  const Chunk ch = chunk_of(rows, C, c_chunk, n_chunks);
   const int cvn = ch.cc / VEC;
   const int items = W * cvn;
   const int64_t row_at = ch.row * W * C + ch.c_lo;
+  const int i = row0 + ch.i;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int x = item / cvn;
     const int c = (item - x * cvn) * VEC;
@@ -365,7 +371,7 @@ two_pass_bwd_h_kernel(const T* __restrict__ grad, const T* __restrict__ v,
   __syncthreads();
 
   const Lines l = lines(theta + 6 * ch.b, k);
-  const float fixed = __fmul_rn(l.b, (float)ch.i);
+  const float fixed = __fmul_rn(l.b, (float)i);
   const double mag = fabs((double)l.a) * W + fabs((double)fixed) + fabs((double)l.c);
   const Slope sl = slope_of(l.a);
   const float hi = (float)(W - 1);
@@ -384,10 +390,10 @@ two_pass_bwd_h_kernel(const T* __restrict__ grad, const T* __restrict__ v,
     const Range rg = span(sl, (double)fixed + (double)l.c, mag, x, W, W,
                           border != 0);
     float tj = 0.0f, t = 0.0f;
-    visit<T, VEC, true>(grow + c, ch.cc, mine, acc, rg, l.a, fixed, l.c, x,
-                        hi, border, tj, t);
+    visit<T, VEC, true>(grow + c, ch.cc, 0, mine, acc, rg, l.a, fixed, l.c,
+                        x, hi, border, tj, t);
     s0 += tj;
-    s1 += t * (float)ch.i;
+    s1 += t * (float)i;
     s2 += t;
     P res;
 #pragma unroll
@@ -444,24 +450,26 @@ __device__ __forceinline__ double warp_sum_d(double v) {
   return v;
 }
 
-// One block per batch element b: the per-block triples of both passes
-// (`per_b` each) summed in a fixed order, then chained to d_theta[b].
+// One block per batch element b: the per-block triples of pass H
+// (`per_b_h` of them) and of pass V (`per_b_v`) summed in a fixed order,
+// then chained to d_theta[b].
 __global__ void __launch_bounds__(kThreads)
 two_pass_theta_kernel(const float* __restrict__ part_h,
-                      const float* __restrict__ part_v, int per_b,
-                      const float* __restrict__ theta, Consts k,
+                      const float* __restrict__ part_v, int per_b_h,
+                      int per_b_v, const float* __restrict__ theta, Consts k,
                       float* __restrict__ d_theta) {
   __shared__ double sh[6][kThreads / 32];
   const int b = blockIdx.x;
-  const float* ph = part_h + (int64_t)b * per_b * 3;
-  const float* pv = part_v + (int64_t)b * per_b * 3;
+  const float* ph = part_h + (int64_t)b * per_b_h * 3;
+  const float* pv = part_v + (int64_t)b * per_b_v * 3;
   double s[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int t = threadIdx.x; t < per_b; t += blockDim.x) {
+  for (int t = threadIdx.x; t < per_b_h; t += blockDim.x) {
 #pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      s[m] += (double)ph[t * 3 + m];
-      s[3 + m] += (double)pv[t * 3 + m];
-    }
+    for (int m = 0; m < 3; ++m) s[m] += (double)ph[t * 3 + m];
+  }
+  for (int t = threadIdx.x; t < per_b_v; t += blockDim.x) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) s[3 + m] += (double)pv[t * 3 + m];
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll

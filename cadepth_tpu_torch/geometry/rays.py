@@ -23,15 +23,19 @@ def ray_grid(intrinsics: torch.Tensor, height: int, width: int,
 
 
 def ray_grid_batch(intrinsics: torch.Tensor, height: int, width: int,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Batched :func:`ray_grid`: (B, 3, 3) -> (B, height, width, 3)."""
+                   dtype: torch.dtype = torch.float32,
+                   row0: int = 0) -> torch.Tensor:
+    """Batched :func:`ray_grid`: (B, 3, 3) -> (B, height, width, 3); with
+    ``row0``, the rays of the image rows ``row0 .. row0 + height - 1`` (a
+    band of a taller image)."""
     k = intrinsics.to(torch.float32)
     fx = k[:, 0, 0, None, None]
     fy = k[:, 1, 1, None, None]
     cx = k[:, 0, 2, None, None]
     cy = k[:, 1, 2, None, None]
     u = torch.arange(width, dtype=torch.float32, device=k.device)[None, None, :]
-    v = torch.arange(height, dtype=torch.float32, device=k.device)[None, :, None]
+    v = torch.arange(row0, row0 + height, dtype=torch.float32,
+                     device=k.device)[None, :, None]
     x = (u - cx) / fx
     y = (v - cy) / fy
     x, y = torch.broadcast_tensors(x, y)

@@ -24,6 +24,19 @@ so each rank back-propagates ``loss / W`` and the parameter gradients are
 summed over the ranks (``training/train_state.py``): that is the
 gradient of the global loss. Without ``dp`` the arithmetic is the single
 process's.
+
+Under spatial parallelism (``dp.space``) each rank holds a band of rows,
+and a band's plain mean is not the image's: the H - 1 row differences
+do not split evenly over the bands. So the gradient-matching and
+smoothness terms become sums, each divided by the global batch's count
+before the all-reduce (:func:`_banded_terms`). A row difference across
+two bands is counted once, by the lower band, from one halo row of the
+band above; the smoothness term's per-sample mean depth is a sum over
+the space row; the pooled scales of the gradient matching follow the
+model's band rule (a band the pool factor does not divide is gathered,
+and its whole map counted by the row's first rank alone). SILog's and
+the reprojection loss's sums are sums already; the reprojection takes
+the band's image rows.
 """
 
 from __future__ import annotations
@@ -143,9 +156,9 @@ def smoothness_loss(pred: torch.Tensor, image: torch.Tensor,
 
 def _reproj_sums(pred: torch.Tensor, gt: torch.Tensor,
                  intrinsics: torch.Tensor, valid_mask: Optional[torch.Tensor],
-                 eps: float) -> List[torch.Tensor]:
+                 eps: float, row0: int = 0) -> List[torch.Tensor]:
     """The reprojection loss's (sum of point errors, count) over the
-    mask."""
+    mask; the maps' first row is the image's row ``row0``."""
     pred = pred.float()
     gt = gt.float()
     b, h, w, _ = pred.shape
@@ -158,7 +171,7 @@ def _reproj_sums(pred: torch.Tensor, gt: torch.Tensor,
     cy = k[:, 1, 2][:, None, None, None]
     grid_x = torch.arange(w, dtype=torch.float32,
                           device=pred.device)[None, None, :, None]
-    grid_y = torch.arange(h, dtype=torch.float32,
+    grid_y = torch.arange(row0, row0 + h, dtype=torch.float32,
                           device=pred.device)[None, :, None, None]
     xs = (grid_x - cx) / (fx + eps)
     ys = (grid_y - cy) / (fy + eps)
@@ -192,6 +205,67 @@ def reprojection_loss_photometric(pred: torch.Tensor, gt: torch.Tensor,
     return torch.zeros((), dtype=torch.float32, device=pred.device)
 
 
+def _row_diffs(x: torch.Tensor, space) -> torch.Tensor:
+    """The row differences ``x[i] - x[i - 1]`` of a band (B, h, W, C) of
+    the image, i over its rows with a row above in the image: the first
+    takes the halo row of the band above, and the image's first row has
+    none. Every rank of the row calls it (the halo is a collective)."""
+    x = space.halo(x, 1, 1)[:, int(space.rank == 0):-1]
+    return x[:, 1:] - x[:, :-1]
+
+
+def _banded_terms(pred: torch.Tensor, gt: torch.Tensor, image: torch.Tensor,
+                  space, data_rows: int, num_scales: int, eps: float
+                  ) -> List[torch.Tensor]:
+    """This rank's parts of the gradient-matching and smoothness terms
+    on bands: each of their sums over its band divided by the global
+    batch's count (``data_rows`` rows of the local batch), so the sums over
+    all ranks are the terms."""
+    pred = pred.float()
+    gt = gt.float()
+    image = image.float()
+    bsz, h, w, _ = pred.shape
+    batch = bsz * data_rows
+    one = pred.new_ones(())
+
+    grad = pred.new_zeros(())
+    for scale in range(num_scales):
+        f = 2 ** scale
+        p, g, banded = pred, gt, True
+        if h % f:
+            p, g, banded = space.gather(p, 1), space.gather(g, 1), False
+        p = torch.log(_clip(avg_pool2d(p, f), eps, _CLAMP_MAX))
+        g = torch.log(_clip(avg_pool2d(g, f), eps, _CLAMP_MAX))
+        rows = p.shape[1] * (space.size if banded else 1)
+        cols = p.shape[2]
+        x_sum = _abs((p[:, :, 1:] - p[:, :, :-1])
+                     - (g[:, :, 1:] - g[:, :, :-1])).sum()
+        if banded:
+            y_sum = _abs(_row_diffs(p, space) - _row_diffs(g, space)).sum()
+        else:
+            y_sum = _abs((p[:, 1:] - p[:, :-1]) - (g[:, 1:] - g[:, :-1])).sum()
+        part = (x_sum / one.new_tensor(float(batch * rows * (cols - 1)))
+                + y_sum / one.new_tensor(float(batch * (rows - 1) * cols)))
+        if not banded and space.rank:
+            part = part * 0.0     # the row's first rank counts a whole map
+        grad = grad + part
+    grad = grad / one.new_tensor(float(num_scales))
+
+    mean = space.sum(pred.sum(dim=(-3, -2), keepdim=True)) / \
+        one.new_tensor(float(h * space.size * w))
+    dn = pred / (mean + eps)
+    dgx = _abs(dn[:, :, 1:] - dn[:, :, :-1])
+    igx = _abs(image[:, :, 1:] - image[:, :, :-1]).mean(-1, keepdim=True)
+    dgy = _abs(_row_diffs(dn, space))
+    igy = _abs(_row_diffs(image, space)).mean(-1, keepdim=True)
+    rows = h * space.size
+    smooth = ((dgx * torch.exp(-igx)).sum()
+              / one.new_tensor(float(batch * rows * (w - 1)))
+              + (dgy * torch.exp(-igy)).sum()
+              / one.new_tensor(float(batch * (rows - 1) * w)))
+    return [grad, smooth]
+
+
 @dataclasses.dataclass(frozen=True)
 class CombinedDepthLoss:
     """Weighted sum of the four depth loss terms, with every component
@@ -215,18 +289,29 @@ class CombinedDepthLoss:
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total_loss, components). Without ``intrinsics`` there is no
         reprojection term."""
-        sums = _si_sums(pred, gt, valid_mask, self.eps) + [
-            gradient_matching_loss(pred, gt, valid_mask,
-                                   self.grad_num_scales, self.eps),
-            smoothness_loss(pred, image, self.eps)]
+        space = None if self.dp is None else self.dp.space
+        if space is None:
+            row0 = 0
+            sums = _si_sums(pred, gt, valid_mask, self.eps) + [
+                gradient_matching_loss(pred, gt, valid_mask,
+                                       self.grad_num_scales, self.eps),
+                smoothness_loss(pred, image, self.eps)]
+        else:
+            row0 = space.row0(pred.shape[1])
+            sums = _si_sums(pred, gt, valid_mask, self.eps) + _banded_terms(
+                pred, gt, image, space, self.dp.data_size,
+                self.grad_num_scales, self.eps)
         if intrinsics is not None:
-            sums += _reproj_sums(pred, gt, intrinsics, valid_mask, self.eps)
+            sums += _reproj_sums(pred, gt, intrinsics, valid_mask, self.eps,
+                                 row0)
         if self.dp is not None:
-            # every term's sums in one all-reduce; the plain means averaged
+            # every term's sums in one all-reduce
             sums = list(self.dp.sum(torch.stack(sums)).unbind())
-            ranks = torch.full((), float(self.dp.world_size),
-                               dtype=sums[3].dtype, device=sums[3].device)
-            sums[3], sums[4] = sums[3] / ranks, sums[4] / ranks
+            if space is None:
+                # the plain means averaged (on bands their parts are sums)
+                ranks = torch.full((), float(self.dp.world_size),
+                                   dtype=sums[3].dtype, device=sums[3].device)
+                sums[3], sums[4] = sums[3] / ranks, sums[4] / ranks
         si = _si_from_sums(*sums[:3], self.si_lambda)
         grad, smooth = sums[3], sums[4]
         components = {"si_loss": si, "grad_loss": grad,

@@ -5,6 +5,12 @@ The JAX package has three TPU lowerings of the spatial gate's 7x7
 conv from 2 channels to 1 (``sa_lowering``: conv, stencil, toeplitz).
 They compute one convolution over one ``conv/kernel`` parameter, so on
 the GPU all three are the one ``Conv2d`` below.
+
+On bands (spatial parallelism, ``parallel/spatial.py``) the channel
+gate's mean and maximum over H and W are the whole image's, over the
+space row; the gates' convolutions take their halo rows in ``Conv2d``
+(3 for the 7x7, 1 for the edge 3x3, 6 for the dilated 7x7), and the
+reductions over channels are per pixel.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cadepth_tpu_torch.models.layers import Conv2d, Linear
+from cadepth_tpu_torch.parallel import spatial
 
 SA_LOWERINGS = ("conv", "stencil", "toeplitz")
 
@@ -29,8 +36,13 @@ class ChannelAttention(nn.Module):
         self.fc2 = Linear(reduced, channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg = x.mean(dim=(2, 3))
-        mx = x.amax(dim=(2, 3))
+        space = spatial.bands()
+        if space is None:
+            avg = x.mean(dim=(2, 3))
+            mx = x.amax(dim=(2, 3))
+        else:
+            avg = space.mean_hw(x)
+            mx = space.amax(x, (2, 3))
         att = torch.sigmoid(self.fc2(F.relu(self.fc1(avg)))
                             + self.fc2(F.relu(self.fc1(mx))))
         return att[:, :, None, None]  # (B, C, 1, 1)

@@ -20,8 +20,10 @@ from cadepth_tpu_torch.models.layers import (Conv2d, DecoderBlock,
 class BaselineUNet(DepthUNet):
     """``forward(rgb, intermediates=None)``: NHWC rgb in [0, 1] ->
     (B, H, W, 1) float32 depth in metres. ``intermediates`` is taken so
-    every family has one call signature; nothing is written to it. H and
-    W must be divisible by 16."""
+    every family has one call signature; nothing is written to it. Any H
+    and W of at least 16 work (the decoder pads a pooled odd row or column
+    back, ``layers.pad_to_match``); under spatial parallelism the input
+    is a band of H / S rows, with the band rule of ``models/layers.py``."""
 
     def __init__(self, in_channels: int = 3, init_features: int = 64,
                  max_depth: float = 10.0, remat=False,
@@ -42,10 +44,14 @@ class BaselineUNet(DepthUNet):
     def forward(self, rgb: torch.Tensor,
                 intermediates: Optional[Dict[str, List[torch.Tensor]]] = None
                 ) -> torch.Tensor:
-        skips = [self._block("enc1", self._nchw(rgb, self.dtype))]
+        banded = [self.space is not None]
+        with self._on(banded[0]):
+            skips = [self._block("enc1", self._nchw(rgb, self.dtype))]
         for i in (2, 3, 4):
-            skips.append(self._block(f"enc{i}", skips[-1]))
-        x = self._block("bottleneck", skips[-1])
+            x, b = self._encode(f"enc{i}", skips[-1], banded[-1])
+            skips.append(x)
+            banded.append(b)
+        x, b = self._encode("bottleneck", skips[-1], banded[-1])
         for i in (4, 3, 2, 1):
-            x = self._block(f"dec{i}", x, skips[i - 1])
+            x, b = self._decode(f"dec{i}", x, b, skips[i - 1], banded[i - 1])
         return self._depth(x)

@@ -5,7 +5,9 @@ over the normalized [fx, fy, cx, cy] vector, in float32. The reference
 applies its BatchNorm1d only when the batch holds more than one sample,
 so one image alone gets a different answer than in a batch; the port
 keeps that. In training, a batch of one leaves the statistics as they
-are, as in the reference.
+are, as in the reference. Under a data-parallel group the batch is the
+global one, every data row's samples, as JAX's traced shape is: a rank
+holding one sample of a larger batch applies the batch norms.
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ class FiLMLayer(nn.Module):
     def embed(self, camera_params: torch.Tensor):
         """(gamma, beta), each (B, feature_channels) float32."""
         h = self.fc1(camera_params.float())
-        if h.shape[0] > 1:
+        dp = self.bn1.dp
+        batched = h.shape[0] * (1 if dp is None else dp.data_size) > 1
+        if batched:
             h = self.bn1(h)
         h = self.fc2(F.relu(h))
-        if h.shape[0] > 1:
+        if batched:
             h = self.bn2(h)
         h = F.relu(h)
         return self.fc_gamma(h), self.fc_beta(h)

@@ -139,17 +139,22 @@ class _GeometryUNet(DepthUNet):
                 intermediates: Intermediates = None) -> torch.Tensor:
         """When ``intermediates`` is a dict, each PCL appends its max
         |rotation| to ``intermediates["pcl_max_rot"]``."""
-        h, w = rgb.shape[1], rgb.shape[2]
+        h, w = self._height(rgb), rgb.shape[2]
         cam = normalize_k4(camera_intrinsics.float(), width=w, height=h)
         x = self._nchw(rgb, self.dtype)
         rays = self._nchw(ray_directions, ray_directions.dtype)
 
-        skips = [self._block("enc1", x, cam, rays)]
+        banded = [self.space is not None]
+        with self._on(banded[0]):
+            skips = [self._block("enc1", x, cam, rays)]
         for i in range(2, self.levels + 1):
-            skips.append(self._block(f"enc{i}", skips[-1], cam))
-        x = self._block("bottleneck", skips[-1], cam)
+            x, b = self._encode(f"enc{i}", skips[-1], banded[-1], cam)
+            skips.append(x)
+            banded.append(b)
+        x, b = self._encode("bottleneck", skips[-1], banded[-1], cam)
         for i in range(self.levels, 0, -1):
-            x = self._block(f"dec{i}", x, skips[i - 1], cam, intermediates)
+            x, b = self._decode(f"dec{i}", x, b, skips[i - 1],
+                                banded[i - 1], cam, intermediates)
         return self._depth(x)
 
 
@@ -158,7 +163,11 @@ class GeometryAwareNetwork(_GeometryUNet):
 
     ``forward`` takes NHWC rgb (B, H, W, 3), ray_directions (B, H, W, 3)
     and camera_intrinsics (B, 4) in pixels, and returns depth in metres,
-    (B, H, W, 1) float32. H and W must be divisible by 32.
+    (B, H, W, 1) float32. Any H and W of at least 32 work: each 2x2 pool
+    drops an odd row or column and the decoder pads it back
+    (``layers.pad_to_match``), so 240 rows pool to 120, 60, 30, 15 and 7.
+    Under spatial parallelism (``space``) the inputs are bands of H / S
+    rows and the levels follow the band rule of ``models/layers.py``.
     """
 
     def __init__(self, in_channels: int = 3, init_features: int = 64,
@@ -176,7 +185,8 @@ class GeometryAwareNetwork(_GeometryUNet):
 class LightweightGeometryNetwork(_GeometryUNet):
     """The 4-level variant, attention and a PCL on every level; the
     factory caps ``init_features`` at 32. Takes and returns what
-    :class:`GeometryAwareNetwork` does; H and W must be divisible by 16.
+    :class:`GeometryAwareNetwork` does, H and W of at least 16, by the
+    same pooling and band rules.
     """
 
     def __init__(self, in_channels: int = 3, init_features: int = 32,

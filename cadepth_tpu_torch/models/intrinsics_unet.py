@@ -67,8 +67,10 @@ class IntrinsicsConditionedUNet(DepthUNet):
     ``forward(rgb, camera_intrinsics, intermediates=None)``: NHWC rgb
     (B, H, W, 3) and [fx, fy, cx, cy] (B, 4) in pixels -> (B, H, W, 1)
     float32 depth in metres. ``intermediates`` is taken so every family
-    has one call signature; nothing is written to it. H and W must be
-    divisible by 16.
+    has one call signature; nothing is written to it. Any H and W of at
+    least 16 work (the decoder pads a pooled odd row or column back,
+    ``layers.pad_to_match``); under spatial parallelism the input is a
+    band of H / S rows, with the band rule of ``models/layers.py``.
     """
 
     def __init__(self, in_channels: int = 3, init_features: int = 64,
@@ -92,14 +94,21 @@ class IntrinsicsConditionedUNet(DepthUNet):
 
     def forward(self, rgb: torch.Tensor, camera_intrinsics: torch.Tensor,
                 intermediates: Intermediates = None) -> torch.Tensor:
-        h, w = rgb.shape[1], rgb.shape[2]
+        h, w = self._height(rgb), rgb.shape[2]
         cam = normalize_k4(camera_intrinsics.float(), width=w, height=h)
-        skips = [self._block("enc1", self._nchw(rgb, self.dtype), cam)]
+        banded = [self.space is not None]
+        with self._on(banded[0]):
+            skips = [self._block("enc1", self._nchw(rgb, self.dtype), cam)]
         for i in (2, 3, 4):
-            skips.append(self._block(f"enc{i}", skips[-1], cam))
-        x = self._block("bottleneck", skips[-1], cam)
+            x, b = self._encode(f"enc{i}", skips[-1], banded[-1], cam)
+            skips.append(x)
+            banded.append(b)
+        x, b = self._encode("bottleneck", skips[-1], banded[-1], cam)
         for i in (4, 3, 2, 1):
-            x = self._attend(i, self._block(f"dec{i}", x, skips[i - 1], cam))
+            x, b = self._decode(f"dec{i}", x, b, skips[i - 1], banded[i - 1],
+                                cam)
+            with self._on(b):
+                x = self._attend(i, x)
         return self._depth(x)
 
 

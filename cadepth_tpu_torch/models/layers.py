@@ -17,6 +17,27 @@ out, named blocks checkpointed as ``remat`` says (the JAX package's
 ``maybe_remat``: True or "full" every block, "highres" the two finest
 levels, ``enc1``, ``enc2``, ``dec2`` and ``dec1``), and an f32 1x1 head
 to ``sigmoid * max_depth``.
+
+Spatial parallelism (``DepthUNet.space``, a ``parallel.SpaceGroup``):
+the model takes a band of each image's rows, and a level's blocks run on
+bands (inside ``parallel.spatial.banded``) while the band height stays
+even, so that the 2x2 max pool into the next level stays within a band.
+At the first encoder level whose band is odd, the map is gathered along
+H, and that level and the ones below it run whole on every rank of the
+space row. The decoder takes its band again at the first level whose
+skip connection is banded: that level's block runs whole on the
+gathered skip, and its output is cut to the rank's band. With H = 240
+and two ranks the bands are 120, 60, 30 and 15 rows: ``enc1`` to
+``enc4`` and ``dec3`` to ``dec1`` run on bands, ``enc5``, the
+bottleneck, ``dec5`` and ``dec4`` whole. So a model takes images whose
+height the group divides, and the band rule holds the rest: H and W
+need not be divisible by 2^levels (``pad_to_match`` pads an odd
+level's upsampled map).
+
+On bands a convolution whose padding reaches across rows takes that
+many halo rows from the neighbouring bands (zeros beyond the image, as
+its own padding), a group norm sums its statistics over the space row,
+and the batch norms keep their statistics over all ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from cadepth_tpu_torch.parallel import spatial
 
 # flax.linen.BatchNorm defaults: epsilon 1e-5, running-average momentum
 # 0.99, which is torch's momentum 0.01.
@@ -46,16 +69,19 @@ def recomputing() -> bool:
 
 
 @contextlib.contextmanager
-def _recompute_context():
+def _recompute_context(space):
     _recompute.depth = getattr(_recompute, "depth", 0) + 1
     try:
-        yield
+        with spatial.banded(space):
+            yield
     finally:
         _recompute.depth -= 1
 
 
 def _checkpoint_contexts():
-    return contextlib.nullcontext(), _recompute_context()
+    # the recomputation runs on bands where the forward did (in the
+    # thread that runs the backward)
+    return contextlib.nullcontext(), _recompute_context(spatial.bands())
 
 
 def checkpointed(block: nn.Module, *args):
@@ -81,6 +107,11 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        space = spatial.bands()
+        if space is not None and self.padding[0]:
+            # the rows the padding reaches come from the neighbouring bands
+            return space.conv2d(x.to(dt), self.weight.to(dt), bias,
+                                self.padding, self.dilation)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias,
                         padding=self.padding, dilation=self.dilation)
 
@@ -184,6 +215,26 @@ def group_count(channels: int) -> int:
                 if channels % g == 0)
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm``; on bands, its statistics over the whole image:
+    each group's sums of x and x^2 over the space row, the variance
+    E[x^2] - E[x]^2 as flax's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        space = spatial.bands()
+        if space is None:
+            return super().forward(x)
+        b, c, h, w = x.shape
+        g = x.reshape(b, self.num_groups, -1)
+        sums = space.sum(torch.stack([g.sum(-1), (g * g).sum(-1)]))
+        n = sums.new_tensor(float(c // self.num_groups * h * space.size * w))
+        mean, mean_sq = sums / n
+        var = (mean_sq - mean * mean).clamp_min(0.0)
+        y = (g - mean[..., None]) * torch.rsqrt(var + self.eps)[..., None]
+        return y.reshape(b, c, h, w) * self.weight.view(1, -1, 1, 1) + \
+            self.bias.view(1, -1, 1, 1)
+
+
 def make_norm(kind: str, channels: int) -> nn.Module:
     """The per-block normalization module (``apply_norm``'s ``kind``):
     "batch", or "group" (flax's GroupNorm: no running statistics, epsilon
@@ -191,7 +242,7 @@ def make_norm(kind: str, channels: int) -> nn.Module:
     if kind == "batch":
         return BatchNorm2d(channels)
     if kind == "group":
-        return nn.GroupNorm(group_count(channels), channels, eps=GN_EPS)
+        return GroupNorm(group_count(channels), channels, eps=GN_EPS)
     raise ValueError(f"Unknown norm kind: {kind!r}")
 
 
@@ -300,7 +351,13 @@ def remat_blocks(remat) -> Tuple[str, ...]:
 class DepthUNet(nn.Module):
     """The families' shared frame. Subclasses build their blocks and an
     ``out_conv`` (f32 1x1 conv to one channel) and run the blocks through
-    :meth:`_block`."""
+    :meth:`_block`, the encoder blocks through :meth:`_encode` and the
+    decoder blocks through :meth:`_decode`, which follow the band rule of
+    this module under ``space``."""
+
+    # the space group whose ranks each hold a band of the image's rows
+    # (None: whole images)
+    space = None
 
     def __init__(self, dtype: torch.dtype, max_depth: float, remat,
                  camera_dim: int = 4):
@@ -317,6 +374,35 @@ class DepthUNet(nn.Module):
         if name in self.remat:
             return checkpointed(block, *args)
         return block(*args)
+
+    def _height(self, x: torch.Tensor) -> int:
+        """The image's height, given the model's NHWC input."""
+        return x.shape[1] * (1 if self.space is None else self.space.size)
+
+    def _on(self, banded: bool):
+        return spatial.banded(self.space if banded else None)
+
+    def _encode(self, name: str, x: torch.Tensor, banded: bool, *args):
+        """(block(x, *args), whether its output is banded) for an encoder
+        block, which max-pools first: a band of odd height is gathered
+        whole before it."""
+        if banded and x.shape[2] % 2:
+            x, banded = self.space.gather(x, 2), False
+        with self._on(banded):
+            return self._block(name, x, *args), banded
+
+    def _decode(self, name: str, x: torch.Tensor, banded: bool,
+                skip: torch.Tensor, skip_banded: bool, *args):
+        """(block(x, skip, *args), whether its output is banded) for a
+        decoder block. Where the skip is banded and ``x`` whole, the block
+        runs whole on the gathered skip and its output is cut to this
+        rank's band."""
+        if skip_banded and not banded:
+            with self._on(False):
+                out = self._block(name, x, self.space.gather(skip, 2), *args)
+            return self.space.band(out, 2), True
+        with self._on(banded):
+            return self._block(name, x, skip, *args), banded
 
     def _nchw(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """NHWC ``x`` as an NCHW channels_last tensor of ``dtype``."""

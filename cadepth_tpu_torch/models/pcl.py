@@ -22,6 +22,14 @@ reference's decoder, the layer takes no ray directions. The warp modes
 Every mode is differentiable in the features and theta while grad mode
 is on. :class:`Perspective3DTransformer` is the reference's ray-displaced
 warp (``grid_sample`` with border padding, ``align_corners=True``).
+
+On bands (spatial parallelism, ``parallel/spatial.py``) a warp reads
+rows of other bands, so the layer gathers its map along H. The two-pass
+modes ("two_pass", "pallas") then warp only this rank's output rows, a
+window of the kernels (``ops/two_pass_warp.py``); the other modes warp
+the whole gathered map on every rank of the space row and keep the
+band, which is exact at S times the warp's work. The head's pooled mean
+is the whole image's, so every rank of the row predicts the same theta.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from cadepth_tpu_torch.ops.affine_warp import separable_affine_warp
 from cadepth_tpu_torch.ops.fused_warp import fused_warp
 from cadepth_tpu_torch.ops.grid_sample import gather_affine_warp, grid_sample
 from cadepth_tpu_torch.ops.two_pass_warp import two_pass_warp
+from cadepth_tpu_torch.parallel import spatial
 
 # Rotation magnitude (rad) under which the two-pass warp's kernel
 # displacement (<= |tan rot| px) stays sub-pixel: "auto" mode's guard,
@@ -88,7 +97,9 @@ class PerspectiveCorrectionLayer(nn.Module):
         |predicted rotation| to its ``"pcl_max_rot"`` list (once: not again
         when a checkpointed block is recomputed).
         """
-        pooled = features.mean(dim=(2, 3)).float()
+        space = spatial.bands()
+        pooled = (features.mean(dim=(2, 3)) if space is None
+                  else space.mean_hw(features)).float()
         loc_in = torch.cat([pooled, camera_intrinsics.float()], dim=-1)
         h = F.relu(self.loc_fc1(loc_in))
         h = F.relu(self.loc_fc2(h))
@@ -100,12 +111,25 @@ class PerspectiveCorrectionLayer(nn.Module):
             intermediates.setdefault("pcl_max_rot", []).append(
                 rot.abs().max())
         x = features.permute(0, 2, 3, 1)
+        if space is None:
+            return self._warp(x, theta, rot).permute(0, 3, 1, 2)
+        whole = space.gather(x, 1)
+        if self.warp_mode in ("two_pass", "pallas"):
+            rows = x.shape[1]
+            out = self.warp(whole, theta, "zeros", False,
+                            space.row0(rows), rows)
+        else:
+            out = space.band(self._warp(whole, theta, rot), 1)
+        return out.permute(0, 3, 1, 2)
+
+    def _warp(self, x: torch.Tensor, theta: torch.Tensor,
+              rot: torch.Tensor) -> torch.Tensor:
         out = self.warp(x, theta, "zeros", False)
         if self.warp_mode == "auto":
             in_bound = rot.abs().max() < DEFAULT_ROT_BOUND
             out = torch.where(in_bound, out,
                               gather_affine_warp(x, theta, "zeros", False))
-        return out.permute(0, 3, 1, 2)
+        return out
 
 
 class Perspective3DTransformer(nn.Module):

@@ -25,7 +25,7 @@ against it on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -139,30 +139,35 @@ def two_pass_affine_warp_plain(img: torch.Tensor, theta: torch.Tensor,
 
 
 def _positions(theta: torch.Tensor, h: int, w: int, align_corners: bool,
-               dev: torch.device):
-    """(g, hpos), each (B, H, W) f32: the pass-V position g(x, i) at
-    [b, i, x] and the pass-H position h(j, i) at [b, i, j], with the
-    kernel's operation order."""
+               dev: torch.device, row0: int = 0, rows: Optional[int] = None):
+    """(g, hpos), each (B, rows, W) f32: the pass-V position g(x, i) at
+    [b, i - row0, x] and the pass-H position h(j, i) at [b, i - row0, j]
+    for the output rows i = row0 .. row0 + rows - 1 of an (h, w) map
+    (rows None: all of them), with the kernel's operation order."""
+    rows = h - row0 if rows is None else rows
     co = warp_coeffs(theta, h, w, align_corners)
     a, b, c, p, q, r = (co[:, k, None, None] for k in range(6))
-    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    ii = torch.arange(row0, row0 + rows, dtype=torch.float32,
+                      device=dev)[None, :, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
     return p * xs + q * ii + r, a * xs + b * ii + c
 
 
 def two_pass_affine_warp_plain_fwd(img: torch.Tensor, theta: torch.Tensor,
                                    padding_mode: str = "zeros",
-                                   align_corners: bool = False
+                                   align_corners: bool = False,
+                                   row0: int = 0, rows: Optional[int] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`two_pass_affine_warp_plain` that also returns V, the
-    (B, H, W, C) result of pass V in ``img.dtype`` (the backward's
-    residual)."""
+    """:func:`two_pass_affine_warp_plain` that also returns V, the result
+    of pass V in ``img.dtype`` (the backward's residual). With a window,
+    both cover only the output rows ``row0 .. row0 + rows - 1`` (B, rows,
+    W, C): those rows of the whole warp, bit for bit."""
     check_warp_args(img, theta, padding_mode)
     bsz, h, w, _ = img.shape
     border = padding_mode == "border"
     bf16 = img.dtype == torch.bfloat16
     dev = img.device
-    g, _ = _positions(theta, h, w, align_corners, dev)
+    g, _ = _positions(theta, h, w, align_corners, dev, row0, rows)
     bi = torch.arange(bsz, device=dev)[:, None, None]
     xi = torch.arange(w, device=dev)[None, None, :]
 
@@ -170,21 +175,25 @@ def two_pass_affine_warp_plain_fwd(img: torch.Tensor, theta: torch.Tensor,
     y0, y1, w0, w1 = _taps(g, h, border, bf16)
     v = (w0[..., None] * img[bi, y0, xi].float()
          + w1[..., None] * img[bi, y1, xi].float()).to(img.dtype)
-    return plain_pass_h(v, theta, padding_mode, align_corners), v
+    return plain_pass_h(v, theta, padding_mode, align_corners, h, row0), v
 
 
 def plain_pass_h(v: torch.Tensor, theta: torch.Tensor, padding_mode: str,
-                 align_corners: bool) -> torch.Tensor:
-    """Pass H of the warp over V (B, H, W, C): for each (b, i, j), the two
-    taps of row i of V at ``h(j, i)``; returns ``v.dtype``. The banded
-    warp (``ops/fused_warp.py``) shares it."""
-    bsz, h, w, _ = v.shape
+                 align_corners: bool, height: Optional[int] = None,
+                 row0: int = 0) -> torch.Tensor:
+    """Pass H of the warp over V (B, rows, W, C), the output rows
+    ``row0 ..`` of a map of ``height`` rows (default: V's own, the whole
+    map): for each (b, i, j), the two taps of row i of V at ``h(j, i)``;
+    returns ``v.dtype``. The banded warp (``ops/fused_warp.py``) shares
+    it."""
+    bsz, rows, w, _ = v.shape
     dev = v.device
-    _, hpos = _positions(theta, h, w, align_corners, dev)
+    _, hpos = _positions(theta, rows if height is None else height, w,
+                         align_corners, dev, row0, rows)
     x0, x1, u0, u1 = _taps(hpos, w, padding_mode == "border",
                            v.dtype == torch.bfloat16)
     bi = torch.arange(bsz, device=dev)[:, None, None]
-    ri = torch.arange(h, device=dev)[None, :, None]
+    ri = torch.arange(rows, device=dev)[None, :, None]
     out = (u0[..., None] * v[bi, ri, x0].float()
            + u1[..., None] * v[bi, ri, x1].float())
     return out.to(v.dtype)
@@ -192,16 +201,20 @@ def plain_pass_h(v: torch.Tensor, theta: torch.Tensor, padding_mode: str,
 
 def plain_pass_h_bwd(v: torch.Tensor, theta: torch.Tensor,
                      grad_out: torch.Tensor, padding_mode: str,
-                     align_corners: bool
+                     align_corners: bool, height: Optional[int] = None,
+                     row0: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The transposed pass H: (d_v in ``v.dtype``, (B, 3) f32 partials
     ``(sum c*j, i*sum c, sum c)`` of the pass-H line [A, B, C]) given V
     and the cotangent of the warp's output, as :func:`_transpose_pass`
-    computes them. The banded warp's backward shares it."""
-    _, h, w, _ = v.shape
+    computes them; V and the cotangent may be a window of output rows, as
+    for :func:`plain_pass_h`. The banded warp's backward shares it."""
+    _, rows, w, _ = v.shape
     dev = v.device
-    _, hpos = _positions(theta, h, w, align_corners, dev)
-    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    _, hpos = _positions(theta, rows if height is None else height, w,
+                         align_corners, dev, row0, rows)
+    ii = torch.arange(row0, row0 + rows, dtype=torch.float32,
+                      device=dev)[None, :, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
     d_v, c_h = _transpose_pass(hpos, w, padding_mode == "border",
                                grad_out.float(), v.float(), rows=False)
@@ -233,8 +246,10 @@ def _transpose_pass(pos: torch.Tensor, size: int, border: bool,
     are ``pos`` and whose taps index an axis of length ``size``.
 
     ``cot`` (B, H, W, C) f32 is the cotangent of the pass's output and
-    ``src`` (B, H, W, C) f32 its input. The taps index ``src``'s rows
-    (axis 1, pass V) when ``rows``, else its columns (axis 2, pass H).
+    ``src`` f32 its input: (B, H, W, C) for pass H, and (B, size, W, C)
+    for pass V, whose H output rows may be a window of the map. The taps
+    index ``src``'s rows (axis 1, pass V) when ``rows``, else its columns
+    (axis 2, pass H).
     Returns the cotangent of ``src`` (the transposed pass, f32 tent
     weights) and ``contrib`` (B, H, W): for each output position, the sum
     of ``<cot, src at the tap> * dtent * dclip`` over its taps inside
@@ -255,7 +270,8 @@ def _transpose_pass(pos: torch.Tensor, size: int, border: bool,
     b_idx = torch.arange(bsz, device=dev)[:, None, None]
     i_idx = torch.arange(h, device=dev)[None, :, None]
     x_idx = torch.arange(w, device=dev)[None, None, :]
-    d_src = torch.zeros(bsz * h * w, ch, dtype=torch.float32, device=dev)
+    src_h = src.shape[1]
+    d_src = torch.zeros(bsz * src_h * w, ch, dtype=torch.float32, device=dev)
     contrib = torch.zeros_like(pos)
     for k in (-1.0, 0.0, 1.0, 2.0):
         tap = base + k
@@ -263,7 +279,7 @@ def _transpose_pass(pos: torch.Tensor, size: int, border: bool,
         diff = pp - tap
         t_idx = tap.clamp(0.0, size - 1.0).to(torch.long)
         if rows:
-            flat = (b_idx * h + t_idx) * w + x_idx
+            flat = (b_idx * src_h + t_idx) * w + x_idx
         else:
             flat = (b_idx * h + i_idx) * w + t_idx
         at_tap = src.reshape(-1, ch)[flat]                    # (B, H, W, C)
@@ -274,20 +290,25 @@ def _transpose_pass(pos: torch.Tensor, size: int, border: bool,
         if border:
             slope = slope * dclip
         contrib = contrib + (cot * at_tap).sum(-1) * slope
-    return d_src.reshape(bsz, h, w, ch), contrib
+    return d_src.reshape(bsz, src_h, w, ch), contrib
 
 
 def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
                                    theta: torch.Tensor,
                                    grad_out: torch.Tensor,
                                    padding_mode: str = "zeros",
-                                   align_corners: bool = False
+                                   align_corners: bool = False,
+                                   row0: int = 0, rows: Optional[int] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of the two-pass warp: (d_img, d_theta).
 
     ``img`` (B, H, W, C), ``v`` the forward's pass-V result and
     ``grad_out`` the cotangent of its output, all in ``img.dtype``;
-    ``theta`` (B, 2, 3). Computes what the reference's ``_trainable_bwd``
+    ``theta`` (B, 2, 3). With a window of output rows ``row0 .. row0 +
+    rows - 1``, ``v`` and ``grad_out`` are (B, rows, W, C), and d_img
+    (the whole input's) and d_theta are that window's part: the windows
+    of a partition of H sum to the whole map's backward. Computes what
+    the reference's ``_trainable_bwd``
     (Pallas) computes, in the same order: ``d_v`` by the transposed
     pass H, stored in ``img.dtype``; ``d_img`` by the transposed pass V
     from that stored ``d_v``; both with f32 tent weights and f32 sums.
@@ -303,14 +324,16 @@ def two_pass_affine_warp_plain_bwd(img: torch.Tensor, v: torch.Tensor,
     """
     check_warp_args(img, theta, padding_mode)
     _, h, w, _ = img.shape
+    rows = h - row0 if rows is None else rows
     border = padding_mode == "border"
     dev = img.device
-    g, _ = _positions(theta, h, w, align_corners, dev)
-    ii = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    g, _ = _positions(theta, h, w, align_corners, dev, row0, rows)
+    ii = torch.arange(row0, row0 + rows, dtype=torch.float32,
+                      device=dev)[None, :, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
 
     d_v, part_h = plain_pass_h_bwd(v, theta, grad_out, padding_mode,
-                                   align_corners)
+                                   align_corners, h, row0)
     d_img, c_g = _transpose_pass(g, h, border, d_v.float(), img.float(),
                                  rows=True)
     partials = torch.cat([part_h, torch.stack([

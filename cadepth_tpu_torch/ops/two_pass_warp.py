@@ -26,12 +26,22 @@ count kernel launches, so a run can show that its warps went through the
 kernels; ``v_stores`` counts the forward launches that also stored V;
 ``grad_copies`` counts the backward calls whose incoming gradient was not
 contiguous NHWC and was copied before the launch.
+
+A window of output rows (``row0``, ``rows``; spatial parallelism,
+``models/pcl.py``): the warp of the whole input, but only its output rows
+``row0 .. row0 + rows - 1``. The forward returns (B, rows, W, C), those
+rows of the whole warp bit for bit; the backward takes their cotangent
+and returns the whole input's d_img and this window's part of d_theta,
+so the windows of a partition of H sum to the whole backward. The
+default window is the whole map. ``window_launches`` and
+``window_bwd_launches`` count the launches whose window is not the whole
+map (they count in ``launches`` and ``bwd_launches`` too).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -52,6 +62,9 @@ BWD_LAUNCHES_PER_CALL = 3
 v_stores = 0
 # Backward calls that copied a non-contiguous incoming gradient.
 grad_copies = 0
+# Launches over a window of the output rows that is not the whole map.
+window_launches = 0
+window_bwd_launches = 0
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
@@ -68,10 +81,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("two_pass_warp")
     if lib.cadepth_two_pass_warp_fwd.argtypes is None:
         lib.cadepth_two_pass_warp_fwd.argtypes = \
-            [_VP] * 4 + [_INT] * 10 + [_VP]
+            [_VP] * 4 + [_INT] * 12 + [_VP]
         lib.cadepth_two_pass_warp_fwd.restype = _INT
         lib.cadepth_two_pass_warp_bwd.argtypes = \
-            [_VP] * 8 + [_INT] * 10 + [_VP]
+            [_VP] * 8 + [_INT] * 12 + [_VP]
         lib.cadepth_two_pass_warp_bwd.restype = _INT
         lib.cadepth_cuda_error_string.argtypes = [_INT]
         lib.cadepth_cuda_error_string.restype = ctypes.c_char_p
@@ -154,63 +167,86 @@ def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
+def window_of(img: torch.Tensor, row0: int, rows: Optional[int]
+              ) -> Tuple[int, int]:
+    """(row0, rows) of a window of ``img``'s output rows, checked; rows
+    None: to the last row."""
+    h = img.shape[1]
+    rows = h - row0 if rows is None or rows < 0 else rows
+    if not (0 <= row0 and 0 <= rows and row0 + rows <= h):
+        raise ValueError(f"window of rows {row0} .. {row0 + rows - 1} is "
+                         f"outside the map's {h} rows")
+    return row0, rows
+
+
 def _forward(img: torch.Tensor, theta: torch.Tensor, padding_mode: str,
-             align_corners: bool, keep_v: bool):
-    """(out, V): the plain version on the CPU (V always), the kernel on
-    the card (V only where ``keep_v``, else None)."""
-    global launches, v_stores
+             align_corners: bool, keep_v: bool, row0: int = 0,
+             rows: Optional[int] = None):
+    """(out, V) of the window's rows: the plain version on the CPU (V
+    always), the kernel on the card (V only where ``keep_v``, else
+    None)."""
+    global launches, v_stores, window_launches
+    row0, rows = window_of(img, row0, rows)
     if img.device.type == "cpu":
         return two_pass_affine_warp_plain_fwd(img, theta, padding_mode,
-                                              align_corners)
+                                              align_corners, row0, rows)
     check_card_args(img, theta)
     bsz, h, w, ch = img.shape
     theta = theta.to(torch.float32).contiguous()
-    out = torch.empty_like(img)
-    v = torch.empty_like(img) if keep_v else None
+    out = img.new_empty(bsz, rows, w, ch)
+    v = torch.empty_like(out) if keep_v else None
     plan = _plan(img, out, *([v] if keep_v else []))
     lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cadepth_two_pass_warp_fwd(
             img.data_ptr(), v.data_ptr() if keep_v else None, out.data_ptr(),
-            theta.data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
-            int(padding_mode == "border"), int(align_corners), *plan, stream)
+            theta.data_ptr(), bsz, h, row0, rows, w, ch,
+            DTYPE_CODE[img.dtype], int(padding_mode == "border"),
+            int(align_corners), *plan, stream)
     raise_on(lib, err, "two_pass_warp forward")
     launches += LAUNCHES_PER_CALL
     v_stores += int(keep_v)
+    window_launches += int(rows != h) * LAUNCHES_PER_CALL
     return out, v
 
 
 def two_pass_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
                       grad_out: torch.Tensor, padding_mode: str = "zeros",
-                      align_corners: bool = False
+                      align_corners: bool = False, row0: int = 0,
+                      rows: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d_img, d_theta) of the warp, given the forward's ``img``, V and
-    ``theta`` and the contiguous cotangent ``grad_out`` of its output.
+    """(d_img, d_theta) of the warp's window of output rows ``row0 ..
+    row0 + rows - 1`` (default: the whole map), given the forward's
+    ``img``, its V of the window and ``theta``, and the contiguous
+    cotangent ``grad_out`` of the window's output.
 
     On the card: the two transposed passes and the theta kernel, which
     sums their per-block partials and chains them to d_theta; the host
     allocates and launches, nothing else. On the CPU:
     :func:`two_pass_affine_warp_plain_bwd`.
     """
-    global bwd_launches
+    global bwd_launches, window_bwd_launches
     check_warp_args(img, theta, padding_mode)
+    row0, rows = window_of(img, row0, rows)
     if img.device.type == "cpu":
         return two_pass_affine_warp_plain_bwd(img, v, theta, grad_out,
-                                              padding_mode, align_corners)
+                                              padding_mode, align_corners,
+                                              row0, rows)
     check_card_args(img, theta)
+    bsz, h, w, ch = img.shape
+    want = (bsz, rows, w, ch)
     for name, t in (("v", v), ("grad_out", grad_out)):
-        if t.shape != img.shape or t.dtype != img.dtype or \
+        if tuple(t.shape) != want or t.dtype != img.dtype or \
                 t.device != img.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {img.dtype} "
-                             f"tensor of img's shape {tuple(img.shape)}")
-    bsz, h, w, ch = img.shape
+                             f"tensor of shape {want}")
     th = theta.to(torch.float32).contiguous()
-    d_v = torch.empty_like(img)
+    d_v = torch.empty_like(v)
     d_img = torch.empty_like(img)
     plan = _plan(img, v, grad_out, d_v, d_img)
-    blocks = bsz * h * (-(-ch // plan[1]) if plan[1] else 0)
-    part = torch.empty(2 * blocks * 3, dtype=torch.float32, device=img.device)
+    blocks = bsz * (rows + h) * (-(-ch // plan[1]) if plan[1] else 0)
+    part = torch.empty(blocks * 3, dtype=torch.float32, device=img.device)
     d_theta = torch.empty(bsz, 2, 3, dtype=torch.float32, device=img.device)
     lib = _library()
     with torch.cuda.device(img.device):
@@ -218,23 +254,28 @@ def two_pass_warp_bwd(img: torch.Tensor, v: torch.Tensor, theta: torch.Tensor,
         err = lib.cadepth_two_pass_warp_bwd(
             grad_out.data_ptr(), v.data_ptr(), img.data_ptr(), th.data_ptr(),
             d_v.data_ptr(), d_img.data_ptr(), part.data_ptr(),
-            d_theta.data_ptr(), bsz, h, w, ch, DTYPE_CODE[img.dtype],
-            int(padding_mode == "border"), int(align_corners), *plan, stream)
+            d_theta.data_ptr(), bsz, h, row0, rows, w, ch,
+            DTYPE_CODE[img.dtype], int(padding_mode == "border"),
+            int(align_corners), *plan, stream)
     raise_on(lib, err, "two_pass_warp backward")
     bwd_launches += BWD_LAUNCHES_PER_CALL
+    window_bwd_launches += int(rows != h) * BWD_LAUNCHES_PER_CALL
     return d_img, d_theta
 
 
 class TwoPassWarp(torch.autograd.Function):
-    """The warp with the backward of ``_trainable_bwd``."""
+    """The warp with the backward of ``_trainable_bwd``, over the window
+    of output rows ``row0 .. row0 + rows - 1`` (rows None: to the last)."""
 
     @staticmethod
-    def forward(ctx, img, theta, padding_mode, align_corners):
+    def forward(ctx, img, theta, padding_mode, align_corners, row0=0,
+                rows=None):
         out, v = _forward(img, theta, padding_mode, align_corners,
-                          keep_v=True)
+                          keep_v=True, row0=row0, rows=rows)
         ctx.save_for_backward(img, v, theta)
         ctx.padding_mode = padding_mode
         ctx.align_corners = align_corners
+        ctx.window = (row0, rows)
         return out
 
     @staticmethod
@@ -249,35 +290,42 @@ class TwoPassWarp(torch.autograd.Function):
         grad_out = grad_out.to(img.dtype).contiguous()
         d_img, d_theta = two_pass_warp_bwd(img, v, theta, grad_out,
                                            ctx.padding_mode,
-                                           ctx.align_corners)
-        return d_img, d_theta.to(theta.dtype), None, None
+                                           ctx.align_corners, *ctx.window)
+        return d_img, d_theta.to(theta.dtype), None, None, None, None
 
 
 @torch.library.custom_op("cadepth::two_pass_warp_fwd", mutates_args=())
 def two_pass_warp_fwd(img: torch.Tensor, theta: torch.Tensor,
-                      padding_mode: str, align_corners: bool) -> torch.Tensor:
-    """The warp's forward without V: the kernel for a CUDA tensor, the
-    plain version for a CPU one."""
+                      padding_mode: str, align_corners: bool, row0: int = 0,
+                      rows: int = -1) -> torch.Tensor:
+    """The warp's forward without V, over the window of output rows
+    ``row0 .. row0 + rows - 1`` (rows -1: to the last): the kernel for a
+    CUDA tensor, the plain version for a CPU one."""
     return _forward(img, theta, padding_mode, align_corners,
-                    keep_v=False)[0]
+                    keep_v=False, row0=row0, rows=rows)[0]
 
 
 @two_pass_warp_fwd.register_fake
-def _(img, theta, padding_mode, align_corners):
-    return torch.empty_like(img)
+def _(img, theta, padding_mode, align_corners, row0=0, rows=-1):
+    bsz, h, w, ch = img.shape
+    return img.new_empty(bsz, h - row0 if rows < 0 else rows, w, ch)
 
 
 def two_pass_warp(img: torch.Tensor, theta: torch.Tensor,
-                  padding_mode: str = "zeros",
-                  align_corners: bool = False) -> torch.Tensor:
-    """Warp NHWC ``img`` (B, H, W, C) by affine ``theta`` (B, 2, 3).
+                  padding_mode: str = "zeros", align_corners: bool = False,
+                  row0: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+    """Warp NHWC ``img`` (B, H, W, C) by affine ``theta`` (B, 2, 3); with
+    a window, only the output rows ``row0 .. row0 + rows - 1``.
 
     ``img`` is float32 or bfloat16 and, on the card, a contiguous NHWC
     tensor (the ``permute(0, 2, 3, 1)`` view of a channels_last NCHW
-    tensor is one). Returns a new (B, H, W, C) tensor of ``img.dtype``,
-    differentiable while grad mode is on.
+    tensor is one). Returns a new (B, rows, W, C) tensor of ``img.dtype``
+    (rows H by default), differentiable while grad mode is on.
     """
     check_warp_args(img, theta, padding_mode)
+    row0, rows = window_of(img, row0, rows)
     if torch.is_grad_enabled() and (img.requires_grad or theta.requires_grad):
-        return TwoPassWarp.apply(img, theta, padding_mode, align_corners)
-    return two_pass_warp_fwd(img, theta, padding_mode, align_corners)
+        return TwoPassWarp.apply(img, theta, padding_mode, align_corners,
+                                 row0, rows)
+    return two_pass_warp_fwd(img, theta, padding_mode, align_corners, row0,
+                             rows)

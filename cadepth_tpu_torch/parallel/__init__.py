@@ -1,9 +1,10 @@
-"""Data-parallel training over ``torch.distributed`` (port of
+"""Data and spatial parallel training over ``torch.distributed`` (port of
 ``cadepth_tpu.parallel``)."""
 
 from cadepth_tpu_torch.parallel.distributed import initialize_distributed
 from cadepth_tpu_torch.parallel.mesh import (
     DataParallel,
+    band_batch,
     batch_sharding,
     batch_shardings,
     image_sharding,
@@ -13,6 +14,7 @@ from cadepth_tpu_torch.parallel.mesh import (
     replicate_state,
     shard_batch,
 )
+from cadepth_tpu_torch.parallel.spatial import SpaceGroup
 
 __all__ = [
     "initialize_distributed",
@@ -21,8 +23,10 @@ __all__ = [
     "image_sharding",
     "batch_shardings",
     "batch_sharding",
+    "band_batch",
     "replicate_sharding",
     "shard_batch",
     "replicate_state",
     "DataParallel",
+    "SpaceGroup",
 ]

@@ -1,4 +1,5 @@
-"""Data parallelism over processes (port of ``cadepth_tpu.parallel.mesh``).
+"""Data and spatial parallelism over processes (port of
+``cadepth_tpu.parallel.mesh``).
 
 JAX lays a 1-D mesh over its devices, shards the batch along it and lets
 XLA's partitioner insert the collectives. Here each process drives one
@@ -18,44 +19,37 @@ So W ranks compute the gradient of one process over the whole global
 batch, up to the order of the sums. With W = 1 every collective returns
 its input and the arithmetic is the single process's, bit for bit.
 
+:func:`make_mesh_2d` (JAX's data x space mesh) splits the W ranks into
+D = W / S data rows of S ranks, rank ``d * S + s`` at data index d and
+space index s, as in JAX's device grid: the D rows share the global
+batch as above, and the S ranks of a row share its samples' image
+height, each holding a band of H / S rows (``parallel/spatial.py``). The
+batch norms and the losses still reduce over all W ranks: a band's mean
+is over as many elements as any other's, and a map that every rank of a
+space row holds whole (the levels below those a band reaches,
+``models/layers.py``) counts S times in the sum over the W ranks and S
+times in W, so the mean is the global batch's either way.
+
 The names follow the JAX module's: :func:`make_mesh` gives the
 :class:`DataParallel` of the process group, :func:`batch_sharding` the
-rows a rank holds, :func:`shard_batch` takes them from a global batch,
-:func:`replicate_state` makes every rank's state rank 0's. Spatial
-parallelism (:func:`make_mesh_2d`, :func:`image_sharding`) is not ported.
+rows a rank holds, :func:`image_sharding` the rows and band of an image
+it holds, :func:`shard_batch` takes them from a global batch,
+:func:`replicate_state` makes every rank's state rank 0's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 import torch.distributed as dist
 
-_SPATIAL = ("spatial parallelism (hardware.spatial_parallel > 1, "
-            "make_mesh_2d, image_sharding) is not ported yet (ROADMAP.md "
-            "Queue 1, item 8)")
+from cadepth_tpu_torch.parallel.spatial import SpaceGroup, _AllReduceSum
 
 BATCH_KEYS = ("rgb", "depth", "rays", "intrinsics", "k4", "extrinsics")
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group; the backward sums the gradients over the group,
-    since each rank's result feeds that rank's own computation."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+# the keys of a batch that hold (B, H, W, C) images
+IMAGE_KEYS = ("rgb", "depth", "rays")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -66,12 +60,26 @@ class DataParallel:
     group); ``host_group``, a Gloo group over the same ranks, carries the
     host's flags and barriers. A DataParallel without a process group
     still describes a shard (the datasets read only ``rank`` and
-    ``world_size``)."""
+    ``world_size``). Under spatial parallelism ``space`` is this rank's
+    :class:`~cadepth_tpu_torch.parallel.spatial.SpaceGroup`, and the
+    ``world_size`` ranks are ``data_size`` data rows of ``space.size``."""
 
     world_size: int
     rank: int
     group: Optional[object] = None
     host_group: Optional[object] = None
+    space: Optional[SpaceGroup] = None
+
+    @property
+    def data_size(self) -> int:
+        """The data rows: the ranks that hold different samples."""
+        return self.world_size // (1 if self.space is None
+                                   else self.space.size)
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's data row."""
+        return self.rank // (1 if self.space is None else self.space.size)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks, differentiable."""
@@ -123,6 +131,22 @@ class RowShard:
         return x[self.rank * n:(self.rank + 1) * n]
 
 
+@dataclasses.dataclass(frozen=True)
+class ImageShard:
+    """A (B, H, W, C) image's part on one rank (JAX's ``P("data",
+    "space")``): the rows of :class:`RowShard` ``(rank, world_size)`` of
+    the batch, and band ``band`` of ``bands`` along H."""
+
+    rank: int
+    world_size: int
+    band: int = 0
+    bands: int = 1
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        rows = RowShard(self.rank, self.world_size)(x)
+        return SpaceGroup(self.bands, self.band).band(rows, 1)
+
+
 def make_mesh(num_devices: int = 0) -> DataParallel:
     """The :class:`DataParallel` of the default process group, which
     :func:`~cadepth_tpu_torch.parallel.distributed.initialize_distributed`
@@ -142,23 +166,64 @@ def make_mesh(num_devices: int = 0) -> DataParallel:
     return DataParallel(world, dist.get_rank(), None, host)
 
 
-def make_mesh_2d(*args, **kwargs):
-    raise NotImplementedError(_SPATIAL)
+def space_grid(world: int, spatial: int) -> List[List[int]]:
+    """JAX's ``make_mesh_2d`` device grid as ranks: world / spatial data
+    rows, row d holding ranks ``d * spatial .. (d + 1) * spatial - 1``."""
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"{world} ranks not divisible by spatial={spatial}")
+    return [list(range(d * spatial, (d + 1) * spatial))
+            for d in range(world // spatial)]
 
 
-def image_sharding(*args, **kwargs):
-    raise NotImplementedError(_SPATIAL)
+def make_mesh_2d(num_devices: int = 0, spatial: int = 1) -> DataParallel:
+    """The data x space group of the default process group: W /
+    ``spatial`` data rows of ``spatial`` ranks, rank ``d * spatial + s`` at
+    data index d and space index s (:func:`space_grid`). With ``spatial``
+    1 it is :func:`make_mesh`'s group, as JAX's 1-D mesh. Every rank
+    calls it: it makes each data row's process group."""
+    dp = make_mesh(num_devices)
+    if spatial <= 1:
+        return dp
+    mine = None
+    for ranks in space_grid(dp.world_size, spatial):
+        group = dist.new_group(ranks=ranks)
+        if dp.rank in ranks:
+            mine = group
+    space = SpaceGroup(spatial, dp.rank % spatial, mine)
+    return dataclasses.replace(dp, space=space)
 
 
 def batch_sharding(mesh: DataParallel) -> RowShard:
-    """The rows of each global batch this rank holds."""
-    return RowShard(mesh.rank, mesh.world_size)
+    """The rows of each global batch this rank holds (its data row's)."""
+    return RowShard(mesh.data_rank, mesh.data_size)
 
 
-def batch_shardings(mesh: DataParallel) -> Dict[str, RowShard]:
-    """:func:`batch_sharding` for every key of a batch (no key is split
-    along an image axis)."""
-    return {k: batch_sharding(mesh) for k in BATCH_KEYS}
+def image_sharding(mesh: DataParallel) -> Union[ImageShard, RowShard]:
+    """The part of a global batch's (B, H, W, C) images this rank holds: its
+    data row's rows and, under spatial parallelism, its band of H."""
+    if mesh.space is None:
+        return batch_sharding(mesh)
+    return ImageShard(mesh.data_rank, mesh.data_size, mesh.space.rank,
+                      mesh.space.size)
+
+
+def batch_shardings(mesh: DataParallel
+                    ) -> Dict[str, Union[ImageShard, RowShard]]:
+    """Per key of a batch: :func:`image_sharding` for the images (rgb,
+    depth, rays), :func:`batch_sharding` for the per-sample vectors."""
+    return {k: image_sharding(mesh) if k in IMAGE_KEYS
+            else batch_sharding(mesh) for k in BATCH_KEYS}
+
+
+def band_batch(batch: Dict[str, torch.Tensor],
+               mesh: Optional[DataParallel]) -> Dict[str, torch.Tensor]:
+    """A data row's batch (what its feed gives every rank of the row) with
+    this rank's band of each image; the batch as it is without spatial
+    parallelism."""
+    if mesh is None or mesh.space is None:
+        return batch
+    return {k: mesh.space.band(v, 1) if k in IMAGE_KEYS else v
+            for k, v in batch.items()}
 
 
 def replicate_sharding(mesh: DataParallel):
@@ -169,9 +234,11 @@ def replicate_sharding(mesh: DataParallel):
 
 def shard_batch(batch: Dict[str, torch.Tensor],
                 mesh: DataParallel) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch."""
+    """This rank's part of a global batch: its rows, and its band of each
+    image under spatial parallelism."""
+    table = batch_shardings(mesh)
     rows = batch_sharding(mesh)
-    return {k: rows(v) for k, v in batch.items()}
+    return {k: table.get(k, rows)(v) for k, v in batch.items()}
 
 
 def replicate_state(state, mesh: DataParallel):

@@ -24,6 +24,14 @@ every call, or with ``grad_accum_steps`` k on the k-th, the running mean
 of the k micro-batches), so every rank clips and updates with the same
 gradient, as JAX's replicated state does; the eval step's metrics are
 those of the global batch.
+
+Spatial parallelism (``dp=make_mesh_2d(n, S)``): each rank is given its
+band of each image (``parallel.shard_batch``, or a data row's batch
+through ``parallel.band_batch``); the model (``model.space``) and the
+loss work on bands, and the rays derived from K are those of the band's
+rows. The steps are the data-parallel ones: every rank holds the global
+loss, back-propagates it divided by W, and the W ranks' gradients sum to
+the gradient of one process over the whole images.
 """
 
 from __future__ import annotations
@@ -53,22 +61,25 @@ def device_batch(batch: Dict[str, np.ndarray], device) -> Batch:
             for k, v in batch.items()}
 
 
-def _batch_with_rays(batch: Batch, needs_rays: bool,
-                     derive_rays: bool) -> Batch:
+def _batch_with_rays(batch: Batch, needs_rays: bool, derive_rays: bool,
+                     space=None) -> Batch:
     """Ensure geometry batches carry a ray grid: with ``derive_rays``
     (= data.compute_rays), or when the batch has none, derive it from K
-    on the batch's device."""
+    on the batch's device; on bands of ``space``, the band's rows of the
+    image's grid."""
     if needs_rays and (derive_rays or "rays" not in batch):
         h, w = batch["rgb"].shape[1], batch["rgb"].shape[2]
         batch = dict(batch)
-        batch["rays"] = ray_grid_batch(batch["intrinsics"], h, w)
+        batch["rays"] = ray_grid_batch(
+            batch["intrinsics"], h, w,
+            row0=0 if space is None else space.row0(h))
     return batch
 
 
-def _inputs(cfg: Config, batch: Batch):
+def _inputs(cfg: Config, batch: Batch, space=None):
     arch = cfg.model.architecture
     b = _batch_with_rays(batch, arch.startswith("geometry_aware"),
-                         cfg.data.compute_rays)
+                         cfg.data.compute_rays, space)
     return model_inputs(arch, b)
 
 
@@ -77,7 +88,9 @@ def build_model_and_loss(cfg: Config, device="cuda",
                          dp: Optional[DataParallel] = None):
     """(model, loss_fn) as the config says: bf16 compute over fp32
     parameters when ``training.use_amp`` is set, else float32; with
-    ``dp``, batch norms and losses over the group's global batch."""
+    ``dp``, batch norms and losses over the group's global batch, and
+    under its ``space`` a model and a loss that take bands of the
+    images."""
     m = cfg.model
     model = create_model(
         m.architecture, in_channels=m.in_channels,
@@ -90,6 +103,7 @@ def build_model_and_loss(cfg: Config, device="cuda",
         dtype=torch.bfloat16 if cfg.training.use_amp else torch.float32,
         device=device, generator=generator)
     sync_batch_norms(model, dp)
+    model.space = None if dp is None else dp.space
     lc = cfg.loss
     loss_fn = CombinedDepthLoss(
         si_weight=lc.si_weight, grad_weight=lc.grad_weight,
@@ -272,7 +286,7 @@ class TrainStep:
         gt = batch["depth"]
         valid = gt > self.cfg.loss.min_depth
         self.optimizer.zero_grad()
-        pred = self.model(*_inputs(self.cfg, batch))
+        pred = self.model(*_inputs(self.cfg, batch, self.model.space))
         total, comps = self.loss_fn(pred, gt, batch["rgb"],
                                     batch["intrinsics"], valid)
         total.backward(_seed(total, self.dp))
@@ -330,7 +344,7 @@ def make_grad_fn(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
         names, params = zip(*model.named_parameters())
         saved = {k: v.clone() for k, v in model.named_buffers()}
         gt = batch["depth"]
-        pred = model(*_inputs(cfg, batch))
+        pred = model(*_inputs(cfg, batch, model.space))
         total, _ = loss_fn(pred, gt, batch["rgb"], batch["intrinsics"],
                            gt > cfg.loss.min_depth)
         grads = torch.autograd.grad(total, params, _seed(total, dp),
@@ -358,7 +372,7 @@ def make_eval_step(cfg: Config, model: nn.Module, loss_fn: CombinedDepthLoss
     def eval_fn(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
         record: Dict[str, List[torch.Tensor]] = {}
-        pred = model(*_inputs(cfg, batch), record)
+        pred = model(*_inputs(cfg, batch, model.space), record)
         gt = batch["depth"]
         _, comps = loss_fn(pred, gt, batch["rgb"], batch["intrinsics"],
                            gt > cfg.loss.min_depth)
@@ -385,6 +399,6 @@ def make_predict_fn(cfg: Config, model: nn.Module
     def predict(batch: Batch) -> torch.Tensor:
         # a trainer's steps put the model in training mode between calls
         model.eval()
-        return model(*_inputs(cfg, batch))
+        return model(*_inputs(cfg, batch, model.space))
 
     return predict

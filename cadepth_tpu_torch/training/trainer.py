@@ -26,8 +26,16 @@ feed) and trains a replica through the data-parallel steps
 metrics. Only rank 0 writes ``training.log``, the CSV, TensorBoard and
 checkpoints; the others wait for each checkpoint at a barrier. A SIGTERM
 on any rank stops every rank at the same batch boundary.
-``hardware.spatial_parallel > 1`` is not ported (ROADMAP.md Queue 1,
-item 8).
+
+Spatial parallelism (``hardware.spatial_parallel`` S > 1 in a group of W
+ranks): D = W / S data rows of S ranks (``parallel.make_mesh_2d``). The
+feeds give each data row its ``batch_size / D`` samples, augmented on
+the whole image (a crop and a flip change K), and each rank of the row
+takes its band of H / S rows of them (``parallel.band_batch``); the
+steps are the data-parallel ones over the W ranks. The image panels are
+predicted on bands by every rank and gathered whole before rank 0 draws
+them. Without a process group, S > 1 trains whole images on the one
+card, as JAX's trainer does on one device.
 """
 
 from __future__ import annotations
@@ -45,8 +53,8 @@ from cadepth_tpu_torch.data.pipeline import InputPipeline
 from cadepth_tpu_torch.data.sunrgbd import AugmentationConfig, SunRGBDLoader
 from cadepth_tpu_torch.metrics.depth_metrics import MetricsAccumulator
 from cadepth_tpu_torch.models.factory import count_parameters, resolve_device
-from cadepth_tpu_torch.parallel.mesh import (DataParallel, make_mesh,
-                                             replicate_state)
+from cadepth_tpu_torch.parallel.mesh import (DataParallel, band_batch,
+                                             make_mesh_2d, replicate_state)
 from cadepth_tpu_torch.training.checkpoint import CheckpointManager
 from cadepth_tpu_torch.training.schedule import build_lr_schedule
 from cadepth_tpu_torch.training.tb_logger import TensorBoardLogger
@@ -121,12 +129,15 @@ def data_parallel_group(cfg: Config, device: torch.device
     ``num_devices: 1``, but was started outside a process group raises:
     it never trains on one card of several unasked. So does a group of
     several ranks without ``hardware.data_parallel`` (each would train a
-    copy of its own), and ``hardware.spatial_parallel > 1``."""
+    copy of its own).
+
+    With ``hardware.spatial_parallel`` S > 1 the group is
+    ``make_mesh_2d(W, S)``: W must divide by S, ``training.batch_size``
+    by the W / S data rows and ``data.input_height`` by S, else this
+    raises. (JAX's trainer drops devices until its rule holds and, where
+    it cannot, trains on one device without a word.) A process without a
+    group trains whole images, as JAX on one device."""
     hw = cfg.hardware
-    if hw.spatial_parallel > 1:
-        raise NotImplementedError(
-            "hardware.spatial_parallel > 1 is not ported yet (ROADMAP.md "
-            "Queue 1, item 8: spatial parallelism)")
     if not dist.is_initialized():
         cards = torch.cuda.device_count() if device.type == "cuda" else 0
         if hw.data_parallel and cards > 1 and hw.num_devices != 1:
@@ -144,13 +155,28 @@ def data_parallel_group(cfg: Config, device: torch.device
                 f"hardware.data_parallel is false but {world} processes "
                 "were started in a group")
         return None
-    if cfg.training.batch_size % world != 0:
-        raise ValueError(
-            f"batch_size {cfg.training.batch_size} is not divisible by "
-            f"hardware.num_devices {world}")
+    spatial = max(hw.spatial_parallel, 1)
     if world == 1 and hw.num_devices in (0, 1):
         return None
-    return make_mesh(hw.num_devices)    # raises on another num_devices
+    if world % spatial != 0:
+        raise ValueError(
+            f"hardware.spatial_parallel {spatial} does not divide the "
+            f"process group's {world} ranks (data x space needs "
+            "W % spatial_parallel == 0)")
+    rows = world // spatial
+    if cfg.training.batch_size % rows != 0:
+        what = (f"the {rows} data rows of {world} ranks at "
+                f"spatial_parallel {spatial}" if spatial > 1
+                else f"hardware.num_devices {world}")
+        raise ValueError(f"batch_size {cfg.training.batch_size} is not "
+                         f"divisible by {what}")
+    if cfg.data.input_height % spatial != 0:
+        raise ValueError(
+            f"data.input_height {cfg.data.input_height} is not divisible "
+            f"by hardware.spatial_parallel {spatial} (each rank holds "
+            "input_height / spatial_parallel rows)")
+    # raises on another num_devices
+    return make_mesh_2d(hw.num_devices, spatial)
 
 
 def _flat_jax(named: Dict[str, torch.Tensor]):
@@ -220,7 +246,10 @@ class Trainer:
                 torch.bfloat16 if cfg.data.device_resident_dtype ==
                 "bfloat16" else torch.float32), depth_dtype=torch.float32)
         ds_kw["device"] = self.device
-        ds_kw["mesh"] = self.dp
+        # each data row's shard (under spatial parallelism the ranks of a
+        # row hold the same samples)
+        ds_kw["mesh"] = None if self.dp is None else \
+            DataParallel(self.dp.data_size, self.dp.data_rank)
         chunk = cfg.data.device_resident_chunk_samples
         if chunk > 0:
             # pack bigger than device memory: rotate it through two chunk
@@ -273,8 +302,8 @@ class Trainer:
     def _process_slice(self) -> Dict[str, int]:
         if self.dp is None:
             return {}
-        return {"process_index": self.dp.rank,
-                "process_count": self.dp.world_size}
+        return {"process_index": self.dp.data_rank,
+                "process_count": self.dp.data_size}
 
     def _finish_init(self) -> None:
         cfg = self.cfg
@@ -425,6 +454,7 @@ class Trainer:
         for batch_idx, batch in enumerate(self.train_pipe):
             if self._stop_agreed():
                 break
+            batch = band_batch(batch, self.dp)
             logs = self.train_step(batch)
             if self.cfg.logging.log_histogram_interval:
                 # kept ONLY when gradient histograms will read it: a full
@@ -465,19 +495,26 @@ class Trainer:
     def validate(self, epoch: int) -> Dict[str, float]:
         acc = MetricsAccumulator()
         for batch in self.val_pipe:
-            out = self.eval_step(batch)
+            out = self.eval_step(band_batch(batch, self.dp))
             acc.update({k: float(v) for k, v in out.items()})
         return acc.average()
 
     def visualize(self, epoch: int) -> None:
         """Log [RGB | GT | Pred | Error] panels (tensorboard_trainer_enhanced.h:444-470)."""
         n = min(self.cfg.training.num_vis_samples, len(self.val_loader))
+        space = None if self.dp is None else self.dp.space
         if n == 0 or not self.cfg.training.save_predictions or \
-                not self.rank0:
+                not (self.rank0 or space is not None):
             return
         batch = self.val_loader.get_batch(range(n))
-        pred = self.predict_fn(device_batch(batch, self.device)).float() \
-            .cpu().numpy()
+        pred = self.predict_fn(band_batch(device_batch(batch, self.device),
+                                          self.dp))
+        if space is not None:
+            # every rank predicted its band; rank 0 draws the whole maps
+            pred = space.gather(pred, 1)
+            if not self.rank0:
+                return
+        pred = pred.float().cpu().numpy()
         for i in range(n):
             panel = create_comparison(batch["rgb"][i], batch["depth"][i],
                                       pred[i])
@@ -508,7 +545,12 @@ class Trainer:
         self.log(f"model={cfg.model.architecture} params={self.num_params:,}")
         self.log(f"device={self.device} batch={cfg.training.batch_size}"
                  + (f" over {self.dp.world_size} ranks"
-                    if self.dp is not None else ""))
+                    if self.dp is not None else "")
+                 + (f" ({self.dp.data_size} data rows x "
+                    f"{self.dp.space.size} bands of "
+                    f"{cfg.data.input_height // self.dp.space.size} rows)"
+                    if self.dp is not None and self.dp.space is not None
+                    else ""))
         self.log(f"train_samples={len(self.train_loader)} "
                  f"val_samples={len(self.val_loader)}")
         self.log("=" * 55)

@@ -177,10 +177,34 @@ Phases, each fatal on failure:
    data-tool CLIs on phase 19's tree: validate, rays on the card, a pack
    that equals phase 19's byte for byte, then compare_models over phase
    21's and phase 19's evaluate outputs;
-24. one JSON line describing every kernel, the train steps, the
-   Predictors, the trainer loop, the device feed, the families, the
-   served checkpoints and the data-parallel runs; the script's wall
-   time; last, the ok line.
+25. spatial parallelism (run after 23, before 24's line): (a) the
+   two-pass kernels over windows of output rows, at the flagship's five
+   decoder maps at the training batch cut into 2 and 4 windows, f32 and
+   bf16, both paddings, phase 3's thetas: each window's forward and V
+   equal to those rows of the whole forward (max error 0), the windows'
+   backward summed equal to the whole backward (phase 6's tolerances),
+   the same bits twice, the windowed plain versions; the windowed
+   training forward and backward at dec1 for rank 0 of two bands in
+   device time beside their bounds, plain versions and F.grid_sample on
+   the window's rows; (b) two processes on the one card over Gloo
+   (``chip_smoke.py --sp-worker RANK PORT DIR``) as one data row of two
+   bands of 120 rows: the f32 flagship at full width, global batch 4, 3
+   steps against one process: total_loss to rtol 1e-5, the parameters
+   by phase 23b's rule, the worst parameter's gradient at the initial
+   state within twice the largest distance of one process's over the
+   batch reordered (or 1e-3), 5 forward launches storing V
+   and 15 backward launches a step on each rank (the 3 PCLs of the
+   banded levels on windows), each rank's peak device memory and the
+   memory a forward holds for its backward beside one process's, the
+   step p50 over Gloo on one card (no speed figure); (c) the Trainer's
+   spatial branch on the two ranks, geometry_aware_full from phase 19's
+   pack for one capped epoch: rank 0's checkpoint, finite validation
+   metrics on both ranks;
+24. one JSON line describing every kernel (the two-pass warp's windowed
+   launches under ``windowed``), the train steps, the Predictors, the
+   trainer loop, the device feed, the families, the served checkpoints,
+   the data-parallel and the spatial runs; the script's wall time; last,
+   the ok line.
 
 Every timing line carries the card's name and power limit. The script
 exits non-zero, printing no result, when there is no card.
@@ -2389,16 +2413,18 @@ def write_pack(root: pathlib.Path, args, per_sensor: int, seed: int) -> dict:
     return meta
 
 
-def loop_yaml(root: pathlib.Path, args, epochs: int) -> pathlib.Path:
+def loop_yaml(root: pathlib.Path, args, epochs: int,
+              pack: pathlib.Path = None) -> pathlib.Path:
     """configs/train_config.yaml with phase 19's changes, run as
-    --experiment geometry_aware_full: the pack, 4 producer threads, the
-    shipped augmentation, validation capped, a log line and a checkpoint
-    every epoch, logs and checkpoints under ``root``."""
+    --experiment geometry_aware_full: the pack (``root``'s own unless
+    given), 4 producer threads, the shipped augmentation, validation
+    capped, a log line and a checkpoint every epoch, logs and checkpoints
+    under ``root``."""
     import yaml
 
     raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
     deep_merge(raw, {
-        "data": {"packed_dir": str(root / "pack"),
+        "data": {"packed_dir": str(pack or root / "pack"),
                  "input_height": args.height, "input_width": args.width},
         "model": {"init_features": args.init_features},
         "training": {"num_epochs": epochs, "num_workers": 4,
@@ -4231,6 +4257,684 @@ def data_parallel(device, args, card: str, roots):
     return out
 
 
+# phase 25: spatial parallelism on the card
+SP_RANKS = 2          # one data row of two bands
+SP_STEPS = 3
+SP_BANDS = (2, 4)     # 25a: the windows a decoder map is cut into
+SP_WORKER_TIMEOUT_S = 600
+# 25c: the Trainer's epoch from phase 19's pack, capped
+SP_TRAIN_SAMPLES, SP_VAL_SAMPLES = 8, 8
+
+
+def windowed_pcls(height: int, spatial: int, levels: int = 5) -> int:
+    """How many of a ``levels``-level network's PCLs warp a window of rows
+    on ``spatial`` bands of a ``height``-row image: those of the decoder
+    levels that the band rule of models/layers.py keeps banded, below
+    a banded level (the first banded level from the bottom runs whole on
+    the gathered skip)."""
+    banded, band, ok = [], height // spatial, height % spatial == 0
+    for _ in range(levels + 1):        # the levels, then the bottleneck
+        banded.append(ok)
+        ok = ok and band % 2 == 0
+        band //= 2
+    return sum(banded[i] and banded[i + 1] for i in range(levels))
+
+
+def window_counts() -> dict:
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+
+    return {"window_launches": tpw.window_launches,
+            "window_bwd_launches": tpw.window_bwd_launches}
+
+
+def reset_window_counts() -> None:
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+
+    tpw.window_launches = tpw.window_bwd_launches = 0
+
+
+def windows_of(rows: int, bands: int):
+    """A partition of ``rows`` into ``bands`` windows (row0, rows), the
+    last taking the rest."""
+    size = rows // bands
+    return [(k * size, size if k < bands - 1 else rows - k * size)
+            for k in range(bands)]
+
+
+def check_windowed(device, shapes, seed: int):
+    """Phase 25a: the two-pass kernels over windows of output rows. At
+    each decoder map, dtype, padding and theta of phase 3, cut into 2 and
+    4 windows: each window's forward and V equal those rows of the whole
+    forward's (max error 0); the windows' backward kernels summed equal
+    the whole backward's d_img and d_theta (phase 6's tolerances); the
+    rotation's windows run twice give the same bits; at each map and
+    dtype the rotation's windowed forward and backward against their
+    windowed plain versions (phases 3 and 6's tolerances). Returns the
+    worst errors."""
+    import torch
+
+    from cadepth_tpu_torch.ops import two_pass_warp as warp
+    from cadepth_tpu_torch.ops.affine_warp import (
+        two_pass_affine_warp_plain_bwd,
+        two_pass_affine_warp_plain_fwd,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = {"fwd": 0.0, "float32": 0.0, "bfloat16": 0.0, "d_theta": 0.0,
+             "fwd_vs_plain": 0.0, "bwd_vs_plain": 0.0}
+    for level, shape in shapes:
+        b, h = shape[0], shape[1]
+        img32 = torch.randn(shape, device=device, generator=gen)
+        grad32 = torch.randn(shape, device=device, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            img, grad = img32.to(dtype), grad32.to(dtype)
+            errs = []
+            for pad in ("zeros", "border"):
+                for tname, theta in two_pass_thetas(device, b, gen):
+                    whole, v = warp._forward(img, theta, pad, False,
+                                             keep_v=True)
+                    d_img, d_theta = warp.two_pass_warp_bwd(img, v, theta,
+                                                            grad, pad)
+                    scale = max(1.0, d_img.float().abs().max().item())
+                    t_scale = d_theta.abs().max().clamp_min(1e-12)
+                    for bands in SP_BANDS:
+                        sum_img = torch.zeros_like(d_img, dtype=torch.float32)
+                        sum_theta = torch.zeros_like(d_theta)
+                        fwd_err = 0.0
+                        for row0, rows in windows_of(h, bands):
+                            out, wv = warp._forward(img, theta, pad, False,
+                                                    keep_v=True, row0=row0,
+                                                    rows=rows)
+                            fwd_err = max(fwd_err, *(
+                                (a.float() - w.float()).abs().max().item()
+                                for a, w in (
+                                    (out, whole[:, row0:row0 + rows]),
+                                    (wv, v[:, row0:row0 + rows]))))
+                            g = grad[:, row0:row0 + rows].contiguous()
+                            a, t = warp.two_pass_warp_bwd(
+                                img, wv, theta, g, pad, False, row0, rows)
+                            if tname == "rotation":
+                                again = warp.two_pass_warp_bwd(
+                                    img, wv, theta, g, pad, False, row0,
+                                    rows)
+                                if not (torch.equal(again[0], a)
+                                        and torch.equal(again[1], t)):
+                                    raise AssertionError(
+                                        f"windowed backward {level} {name} "
+                                        f"{pad} ({row0}, {rows}): two runs "
+                                        "differ")
+                            if tname == "rotation" and pad == "zeros" \
+                                    and bands == SP_BANDS[0]:
+                                want, want_v = two_pass_affine_warp_plain_fwd(
+                                    img, theta, pad, False, row0, rows)
+                                pw = two_pass_affine_warp_plain_bwd(
+                                    img, want_v, theta, g, pad, False, row0,
+                                    rows)
+                                p_err = max((out.float() - want.float())
+                                            .abs().max().item(),
+                                            (wv.float() - want_v.float())
+                                            .abs().max().item())
+                                p_scale = max(1.0, pw[0].float().abs().max()
+                                              .item())
+                                pb_err = (a.float() - pw[0].float()).abs() \
+                                    .max().item()
+                                if not (p_err <= ATOL[name] and pb_err
+                                        <= BWD_ATOL[name] * p_scale):
+                                    raise AssertionError(
+                                        f"windowed kernel vs windowed plain "
+                                        f"{level} {name} ({row0}, {rows}): "
+                                        f"forward {p_err}, d_img {pb_err}")
+                                worst["fwd_vs_plain"] = max(
+                                    worst["fwd_vs_plain"], p_err)
+                                worst["bwd_vs_plain"] = max(
+                                    worst["bwd_vs_plain"], pb_err / p_scale)
+                            sum_img += a.float()
+                            sum_theta += t
+                        err = (sum_img - d_img.float()).abs().max().item()
+                        t_err = ((sum_theta - d_theta).abs().max()
+                                 / t_scale).item()
+                        if not (fwd_err == 0.0
+                                and err <= BWD_ATOL[name] * scale
+                                and t_err <= THETA_ATOL[name]):
+                            raise AssertionError(
+                                f"windows of {level} {tuple(shape)} {name} "
+                                f"{pad} {tname} in {bands}: forward max err "
+                                f"{fwd_err} (want 0), summed d_img err {err} "
+                                f"(atol {BWD_ATOL[name]} x {scale:.3g}), "
+                                f"d_theta {t_err} (atol {THETA_ATOL[name]})")
+                        worst["fwd"] = max(worst["fwd"], fwd_err)
+                        worst[name] = max(worst[name], err / scale)
+                        worst["d_theta"] = max(worst["d_theta"], t_err)
+                        errs.append(f"{tname}/{bands}={err / scale:.2g}")
+            log(f"  {level} {tuple(shape)} {name:8s} windows of 2 and 4, "
+                f"both paddings: forward and V max err 0; summed d_img "
+                f"err / max(1, max|d_img|): " + " ".join(errs[:9]) + " ...")
+    log(f"  windowed forward against the whole forward's rows: max err "
+        f"{worst['fwd']}; windows' backward summed against the whole "
+        f"backward: d_img {max(worst['float32'], worst['bfloat16']):.3g} "
+        f"of max(1, max|d_img|), d_theta {worst['d_theta']:.3g} of its "
+        f"largest entry; windowed kernel against windowed plain: forward "
+        f"{worst['fwd_vs_plain']:.3g}, d_img {worst['bwd_vs_plain']:.3g}; "
+        f"the rotation's windows run twice: the same bits")
+    return worst
+
+
+def touched_rows(theta, height: int, width: int, row0: int,
+                 rows: int) -> int:
+    """Input rows a batch's window of the forward reads (its taps, zeros
+    padding), summed over the batch: what this run's data needs."""
+    import torch
+
+    from cadepth_tpu_torch.ops.affine_warp import _positions
+
+    g, _ = _positions(theta, height, width, False, theta.device, row0, rows)
+    base = torch.floor(g)
+    total = 0
+    for b in range(g.shape[0]):
+        taps = torch.cat([base[b].flatten(), base[b].flatten() + 1.0])
+        taps = taps[(taps >= 0) & (taps <= height - 1)]
+        total += int(torch.unique(taps).numel())
+    return total
+
+
+def window_times(device, args, card: str):
+    """Phase 25a's times: at dec1, bf16, the training batch, rank 0's
+    window of two bands, the rotation: the windowed training forward
+    (storing V) and backward kernels' device time, their bounds from this
+    run's theta (the input rows the window reads), the windowed plain
+    versions and F.grid_sample on the window's rows of the grid (forward,
+    and its backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cadepth_tpu_torch.ops import two_pass_warp as warp
+    from cadepth_tpu_torch.ops.affine_warp import (
+        two_pass_affine_warp_plain_bwd,
+        two_pass_affine_warp_plain_fwd,
+    )
+
+    cuda = device.type == "cuda"
+    timer = Timer(device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 27)
+    level, shape = decoder_shapes(args.train_batch, args.height, args.width,
+                                  args.init_features)[-1]
+    b, h, w, c = shape
+    row0, rows = windows_of(h, SP_RANKS)[0]
+    img = torch.randn(shape, device=device, generator=gen).to(torch.bfloat16)
+    grad = torch.randn((b, rows, w, c), device=device, generator=gen) \
+        .to(torch.bfloat16)
+    theta = (torch.tensor(THETAS["rotation"], device=device)
+             .expand(b, 2, 3).contiguous())
+    _, v = warp._forward(img, theta, "zeros", False, keep_v=True, row0=row0,
+                         rows=rows)
+    size = img.element_size()
+    window = b * rows * w * c
+    read = touched_rows(theta, h, w, row0, rows) * w * c * size
+    nchw = img.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    th = theta.to(torch.bfloat16).requires_grad_(True)
+    with torch.enable_grad():
+        grid = F.affine_grid(th, list(nchw.shape),
+                             align_corners=False)[:, row0:row0 + rows]
+        gs = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                           align_corners=False)
+    rows_out = {}
+    for kind, calls, keys, n_launch, bytes_moved, flops in (
+            ("forward", {
+                "kernel": lambda: warp._forward(img, theta, "zeros", False,
+                                                keep_v=True, row0=row0,
+                                                rows=rows),
+                "plain": lambda: two_pass_affine_warp_plain_fwd(
+                    img, theta, "zeros", False, row0, rows),
+                "library": lambda: F.grid_sample(
+                    nchw.detach(), grid.detach(), mode="bilinear",
+                    padding_mode="zeros", align_corners=False)},
+             TWO_PASS_FWD_KEYS, warp.LAUNCHES_PER_CALL,
+             # the rows read once, out and V written once
+             read + 2 * window * size, 6 * window),
+            ("backward", {
+                "kernel": lambda: warp.two_pass_warp_bwd(
+                    img, v, theta, grad, "zeros", False, row0, rows),
+                "plain": lambda: two_pass_affine_warp_plain_bwd(
+                    img, v, theta, grad, "zeros", False, row0, rows),
+                "library": lambda: torch.autograd.grad(
+                    gs, (nchw, th), grad.permute(0, 3, 1, 2),
+                    retain_graph=True)},
+             TWO_PASS_BWD_KEYS, warp.BWD_LAUNCHES_PER_CALL,
+             # grad and V of the window and the rows of img read once, the
+             # whole d_img written once
+             read + 2 * window * size + img.numel() * size, 20 * window)):
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        row = {"shape": shape, "window": [row0, rows],
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": bytes_moved}
+        for call, fn in calls.items():
+            n = args.timing_iters if call != "plain" else \
+                max(args.timing_iters // 10, 2)
+            row[f"{call}_wall_ms"] = timer(fn, n, 2)
+            row[f"{call}_ms"] = None
+            if cuda:
+                expect = dict(kernels=keys, launches=n_launch) \
+                    if call == "kernel" else {}
+                total, per_kernel = device_ms(fn, n, **expect)
+                row[f"{call}_ms"] = total if call != "kernel" else sum(
+                    ms for key, ms in per_kernel.items()
+                    if any(k in key for k in keys))
+        rows_out[kind] = row
+        dev = row["kernel_ms"]
+        log(f"  [{card}] {level} {shape} bf16, output rows {row0}.."
+            f"{row0 + rows - 1} (two bands), windowed two_pass_warp {kind}: "
+            + (f"{dev:.4f} ms device, {row['bound_ms'] / dev:.1%} of bound"
+               if dev else "device not measured")
+            + f" / {row['kernel_wall_ms']:.4f} ms wall; bound "
+            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
+            f"{bytes_moved / 1e6:.2f} MB); plain "
+            + (f"{row['plain_ms']:.4f} ms device" if row["plain_ms"]
+               else "device not measured")
+            + f" / {row['plain_wall_ms']:.4f} ms wall; grid_sample on the "
+            f"window's rows{' backward' if kind == 'backward' else ''} "
+            + (f"{row['library_ms']:.4f} ms device" if row["library_ms"]
+               else "device not measured")
+            + f" / {row['library_wall_ms']:.4f} ms wall"
+            + ("" if cuda else " [CPU rehearsal ms, not device numbers]"))
+    return rows_out
+
+
+def grads_at(cfg, init, batch, device, dp=None):
+    """The gradient of the training loss of ``batch`` (``dp``'s global
+    batch when one is given) at the state dict ``init``, on the CPU."""
+    from cadepth_tpu_torch.training import train_state as ts
+
+    model, loss_fn = ts.build_model_and_loss(cfg, device=device, dp=dp)
+    model.load_state_dict(init)
+    grads = ts.make_grad_fn(cfg, model, loss_fn)(batch)
+    return {k: v.cpu() for k, v in grads.items()}
+
+
+def held_bytes(cfg, init, batch, device, dp=None):
+    """Device bytes a training forward and its loss hold for the backward
+    (the activations autograd keeps, and the loss's inputs), at the state
+    dict ``init``: allocated after them minus before; None off the
+    card."""
+    import torch
+
+    from cadepth_tpu_torch.training import train_state as ts
+
+    if device.type != "cuda":
+        return None
+    model, loss_fn = ts.build_model_and_loss(cfg, device=device, dp=dp)
+    model.load_state_dict(init)
+    model.train()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pred = model(*ts._inputs(cfg, batch, model.space))
+    gt = batch["depth"]
+    total, _ = loss_fn(pred, gt, batch["rgb"], batch["intrinsics"],
+                       gt > cfg.loss.min_depth)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del pred, total
+    return held
+
+
+def tree_rel(got: dict, want: dict, skip=()) -> float:
+    """Relative L2 distance of two gradient trees."""
+    num = sum(float(((got[k] - w).double() ** 2).sum())
+              for k, w in want.items() if not k.endswith(skip))
+    den = sum(float((w.double() ** 2).sum())
+              for k, w in want.items() if not k.endswith(skip))
+    return (num / den) ** 0.5
+
+
+def leaf_dist(got, want) -> float:
+    """Relative L2 distance of two tensors (0 where both are zero)."""
+    num = float(((got - want).double() ** 2).sum()) ** 0.5
+    return num / max(float((want.double() ** 2).sum()) ** 0.5, 1e-30)
+
+
+def sp_worker(rank: int, port: int, work: pathlib.Path,
+              rehearsal: bool) -> int:
+    """A rank of phases 25b and 25c: joins the group that ``work``'s setup
+    names as one data row of two bands, trains its bands of the global
+    batches written there (f32, counted, its peak device memory), then
+    the Trainer's spatial branch for one capped epoch from phase 19's
+    pack; writes what it saw there."""
+    import torch
+    import torch.distributed as dist
+
+    from cadepth_tpu_torch.config import load_config
+    from cadepth_tpu_torch.parallel import (initialize_distributed,
+                                            make_mesh_2d, shard_batch)
+    from cadepth_tpu_torch.training.trainer import Trainer
+
+    setup = torch.load(work / "setup.pt", weights_only=False)
+    if rehearsal:   # the ranks share the host's cores
+        torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert initialize_distributed(f"127.0.0.1:{port}", setup["ranks"], rank,
+                                  backend="gloo")
+    cuda = not rehearsal
+    device = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    dp = make_mesh_2d(setup["ranks"], setup["ranks"])
+    f, h, w, bsz = setup["size"]
+    cfg = flagship_config(f, h, w, bsz)
+    cfg.training.use_amp = False
+    batches = [shard_batch({k: v.to(device) for k, v in b.items()}, dp)
+               for b in setup["batches"]]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    reset_warp_counts()
+    reset_window_counts()
+    out = dp_train(cfg, setup["init"], batches, device, dp)
+    if cuda:
+        torch.cuda.synchronize()
+    # the steps' peak, over the window one process's peak covers
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated() - base) if cuda \
+        else None
+    out["counts"] = dict(warp_counts(), **window_counts())
+    out["held_bytes"] = held_bytes(cfg, setup["init"], batches[0], device,
+                                   dp)
+    # every rank takes part in the collectives; rank 0 keeps the result
+    grads = grads_at(cfg, setup["init"], batches[0], device, dp)
+    if rank == 0:
+        out["grads"] = grads
+    del grads
+    del out["step"]
+    out["params"] = {k: v.cpu() for k, v in out["params"].items()}
+    out["stats"] = {k: v.cpu() for k, v in out["stats"].items()}
+    out["band"] = list(batches[0]["rgb"].shape)
+
+    # 25c: the Trainer's spatial branch, as the train CLI runs it
+    tcfg = load_config(setup["yaml"], experiment="geometry_aware_full")
+    tcfg.training.num_epochs = 1
+    tcfg.hardware.data_parallel = True
+    tcfg.hardware.spatial_parallel = setup["ranks"]
+    tcfg._debug_limits = {"num_train_samples": SP_TRAIN_SAMPLES,
+                          "num_val_samples": SP_VAL_SAMPLES}
+    reset_warp_counts()
+    reset_window_counts()
+    tr = Trainer(tcfg, device=device)
+    try:
+        metrics = tr.train()
+        out["trainer"] = {
+            "metrics": metrics, "history": tr.history,
+            "ranks": tr.dp.world_size, "bands": tr.dp.space.size,
+            "counts": dict(warp_counts(), **window_counts()),
+            "checkpoints": sorted(p.name for p in pathlib.Path(
+                tcfg.checkpointing.checkpoint_dir,
+                tcfg.experiment.name).iterdir())
+            if rank == 0 else None}
+    finally:
+        tr.close()
+    torch.save(out, work / f"out_{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_ranks(device, args, card: str, root: pathlib.Path,
+             loop_root: pathlib.Path):
+    """Phases 25b and 25c: two processes on the one card over Gloo with
+    CUDA tensors (its all_gather_into_tensor and reduce_scatter_tensor,
+    as NCCL's), one data row of two bands of 120 rows. 25b: the f32
+    flagship at full width, global batch 4, 3 steps, against one process
+    over the same batches: total_loss to rtol 1e-5, the parameters by
+    phase 23b's rule (the median within 0.02 sum(lr), at most one in a
+    million further than sum(lr); the FiLM MLPs' first two biases, whose
+    gradient is round-off, left out), the gradient at the initial state
+    over the tree within twice the distance of one process's over the
+    batch with its samples reversed or rotated by one (the same sums in
+    other orders), and the worst parameter's within twice the largest
+    such distance of any parameter, or 1e-3, that bound below 0.5 (a
+    parameter S times off lies 0.5 away), each rank's launches counted (5 forward launches storing V and 15 backward
+    launches a step, of them the windowed ones of the banded levels), each
+    rank's peak device memory of the steps beside one process's, and the
+    step's p50 (two ranks sharing one card: not a speed figure). 25c: the Trainer on the two
+    ranks, configs/train_config.yaml's geometry_aware_full (bf16) from
+    phase 19's pack for one capped epoch: rank 0's checkpoint, finite
+    validation metrics on both ranks, equal parameters."""
+    import numpy as np
+    import torch
+
+    from cadepth_tpu_torch.ops import two_pass_warp as tpw
+    from cadepth_tpu_torch.training import train_state as ts
+    from cadepth_tpu_torch.training.schedule import build_lr_schedule
+
+    cuda = device.type == "cuda"
+    ranks = SP_RANKS
+    f, h, w, bsz = args.init_features, args.height, args.width, \
+        args.train_batch
+    size = (f, h, w, bsz)
+    cfg = flagship_config(*size)
+    cfg.training.use_amp = False
+    gen = torch.Generator().manual_seed(args.seed + 28)
+    model, _ = ts.build_model_and_loss(cfg, device="cpu", generator=gen)
+    rotate_pcl_heads(model, gen)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_pcl = len(pcl_layers(model))
+    del model
+    rng = np.random.default_rng(args.seed + 29)
+    batches = [synthetic_batch(rng, bsz, h, w, "cpu")
+               for _ in range(SP_STEPS)]
+    work = root / f"bands_{ranks}"
+    work.mkdir()
+    yaml_path = loop_yaml(work, args, 1, loop_root / "pack")
+    torch.save({"size": size, "init": init, "batches": batches,
+                "ranks": ranks, "yaml": str(yaml_path)}, work / "setup.pt")
+    if cuda:
+        torch.cuda.empty_cache()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sp-worker",
+         str(r), str(port), str(work)]
+        + (["--cpu-rehearsal"] if not cuda else []),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(ranks)]
+    outputs = {}
+    try:
+        for r, p in enumerate(procs):
+            outputs[r] = p.communicate(timeout=SP_WORKER_TIMEOUT_S)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of the spatial group exited "
+                                 f"{p.returncode}:\n{outputs[r][-3000:]}")
+    outs = [torch.load(work / f"out_{r}.pt", weights_only=False)
+            for r in range(ranks)]
+
+    # one process over the same global batches
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    one = dp_train(cfg, init, [{k: v.to(device) for k, v in b.items()}
+                               for b in batches], device)
+    one_peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+    del one["step"]
+    # the noise floor: one process over the same batches with their
+    # samples' halves swapped (the same sums in another order)
+    half = bsz // 2
+    swap = [{k: torch.cat([v[half:], v[:half]]).to(device)
+             for k, v in b.items()} for b in batches]
+    swapped = dp_train(cfg, init, swap, device)
+    del swapped["step"]
+    # the gradient at the initial state: the ranks', one process's, and
+    # one process's over the first batch reordered
+    first = {k: v.to(device) for k, v in batches[0].items()}
+    one_held = held_bytes(cfg, init, first, device)
+    g_one = grads_at(cfg, init, first, device)
+    g_orders = [grads_at(cfg, init, {k: v[order] for k, v in first.items()},
+                         device)
+                for order in (list(range(bsz))[::-1],
+                              list(range(1, bsz)) + [0])]
+    lrs = [build_lr_schedule(cfg.optimization, STEPS_PER_EPOCH,
+                             cfg.training.num_epochs)(s)
+           for s in range(SP_STEPS)]
+    bound = sum(lrs)
+    loss_rel = max(abs(outs[0]["logs"][i]["total_loss"]
+                       - one["logs"][i]["total_loss"])
+                   / abs(one["logs"][i]["total_loss"])
+                   for i in range(SP_STEPS))
+    # the FiLM MLPs' first two biases feed a batch norm: their gradient is
+    # zero but for round-off, which Adam turns into +-lr moves of either
+    # sign (tests/torch_port_common.py: assert_grads_close), so they are
+    # left out of the count
+    noise = ("film.fc1.bias", "film.fc2.bias")
+    g_rel = tree_rel(outs[0]["grads"], g_one, noise)
+    g_floor = max(tree_rel(g, g_one, noise) for g in g_orders)
+    # each parameter's gradient against the reorderings' distance
+    leaf_rel, leaf_floor = {}, {}
+    for k, g_k in g_one.items():
+        if not k.endswith(noise):
+            leaf_rel[k] = leaf_dist(outs[0]["grads"][k], g_k)
+            leaf_floor[k] = max(leaf_dist(g[k], g_k) for g in g_orders)
+    leaf_over = {k: (r, leaf_floor[k]) for k, r in leaf_rel.items()
+                 if r > max(2.0 * leaf_floor[k], 1e-3)}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    # the worst parameter against twice the largest reordered distance;
+    # a parameter S times off lies at least 0.5 away, so the bound must
+    # stay below that
+    leaf_bound = max(2.0 * max(leaf_floor.values()), 1e-3)
+    per = {k: (outs[0]["params"][k] - v.cpu()).abs().flatten()
+           for k, v in one["params"].items() if not k.endswith(noise)}
+    diffs = torch.cat(list(per.values()))
+    p_max, p_median = float(diffs.max()), float(diffs.median())
+    over = int((diffs > bound).sum())
+    floor = torch.cat([(swapped["params"][k] - v).abs().flatten().cpu()
+                       for k, v in one["params"].items()
+                       if not k.endswith(noise)])
+    over_floor = int((floor > bound).sum())
+    over_cap = diffs.numel() // 1_000_000
+    over_in = {k: int((d > bound).sum()) for k, d in per.items()
+               if (d > bound).any()}
+    same = all(torch.equal(outs[0]["params"][k], o["params"][k])
+               for o in outs[1:] for k in outs[0]["params"])
+    windowed = windowed_pcls(h, ranks)
+    want = {"launches": tpw.LAUNCHES_PER_CALL * n_pcl * SP_STEPS,
+            "bwd_launches": tpw.BWD_LAUNCHES_PER_CALL * n_pcl * SP_STEPS,
+            "v_stores": n_pcl * SP_STEPS, "fused": 0,
+            "window_launches": tpw.LAUNCHES_PER_CALL * windowed * SP_STEPS,
+            "window_bwd_launches":
+                tpw.BWD_LAUNCHES_PER_CALL * windowed * SP_STEPS} if cuda \
+        else {k: 0 for k in ("launches", "bwd_launches", "v_stores", "fused",
+                             "window_launches", "window_bwd_launches")}
+    counts = [o["counts"] for o in outs]
+    p50 = [float(np.median(o["ms"][1:] or o["ms"])) for o in outs]
+    one_p50 = float(np.median(one["ms"][1:] or one["ms"]))
+    peaks = [o["peak_bytes"] for o in outs]
+    gib = (lambda x: f"{x / 2**30:.3f} GiB" if x is not None
+           else "not measured")
+    log(f"  [{card}] {ranks} Gloo ranks on one device as one data row of "
+        f"{ranks} bands {outs[0]['band']} (rgb), f32 flagship f={f}, "
+        f"{h}x{w}, global batch {bsz}, {SP_STEPS} steps ({wall:.1f} s with "
+        f"the processes' start and phase 25c), against one process over "
+        f"the global batch: total_loss max rel diff {loss_rel:.3g} (rtol "
+        f"1e-5); parameters: {over} of {diffs.numel()} further apart than "
+        f"sum(lr) {bound:.3g} (at most {over_cap}, one in a million"
+        f"{'' if cuda else ', on the card only'}; one process over the "
+        f"batches with their halves swapped: {over_floor}, max |diff| "
+        f"{float(floor.max()):.3g}), max |diff| {p_max:.3g}, "
+        f"median {p_median:.3g} (bound {0.02 * bound:.3g}), the FiLM MLPs' "
+        f"first two biases left out; entries past sum(lr) by parameter: "
+        f"{over_in}; the ranks' parameters equal: {same}; the gradient at "
+        f"the initial state {g_rel:.3g} (relative L2 over the tree) from "
+        f"one process's, where one process over the batch reordered is "
+        f"up to {g_floor:.3g} from it; by parameter, the worst {worst} "
+        f"{leaf_rel[worst]:.3g} (reordered up to {leaf_floor[worst]:.3g}), "
+        f"the largest reordered distance "
+        f"{max(leaf_floor.values()):.3g} (the worst at most twice that, "
+        f"and that below 0.5); parameters past twice their own reordered "
+        f"distance (or 1e-3), not held, as bands reorder the sums over "
+        f"pixels where reordering samples does not: {leaf_over}")
+    log(f"  [{card}] launches by rank over {SP_STEPS} steps: {counts} "
+        f"(expected {want}: {n_pcl} PCLs a step, {windowed} of them on "
+        f"windows)")
+    held = [o["held_bytes"] for o in outs]
+    log(f"  [{card}] device memory a training forward holds for its "
+        f"backward (the first batch): "
+        f"{', '.join(f'rank {r} {gib(x)}' for r, x in enumerate(held))}, "
+        f"one process {gib(one_held)}; peak device memory of the "
+        f"{SP_STEPS} steps (parameters, gradients, Adam's moments and "
+        f"cuDNN's workspaces included): "
+        f"{', '.join(f'rank {r} {gib(x)}' for r, x in enumerate(peaks))}, "
+        f"one process {gib(one_peak)}; step p50 {p50} ms by rank, two "
+        f"ranks sharing the card over Gloo (not a speed figure), one "
+        f"process {one_p50:.1f} ms")
+    # the count's cap is one in a million of the card's 129 million
+    # parameters; the rehearsal's 2.8 million at f=8 leave it 2 entries,
+    # fewer than the round-off entries a draw can flip there
+    if not (loss_rel <= 1e-5 and p_median <= 0.02 * bound and same
+            and g_rel <= 2.0 * g_floor
+            and leaf_rel[worst] <= leaf_bound < 0.5
+            and (over <= over_cap or not cuda)):
+        raise AssertionError(f"{ranks} bands differ from one process")
+    if any(c != want for c in counts):
+        raise AssertionError(f"spatial launch counts {counts} != {want}")
+
+    trainer = [o["trainer"] for o in outs]
+    ckpts = trainer[0]["checkpoints"]
+    finite = all(np.isfinite(t["metrics"][k]) for t in trainer
+                 for k in ("total_loss", "abs_rel", "rmse"))
+    log(f"  [{card}] the Trainer's spatial branch ({trainer[0]['ranks']} "
+        f"ranks, {trainer[0]['bands']} bands), geometry_aware_full from "
+        f"phase 19's pack, one epoch capped at {SP_TRAIN_SAMPLES} train and "
+        f"{SP_VAL_SAMPLES} validation samples: rank 0's checkpoints {ckpts}; "
+        f"validation abs_rel by rank "
+        f"{[t['metrics']['abs_rel'] for t in trainer]}, finite {finite}; "
+        f"launches by rank {[t['counts'] for t in trainer]}")
+    if not (finite and ckpts and "best" in ckpts
+            and trainer[0]["metrics"] == trainer[1]["metrics"]):
+        raise AssertionError("the Trainer's spatial branch failed: "
+                             f"{ckpts}, {[t['metrics'] for t in trainer]}")
+    if cuda and any(t["counts"]["window_launches"] == 0 for t in trainer):
+        raise AssertionError("the Trainer's spatial epoch launched no "
+                             "windowed warp")
+    return {"ranks": ranks, "bands": ranks, "global_batch": bsz,
+            "steps": SP_STEPS, "total_loss_max_rel": loss_rel,
+            "params_max_abs": p_max, "params_median_abs": p_median,
+            "sum_lr": bound, "params_above_sum_lr": over,
+            "params_above_cap": over_cap, "params_above_by_name": over_in,
+            "swapped_params_above_sum_lr": over_floor,
+            "grad_rel_l2": g_rel, "reordered_grad_rel_l2": g_floor,
+            "grad_worst_param": worst,
+            "grad_worst_param_rel_l2": leaf_rel[worst],
+            "reordered_grad_worst_param_rel_l2": max(leaf_floor.values()),
+            "grad_worst_param_bound": leaf_bound,
+            "grad_params_over": leaf_over,
+            "rank_counts": counts,
+            "expected_counts": want, "windowed_pcls": windowed,
+            "rank_peak_bytes": peaks, "one_process_peak_bytes": one_peak,
+            "rank_held_bytes": held, "one_process_held_bytes": one_held,
+            "rank_step_p50_ms": p50, "one_process_step_p50_ms": one_p50,
+            "trainer": {"checkpoints": ckpts, "metrics": trainer[0]["metrics"],
+                        "rank_counts": [t["counts"] for t in trainer]},
+            "wall_s": wall}
+
+
+def spatial_parallel(device, args, card: str, roots):
+    """Phase 25: the windowed kernels, spatial train steps, the Trainer's
+    spatial branch."""
+    import torch
+
+    with torch.no_grad():
+        worst = check_windowed(
+            device, decoder_shapes(args.train_batch, args.height, args.width,
+                                   args.init_features), args.seed + 26)
+    times = window_times(device, args, card)
+    return {"windowed": worst, "window_times": times,
+            "ranks": sp_ranks(device, args, card, roots[25], roots[19])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -4238,6 +4942,8 @@ def main(argv=None) -> int:
                          "plain warp; prints no result")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4247,6 +4953,11 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(ROOT))
         rank, port, work = args.dp_worker
         return dp_worker(int(rank), int(port), pathlib.Path(work),
+                         args.cpu_rehearsal)
+    if args.sp_worker:
+        sys.path.insert(0, str(ROOT))
+        rank, port, work = args.sp_worker
+        return sp_worker(int(rank), int(port), pathlib.Path(work),
                          args.cpu_rehearsal)
 
     rehearsal = args.cpu_rehearsal
@@ -4424,7 +5135,7 @@ def main(argv=None) -> int:
     # 19's pack, phase 22 serves phase 20's checkpoints
     (ROOT / "build").mkdir(exist_ok=True)
     work = pathlib.Path(tempfile.mkdtemp(prefix="smoke_", dir=ROOT / "build"))
-    roots = {k: work / f"phase{k}" for k in (19, 20, 21, 22, 23)}
+    roots = {k: work / f"phase{k}" for k in (19, 20, 21, 22, 23, 25)}
     for r in roots.values():
         r.mkdir()
     try:
@@ -4446,6 +5157,10 @@ def main(argv=None) -> int:
         phase("23. data parallel on the card; memory analysis; the data "
               "tools")
         dp = data_parallel(device, args, card, roots)
+
+        phase("25. spatial parallelism: the windowed kernels, two bands "
+              "of the flagship, the Trainer's spatial branch")
+        spatial = spatial_parallel(device, args, card, roots)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del weights
@@ -4460,6 +5175,25 @@ def main(argv=None) -> int:
     from cadepth_tpu_torch.ops import fused_loss as fl
 
     dec1, bwd_dec1 = rows["dec1"], bwd_rows["dec1"]
+    sp_counts = spatial["ranks"]["rank_counts"][0]
+    sp_times = spatial["window_times"]
+
+    def windowed(kind: str, launches: int, err: float) -> dict:
+        t = sp_times[kind]
+        return {
+            "launches": launches, "max_abs_err": err,
+            "ms": t["kernel_ms"], "wall_ms": t["kernel_wall_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "bound_bytes": t["bytes"],
+            "library_ms": t["library_ms"],
+            "library": "F.grid_sample on the window's rows of "
+                       "F.affine_grid(theta)" + (
+                           ", backward" if kind == "backward" else ""),
+            "at": f"dec1 {t['shape']} bf16, output rows {t['window'][0]}.."
+                  f"{sum(t['window']) - 1} (rank 0 of two bands)",
+            "launches_how": f"phase 25b, rank 0 over {SP_STEPS} f32 steps "
+                            f"on two bands ({spatial['ranks']['windowed_pcls']}"
+                            " of the 5 PCLs on windows)"}
     b32_rows = feed["two_pass_b32"]["levels"]
     b32_dec1, feed_counts = b32_rows["dec1"], feed["train"]["warp_counts"]
     f_dec1, f_bwd_dec1 = f_rows["dec1"], f_bwd_rows["dec1"]
@@ -4509,6 +5243,10 @@ def main(argv=None) -> int:
             "at": f"dec1 {b32_dec1['shape']} bf16, V stored",
             "per_step_ms": level_sum(b32_rows, "train_fwd_ms"),
             "max_abs_err_by_dtype": feed["two_pass_b32"]["fwd_max_abs_err"]},
+        "windowed": windowed("forward", sp_counts["window_launches"],
+                             spatial["windowed"]["fwd"]),
+        "launches_in_spatial": sp_counts["launches"],
+        "v_stores_in_spatial": sp_counts["v_stores"],
         "max_abs_err": max(worst.values()),
         "max_abs_err_by_dtype": worst,
         "ms": dec1["kernel_ms"],
@@ -4558,6 +5296,14 @@ def main(argv=None) -> int:
             "per_step_ms": level_sum(b32_rows, "kernel_ms"),
             "per_step_bound_ms": level_sum(b32_rows, "bound_ms"),
             "max_abs_err_by_dtype": feed["two_pass_b32"]["bwd_max_abs_err"]},
+        "windowed": dict(windowed(
+            "backward", sp_counts["window_bwd_launches"],
+            max(spatial["windowed"]["float32"],
+                spatial["windowed"]["bfloat16"])),
+            max_abs_err_how="the windows' d_img summed against the whole "
+                            "backward's, over max(1, max|d_img|)",
+            d_theta_rel_err=spatial["windowed"]["d_theta"]),
+        "launches_in_spatial": sp_counts["bwd_launches"],
         "max_abs_err": max(bwd_worst["float32"], bwd_worst["bfloat16"]),
         "max_abs_err_by_dtype": bwd_worst,
         "ms": bwd_dec1["kernel_ms"],
@@ -4753,6 +5499,7 @@ def main(argv=None) -> int:
         "families": families,
         "serving_from_checkpoint": served,
         "data_parallel": dp,
+        "spatial_parallel": spatial,
         "pcl_modes": {"serve": modes, "train": mode_train,
                       "group_resize_serve": group_serve,
                       "gather_warp": {"levels": g_rows,

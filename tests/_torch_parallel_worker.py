@@ -114,6 +114,23 @@ def api_case(case, dp):
         tm.data_parallel_group(bad, torch.device("cpu"))
     except ValueError as exc:
         out["batch_error"] = str(exc)
+    # the data x space rule: spatial_parallel must divide the ranks, and
+    # the input height
+    out["spatial_errors"] = {}
+    for name, extra in (
+            ("ranks", {"hardware": {"spatial_parallel": 3}}),
+            ("height", {"hardware": {"spatial_parallel": 2},
+                        "data": dict(case["raw"]["data"], input_height=33)})):
+        try:
+            tm.data_parallel_group(port_config.config_from_dict(
+                dict(case["raw"], **extra)), torch.device("cpu"))
+        except ValueError as exc:
+            out["spatial_errors"][name] = str(exc)
+    spatial = tm.data_parallel_group(port_config.config_from_dict(
+        dict(case["raw"], hardware={"spatial_parallel": 2})),
+        torch.device("cpu"))
+    out["spatial"] = (spatial.world_size, spatial.data_size,
+                      spatial.space.size, spatial.space.rank)
     return out
 
 

@@ -203,6 +203,68 @@ def test_backward_kernel_is_deterministic():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bands", [2, 4])
+def test_windowed_kernels_match_plain_on_card(bands):
+    """The warp over windows of output rows (spatial parallelism's
+    bands; the flagship's five decoder maps at batch 2, each cut into
+    ``bands`` windows of rows): the forward's rows and V equal those rows of the
+    whole kernel's and the windowed plain version's (max err 0, f32 and
+    bf16); the windows' backward kernels summed equal the whole backward
+    kernel's d_img (f32 within 1e-5 x max(1, max|d_img|), bf16 within
+    2e-2 x that) and its d_theta (phase 6's 1e-5 / 1e-3 of its largest
+    entry); every window's launches are counted as windowed, and two runs
+    give the same bits."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    for shape in LEVELS:
+        # a partition of the rows (the last window takes the rest)
+        size = shape[1] // bands
+        windows = [(k * size, size if k < bands - 1 else shape[1] - k * size)
+                   for k in range(bands)]
+        for name in ("identity", "rotation", "zoom_0.3", "q_zero"):
+            for dtype, atol in ATOL.items():
+                x, theta, grad = _bwd_case(shape, name, dtype, rng)
+                what = (shape, name, dtype)
+                whole, v = warp_mod._forward(x, theta, "zeros", False,
+                                             keep_v=True)
+                d_img, d_theta = warp_mod.two_pass_warp_bwd(x, v, theta, grad)
+                sum_img = torch.zeros_like(d_img, dtype=torch.float32)
+                sum_theta = torch.zeros_like(d_theta)
+                for k, (row0, rows) in enumerate(windows):
+                    before = (warp_mod.window_launches,
+                              warp_mod.window_bwd_launches)
+                    out, wv = warp_mod._forward(x, theta, "zeros", False,
+                                                keep_v=True, row0=row0,
+                                                rows=rows)
+                    plain, plain_v = two_pass_affine_warp_plain_fwd(
+                        x, theta, "zeros", False, row0, rows)
+                    for got, ref in ((out, whole[:, row0:row0 + rows]),
+                                     (wv, v[:, row0:row0 + rows]),
+                                     (out, plain), (wv, plain_v)):
+                        err = (got.float() - ref.float()).abs().max().item()
+                        assert err == 0.0, (what, k, err)
+                    g = grad[:, row0:row0 + rows].contiguous()
+                    a, b = warp_mod.two_pass_warp_bwd(x, wv, theta, g,
+                                                      row0=row0, rows=rows)
+                    a2, b2 = warp_mod.two_pass_warp_bwd(x, wv, theta, g,
+                                                        row0=row0, rows=rows)
+                    assert torch.equal(a, a2) and torch.equal(b, b2), what
+                    assert (warp_mod.window_launches,
+                            warp_mod.window_bwd_launches) == (
+                        before[0] + warp_mod.LAUNCHES_PER_CALL,
+                        before[1] + 2 * warp_mod.BWD_LAUNCHES_PER_CALL)
+                    sum_img += a.float()
+                    sum_theta += b
+                scale = max(1.0, d_img.float().abs().max().item())
+                err = (sum_img - d_img.float()).abs().max().item()
+                assert err <= atol * scale, (what, err)
+                t_atol = 1e-5 if dtype == torch.float32 else 1e-3
+                t_err = (sum_theta - d_theta).abs().max().item()
+                assert t_err <= t_atol * (d_theta.abs().max().item()
+                                          + 1e-12), (what, t_err)
+
+
+@pytest.mark.cuda
 def test_autograd_function_launches_the_backward_kernels():
     """Through the Function on the card, against the plain backward on
     the CPU, with a strided incoming gradient (copied, and counted)."""

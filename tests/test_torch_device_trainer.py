@@ -157,8 +157,14 @@ def test_device_trainer_refusals(scenes, tmp_path):
         trainer_of(scenes, tmp_path, data=files)
     with pytest.raises(ValueError, match="target resolution"):
         trainer_of(scenes, tmp_path, data={"input_height": 16})
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        trainer_of(scenes, tmp_path, hardware={"spatial_parallel": 2})
+    # spatial parallelism without a process group: whole images on the
+    # one device, from the unsharded feed
+    tr = trainer_of(scenes, tmp_path, hardware={"spatial_parallel": 2})
+    try:
+        assert tr.dp is None and tr.model.space is None
+        assert tr.train_pipe.dataset.mesh is None
+    finally:
+        tr.close()
 
 
 @pytest.fixture(scope="module")

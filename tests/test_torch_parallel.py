@@ -420,16 +420,28 @@ def test_initialize_distributed_without_and_with_a_bad_coordinator(
     assert not torch.distributed.is_initialized()
 
 
-def test_spatial_parallelism_names_the_roadmap_item():
-    for fn in (make_mesh_2d, image_sharding):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-            fn()
+def test_spatial_parallelism_names_the_roadmap_item(runs):
+    """Spatial parallelism (ROADMAP.md Queue 1, item 8): the two ranks
+    with spatial_parallel 2 are one data row of two bands; a group that
+    breaks the data x space rule raises with the rule's words; without
+    a space group the image keys are split by rows alone; make_mesh_2d
+    needs a process group, as make_mesh does."""
+    for r in range(RANKS):
+        api = runs["outs"][r]["api"]
+        assert api["spatial"] == (2, 1, 2, r)
+        assert "does not divide the process group's 2 ranks" in \
+            api["spatial_errors"]["ranks"]
+        assert "input_height 33 is not divisible by " \
+            "hardware.spatial_parallel 2" in api["spatial_errors"]["height"]
     dp = DataParallel(2, 1)
     x = torch.arange(8)
     assert torch.equal(batch_shardings(dp)["rgb"](x), x[4:])
+    assert batch_shardings(dp)["rgb"] == image_sharding(dp)
     assert replicate_sharding(dp)(x) is x
     with pytest.raises(ValueError, match="not divisible"):
         batch_shardings(dp)["k4"](torch.arange(3))
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_mesh_2d(2, spatial=2)
 
 
 @pytest.fixture(scope="module")

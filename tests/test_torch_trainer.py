@@ -398,15 +398,31 @@ def test_preemption_checkpoint_and_resume(dataset, tmp_path):
         tr2.close()
 
 
+# (the ids name ROADMAP.md Queue 1 item 8, spatial parallelism)
 @pytest.mark.parametrize("overrides,match", [
     ({"data": {"device_resident": True},
-      "hardware": {"spatial_parallel": 2}}, "Queue 1, item 8"),
-    ({"hardware": {"spatial_parallel": 2}}, "Queue 1, item 8"),
-])
+      "hardware": {"spatial_parallel": 2}}, "packed_dir"),
+    ({"hardware": {"spatial_parallel": 2}}, None),
+], ids=["overrides0-Queue 1, item 8", "overrides1-Queue 1, item 8"])
 def test_unported_options_raise(dataset, tmp_path, overrides, match):
-    cfg = port_config_of(dataset, tmp_path, **overrides)
-    with pytest.raises(NotImplementedError, match=match):
-        p_trainer.Trainer(cfg, device="cpu")
+    """hardware.spatial_parallel 2 without a process group trains whole
+    images on the one device, as JAX's trainer does on one device; the
+    device feed still asks for its pack. (A group that breaks the
+    data x space rule raises: tests/test_torch_parallel.py.)"""
+    cfg = port_config_of(dataset, tmp_path, training={"num_epochs": 1},
+                         **overrides)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            p_trainer.Trainer(cfg, device="cpu")
+        return
+    tr = p_trainer.Trainer(cfg, device="cpu")
+    try:
+        assert tr.dp is None and tr.model.space is None
+        metrics = tr.train()
+        assert np.isfinite(metrics["abs_rel"])
+        assert all(np.isfinite(h["train_loss"]) for h in tr.history)
+    finally:
+        tr.close()
 
 
 @pytest.mark.parametrize("model,cls", [
