@@ -18,6 +18,14 @@ without a ``state_dict``, from the port's seeded initialisation.
 An exported program is locked to the predictor's batch size, input size
 and device, as the JAX package's StableHLO artifact is; it is read back
 by the torch version that wrote it.
+
+While a profiler records (``utils/profiling.py``), each request of
+``predict`` and ``predict_stream`` is span ``serve.request``, from its
+hand-over to its depth on the host, its trace id the request's number in
+this predictor; its children are ``serve.pad`` (the host batch: padding,
+K, k4, rays), ``serve.h2d`` (the copies to the card, attribute
+``bytes``), ``serve.forward`` (with the card's time) and
+``serve.readback`` (the depth's copy to the host, attribute ``bytes``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from cadepth_tpu_torch.config import Config
 from cadepth_tpu_torch.data.sunrgbd import SunRGBDLoader
 from cadepth_tpu_torch.models.factory import create_model, resolve_device
 from cadepth_tpu_torch.training.train_state import _inputs, make_predict_fn
+from cadepth_tpu_torch.utils.profiling import span
 
 
 def load_exported(path: str) -> Callable[[Mapping], torch.Tensor]:
@@ -141,6 +150,8 @@ class Predictor:
         self.model = model
         self._predict = make_predict_fn(cfg, self.model)
         self._default_k_dev: Optional[Dict[str, torch.Tensor]] = None
+        # requests handed over, the trace ids of their spans
+        self._requests = 0
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, checkpoint: str = "best",
@@ -171,26 +182,30 @@ class Predictor:
                 "resize on the client or build another Predictor")
         if n > self.batch_size:
             raise ValueError(f"got {n} samples > batch_size {self.batch_size}")
-        rgb_full = np.zeros((self.batch_size, h, w, 3), np.float32)
-        rgb_full[:n] = rgb
-        if intrinsics is None:
-            k4 = _default_k4(self.batch_size, h, w)
-            k = _matrix(k4)
-        else:
-            k = np.tile(np.eye(3, dtype=np.float32), (self.batch_size, 1, 1))
-            k[:n] = intrinsics
-            if n < self.batch_size:
-                k[n:] = intrinsics[-1]
-            k4 = np.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2], k[:, 1, 2]],
-                          -1).astype(np.float32)
-        batch = {"rgb": rgb_full, "intrinsics": k.astype(np.float32),
-                 "k4": k4}
-        if not self._derive_rays:
-            batch["rays"] = np.stack(
-                [SunRGBDLoader._compute_rays(k[i], h, w)
-                 for i in range(self.batch_size)]).astype(np.float32)
-        return {key: torch.from_numpy(v).to(self.device)
-                for key, v in batch.items()}
+        with span("serve.pad"):
+            rgb_full = np.zeros((self.batch_size, h, w, 3), np.float32)
+            rgb_full[:n] = rgb
+            if intrinsics is None:
+                k4 = _default_k4(self.batch_size, h, w)
+                k = _matrix(k4)
+            else:
+                k = np.tile(np.eye(3, dtype=np.float32),
+                            (self.batch_size, 1, 1))
+                k[:n] = intrinsics
+                if n < self.batch_size:
+                    k[n:] = intrinsics[-1]
+                k4 = np.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2],
+                               k[:, 1, 2]], -1).astype(np.float32)
+            batch = {"rgb": rgb_full, "intrinsics": k.astype(np.float32),
+                     "k4": k4}
+            if not self._derive_rays:
+                batch["rays"] = np.stack(
+                    [SunRGBDLoader._compute_rays(k[i], h, w)
+                     for i in range(self.batch_size)]).astype(np.float32)
+        with span("serve.h2d") as h2d:
+            h2d.set(bytes=sum(v.nbytes for v in batch.values()))
+            return {key: torch.from_numpy(v).to(self.device)
+                    for key, v in batch.items()}
 
     def _device_batch(self, rgb: torch.Tensor,
                       intrinsics: Optional[torch.Tensor]
@@ -227,12 +242,32 @@ class Predictor:
     def _run(self, rgb, intrinsics):
         """Enqueue one forward; returns (depth on the device, n real rows)."""
         if isinstance(rgb, torch.Tensor):
-            return self._predict(self._device_batch(rgb, intrinsics)), \
-                rgb.shape[0]
-        rgb = np.asarray(rgb, np.float32)
-        if rgb.ndim == 3:
-            rgb = rgb[None]
-        return self._predict(self._make_batch(rgb, intrinsics)), rgb.shape[0]
+            batch, n = self._device_batch(rgb, intrinsics), rgb.shape[0]
+        else:
+            rgb = np.asarray(rgb, np.float32)
+            if rgb.ndim == 3:
+                rgb = rgb[None]
+            batch, n = self._make_batch(rgb, intrinsics), rgb.shape[0]
+        with span("serve.forward", device=self.device):
+            return self._predict(batch), n
+
+    def _submit(self, rgb, intrinsics):
+        """``_run`` as request span ``serve.request``; returns (depth on the
+        device, n real rows, the request's span)."""
+        self._requests += 1
+        request = span("serve.request", trace=self._requests)
+        with request.active():
+            out, n = self._run(rgb, intrinsics)
+        return out, n, request
+
+    @staticmethod
+    def _answer(out: torch.Tensor, n: int, request) -> np.ndarray:
+        """The depth of a forward ``_submit`` enqueued, on the host."""
+        with span("serve.readback", parent=request) as readback:
+            depth = out[:n].cpu().numpy()
+            readback.set(bytes=depth.nbytes)
+        request.close()
+        return depth
 
     def predict(self, rgb, intrinsics=None) -> np.ndarray:
         """rgb (N, H, W, 3) float in [0, 1], optional K (N, 3, 3) ->
@@ -242,8 +277,7 @@ class Predictor:
         device at its (batch_size, H, W, 3) shape, with ``intrinsics`` a
         (batch_size, 3, 3) tensor there or None: no host staging then.
         """
-        out, n = self._run(rgb, intrinsics)
-        return out[:n].cpu().numpy()
+        return self._answer(*self._submit(rgb, intrinsics))
 
     def predict_stream(self, requests: Iterable, depth: int = 2
                        ) -> Iterator[np.ndarray]:
@@ -257,13 +291,11 @@ class Predictor:
         inflight: deque = deque()
         for req in requests:
             rgb, k = req if isinstance(req, tuple) else (req, None)
-            inflight.append(self._run(rgb, k))
+            inflight.append(self._submit(rgb, k))
             while len(inflight) >= max(depth, 1):
-                out, n = inflight.popleft()
-                yield out[:n].cpu().numpy()
+                yield self._answer(*inflight.popleft())
         while inflight:
-            out, n = inflight.popleft()
-            yield out[:n].cpu().numpy()
+            yield self._answer(*inflight.popleft())
 
     # -- deployment artifact ------------------------------------------------
 

@@ -52,6 +52,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cadepth_tpu_torch.parallel import spatial
+from cadepth_tpu_torch.utils.profiling import OFF, backward_span, span
 
 # flax.linen.BatchNorm defaults: epsilon 1e-5, running-average momentum
 # 0.99, which is torch's momentum 0.01.
@@ -248,8 +249,20 @@ def make_norm(kind: str, channels: int) -> nn.Module:
 
 def apply_norm(x: torch.Tensor, norm: nn.Module,
                out_dtype: torch.dtype) -> torch.Tensor:
-    """Normalize in float32, cast the output to ``out_dtype``."""
-    return norm(x.float()).to(out_dtype)
+    """Normalize in float32, cast the output to ``out_dtype``.
+
+    While a profiler records, the call, casts included, is span
+    ``norm.fwd`` and, where a gradient flows back through it, its
+    backward is span ``norm.bwd``, both with the card's time. (A block
+    recomputed for the backward records its ``norm.fwd`` again, inside
+    the backward, and no second ``norm.bwd``.)"""
+    fwd = span("norm.fwd", device=x.device)
+    if fwd is OFF:
+        return norm(x.float()).to(out_dtype)
+    with fwd:
+        x, mark = backward_span("norm.bwd", x,
+                                OFF if recomputing() else fwd)
+        return mark(norm(x.float()).to(out_dtype))
 
 
 class ResizeConv2d(Conv2d):

@@ -50,6 +50,7 @@ from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
 from cadepth_tpu_torch.models.factory import create_model, model_inputs
 from cadepth_tpu_torch.models.layers import sync_batch_norms
 from cadepth_tpu_torch.parallel.mesh import DataParallel
+from cadepth_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -265,6 +266,13 @@ class TrainStep:
     with ``grad_accum_steps`` k, on the mean of every k calls' gradients.
     ``updates`` counts the calls, as the JAX state's ``step``.
 
+    While a profiler records, a call is span ``train.step`` (trace id
+    ``updates`` on entry) with children ``train.forward``,
+    ``train.loss``, ``train.backward`` (with the zero gradients of unused
+    parameters) and ``train.update`` (the gradient's statistics, clipping
+    and the optimizer), each with the card's time on a card; a
+    data-parallel all-reduce lies in the step, outside the four.
+
     Under ``loss_fn.dp`` the logs are the global batch's: the losses, and
     with k = 1 the gradient's norm, max and min (with k > 1 the gradient
     is all-reduced once per update, so those three are this rank's part
@@ -282,31 +290,41 @@ class TrainStep:
         self.updates = 0
 
     def __call__(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        self.model.train()
         gt = batch["depth"]
-        valid = gt > self.cfg.loss.min_depth
-        self.optimizer.zero_grad()
-        pred = self.model(*_inputs(self.cfg, batch, self.model.space))
-        total, comps = self.loss_fn(pred, gt, batch["rgb"],
-                                    batch["intrinsics"], valid)
-        total.backward(_seed(total, self.dp))
-        params = self.optimizer.params()
-        for p in params:  # JAX gives an unused parameter a zero gradient
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        reduce = None
-        if self.dp is not None:
-            if self.optimizer.accum_steps == 1:
-                self.dp.all_reduce_(grads)
-            else:
-                reduce = self.dp.all_reduce_
-        logs = {k: v.detach() for k, v in comps.items()}
-        logs["grad_norm"] = global_norm(grads)
-        logs["grad_max"] = torch.stack(torch._foreach_max(grads)).max()
-        logs["grad_min"] = torch.stack([g.min() for g in grads]).min()
-        self.optimizer.update(self.schedule, logs["grad_norm"], reduce)
-        self.updates += 1
+        device = gt.device
+        with span("train.step", device=device, trace=self.updates):
+            self.model.train()
+            valid = gt > self.cfg.loss.min_depth
+            self.optimizer.zero_grad()
+            with span("train.forward", device=device):
+                pred = self.model(*_inputs(self.cfg, batch, self.model.space))
+            with span("train.loss", device=device):
+                total, comps = self.loss_fn(pred, gt, batch["rgb"],
+                                            batch["intrinsics"], valid)
+            params = self.optimizer.params()
+            with span("train.backward", device=device):
+                total.backward(_seed(total, self.dp))
+                # JAX gives an unused parameter a zero gradient
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            reduce = None
+            if self.dp is not None:
+                if self.optimizer.accum_steps == 1:
+                    self.dp.all_reduce_(grads)
+                else:
+                    reduce = self.dp.all_reduce_
+            with span("train.update", device=device):
+                logs = {k: v.detach() for k, v in comps.items()}
+                logs["grad_norm"] = global_norm(grads)
+                logs["grad_max"] = torch.stack(
+                    torch._foreach_max(grads)).max()
+                logs["grad_min"] = torch.stack(
+                    [g.min() for g in grads]).min()
+                self.optimizer.update(self.schedule, logs["grad_norm"],
+                                      reduce)
+            self.updates += 1
         return logs
 
     def state_dict(self) -> Dict[str, object]:

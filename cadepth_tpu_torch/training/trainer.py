@@ -67,7 +67,7 @@ from cadepth_tpu_torch.training.train_state import (
     make_predict_fn,
     make_train_step,
 )
-from cadepth_tpu_torch.utils.profiling import StepTimer
+from cadepth_tpu_torch.utils.profiling import StepTimer, span
 from cadepth_tpu_torch.visualization.depth_viz import create_comparison
 
 CSV_HEADER = ("epoch,step,train_loss,val_loss,"
@@ -251,21 +251,31 @@ class Trainer:
         ds_kw["mesh"] = None if self.dp is None else \
             DataParallel(self.dp.data_size, self.dp.data_rank)
         chunk = cfg.data.device_resident_chunk_samples
-        if chunk > 0:
-            # pack bigger than device memory: rotate it through two chunk
-            # buffers (same epoch semantics as fully-resident, see the class)
-            train_ds = ChunkedDeviceDataset(self.train_loader, chunk, **ds_kw)
-            val_ds = ChunkedDeviceDataset(self.val_loader, chunk, **ds_kw)
-        else:
-            train_ds = DeviceDataset(self.train_loader, **ds_kw)
-            if [s["row"] for s in self.val_loader.sample_paths] == \
-                    list(train_ds.rows):
-                # one upload serves both splits; the explicit constructor
-                # keeps split/augmentation identity per instance
-                val_ds = DeviceDataset(self.val_loader,
-                                       share_storage_from=train_ds)
+        # both splits' stores built: the host's gather or encode of the
+        # pack's rows and their copies to the card
+        with span("setup.store", always=True) as store:
+            if chunk > 0:
+                # pack bigger than device memory: rotate it through two
+                # chunk buffers (same epoch semantics as fully-resident,
+                # see the class)
+                train_ds = ChunkedDeviceDataset(self.train_loader, chunk,
+                                                **ds_kw)
+                val_ds = ChunkedDeviceDataset(self.val_loader, chunk, **ds_kw)
+                stored = train_ds.nbytes() + val_ds.nbytes()
             else:
-                val_ds = DeviceDataset(self.val_loader, **ds_kw)
+                train_ds = DeviceDataset(self.train_loader, **ds_kw)
+                stored = train_ds.nbytes()
+                if [s["row"] for s in self.val_loader.sample_paths] == \
+                        list(train_ds.rows):
+                    # one upload serves both splits; the explicit
+                    # constructor keeps split/augmentation identity per
+                    # instance
+                    val_ds = DeviceDataset(self.val_loader,
+                                           share_storage_from=train_ds)
+                else:
+                    val_ds = DeviceDataset(self.val_loader, **ds_kw)
+                    stored += val_ds.nbytes()
+            store.set(bytes=stored)
         self.train_pipe = DevicePipeline(
             train_ds, cfg.training.batch_size, shuffle=True,
             seed=cfg.experiment.seed,
@@ -308,22 +318,25 @@ class Trainer:
     def _finish_init(self) -> None:
         cfg = self.cfg
         # -- model / optimizer / steps
-        self.model, self.loss_fn = build_model_and_loss(
-            cfg, device=self.device,
-            generator=torch.Generator().manual_seed(cfg.experiment.seed),
-            dp=self.dp)
-        # With grad accumulation the schedule advances only on effective
-        # updates (optax.MultiSteps), so express epochs in update counts.
-        accum = max(cfg.optimization.grad_accum_steps, 1)
-        steps_per_epoch = max(len(self.train_pipe) // accum, 1)
-        self.lr_schedule = build_lr_schedule(
-            cfg.optimization, steps_per_epoch, cfg.training.num_epochs)
-        self.optimizer = build_optimizer(cfg.optimization,
-                                         self.model.parameters())
-        self.train_step = make_train_step(cfg, self.model, self.loss_fn,
-                                          self.optimizer, self.lr_schedule)
-        self.eval_step = make_eval_step(cfg, self.model, self.loss_fn)
-        self.predict_fn = make_predict_fn(cfg, self.model)
+        with span("setup.model", always=True):
+            self.model, self.loss_fn = build_model_and_loss(
+                cfg, device=self.device,
+                generator=torch.Generator().manual_seed(cfg.experiment.seed),
+                dp=self.dp)
+            # With grad accumulation the schedule advances only on
+            # effective updates (optax.MultiSteps), so express epochs in
+            # update counts.
+            accum = max(cfg.optimization.grad_accum_steps, 1)
+            steps_per_epoch = max(len(self.train_pipe) // accum, 1)
+            self.lr_schedule = build_lr_schedule(
+                cfg.optimization, steps_per_epoch, cfg.training.num_epochs)
+            self.optimizer = build_optimizer(cfg.optimization,
+                                             self.model.parameters())
+            self.train_step = make_train_step(cfg, self.model, self.loss_fn,
+                                              self.optimizer,
+                                              self.lr_schedule)
+            self.eval_step = make_eval_step(cfg, self.model, self.loss_fn)
+            self.predict_fn = make_predict_fn(cfg, self.model)
         # built lazily: runs only if histogram logging ever fires
         self._grad_fn = None
         self._last_train_batch = None
@@ -451,7 +464,16 @@ class Trainer:
         losses = []
         last_logs = None
         timer = StepTimer()
-        for batch_idx, batch in enumerate(self.train_pipe):
+        batches = iter(self.train_pipe)
+        batch_idx = -1
+        while True:
+            # the batch the next step takes: its trace id is that step's
+            with span("train.feed", device=self.device,
+                      trace=self.train_step.updates):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            batch_idx += 1
             if self._stop_agreed():
                 break
             batch = band_batch(batch, self.dp)
@@ -465,31 +487,36 @@ class Trainer:
             last_logs = logs
             if batch_idx % log_interval == 0:
                 step = self.train_step.updates
-                self.tb.add_scalar("batch_loss/train",
-                                   float(logs["total_loss"]), step)
-                self.tb.add_scalar("training/gradient_norm",
-                                   float(logs["grad_norm"]), step)
-                # gradients/{norm,max,min} tag parity
-                # (tensorboard_trainer_enhanced.h:523-555)
-                self.tb.add_scalar("gradients/norm",
-                                   float(logs["grad_norm"]), step)
-                self.tb.add_scalar("gradients/max",
-                                   float(logs["grad_max"]), step)
-                self.tb.add_scalar("gradients/min",
-                                   float(logs["grad_min"]), step)
+                # the reads wait for the card to finish this step (whose
+                # trace id is the count before it)
+                with span("train.log_read", trace=step - 1):
+                    self.tb.add_scalar("batch_loss/train",
+                                       float(logs["total_loss"]), step)
+                    self.tb.add_scalar("training/gradient_norm",
+                                       float(logs["grad_norm"]), step)
+                    # gradients/{norm,max,min} tag parity
+                    # (tensorboard_trainer_enhanced.h:523-555)
+                    self.tb.add_scalar("gradients/norm",
+                                       float(logs["grad_norm"]), step)
+                    self.tb.add_scalar("gradients/max",
+                                       float(logs["grad_max"]), step)
+                    self.tb.add_scalar("gradients/min",
+                                       float(logs["grad_min"]), step)
         if not losses:
             return 0.0
-        if timer.steps > 0:
-            self.tb.add_scalar("training/images_per_sec",
-                               timer.rate(self.device), epoch)
-        mean_loss = float(torch.stack(losses).mean())
-        if last_logs is not None:
-            step = self.train_step.updates
-            for key in ("si_loss", "grad_loss", "smooth_loss", "reproj_loss"):
-                if key in last_logs:
-                    self.tb.add_scalar(
-                        f"loss_components/{key.removesuffix('_loss')}",
-                        float(last_logs[key]), step)
+        with span("train.epoch_end", trace=self.train_step.updates):
+            if timer.steps > 0:
+                self.tb.add_scalar("training/images_per_sec",
+                                   timer.rate(self.device), epoch)
+            mean_loss = float(torch.stack(losses).mean())
+            if last_logs is not None:
+                step = self.train_step.updates
+                for key in ("si_loss", "grad_loss", "smooth_loss",
+                            "reproj_loss"):
+                    if key in last_logs:
+                        self.tb.add_scalar(
+                            f"loss_components/{key.removesuffix('_loss')}",
+                            float(last_logs[key]), step)
         return mean_loss
 
     def validate(self, epoch: int) -> Dict[str, float]:
