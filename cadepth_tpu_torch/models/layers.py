@@ -5,7 +5,10 @@ memory. Parameters are float32; each layer casts its input and its
 parameters to its compute dtype per call, as flax's ``dtype=`` does, so
 a bf16 model keeps fp32 master weights. BatchNorm computes in float32
 and casts its output to the compute dtype; in training mode it keeps
-flax's running statistics, not torch's.
+flax's running statistics, not torch's. A BatchNorm2d in training mode
+runs ``ops/batch_norm.py``'s Function on the map in its own dtype: CUDA
+kernels on the card, the same closed form in PyTorch on the CPU, with no
+float32 map kept for the backward.
 
 :func:`checkpointed` runs a block under gradient checkpointing (the JAX
 package's ``nn.remat``); while a block is recomputed for the backward,
@@ -44,13 +47,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from cadepth_tpu_torch.ops import batch_norm
 from cadepth_tpu_torch.parallel import spatial
 from cadepth_tpu_torch.utils.profiling import OFF, backward_span, span
 
@@ -160,6 +164,10 @@ class _FlaxTrainingNorm:
     ranks (every rank holds as many rows). Its backward all-reduces their
     gradients, so the batch norm's gradient is exact. (torch's
     ``SyncBatchNorm`` keeps the unbiased variance and another formula.)
+
+    :class:`BatchNorm2d` computes the same in training through
+    ``ops/batch_norm.py``; this class's training forward serves
+    :class:`BatchNorm1d`.
     """
 
     # the parallel.DataParallel whose global batch the training
@@ -203,7 +211,21 @@ def sync_batch_norms(model: nn.Module, dp) -> None:
 
 
 class BatchNorm2d(_FlaxTrainingNorm, nn.BatchNorm2d):
-    """BatchNorm over NCHW maps, flax's in training."""
+    """BatchNorm over NCHW maps, flax's in training. There it takes the
+    map as it arrives (bf16 or float32; channels_last on the card), its
+    output in ``out_dtype`` (default x's), through
+    ``ops/batch_norm.batch_norm_train``: the maths of
+    :class:`_FlaxTrainingNorm` in float32, its gradient the closed
+    form."""
+
+    def forward(self, x: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        return batch_norm.batch_norm_train(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            self.num_batches_tracked, self.eps, BN_MOMENTUM,
+            not recomputing(), self.dp, out_dtype)
 
 
 class BatchNorm1d(_FlaxTrainingNorm, nn.BatchNorm1d):
@@ -247,22 +269,35 @@ def make_norm(kind: str, channels: int) -> nn.Module:
     raise ValueError(f"Unknown norm kind: {kind!r}")
 
 
+def _normalize(x: torch.Tensor, norm: nn.Module,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    if norm.training and isinstance(norm, BatchNorm2d):
+        return norm(x, out_dtype)
+    return norm(x.float()).to(out_dtype)
+
+
 def apply_norm(x: torch.Tensor, norm: nn.Module,
                out_dtype: torch.dtype) -> torch.Tensor:
     """Normalize in float32, cast the output to ``out_dtype``.
 
+    A :class:`BatchNorm2d` in training mode takes the map in its own
+    dtype (on the card its CUDA kernels read and write it so); eval
+    mode and group norm take the module on the float32 map.
+
     While a profiler records, the call, casts included, is span
-    ``norm.fwd`` and, where a gradient flows back through it, its
-    backward is span ``norm.bwd``, both with the card's time. (A block
-    recomputed for the backward records its ``norm.fwd`` again, inside
-    the backward, and no second ``norm.bwd``.)"""
+    ``norm.fwd`` (attribute ``kernel``: 1 where the kernels ran, else 0)
+    and, where a gradient flows back through it, its backward is span
+    ``norm.bwd``, both with the card's time. (A block recomputed for the
+    backward records its ``norm.fwd`` again, inside the backward, and no
+    second ``norm.bwd``.)"""
     fwd = span("norm.fwd", device=x.device)
     if fwd is OFF:
-        return norm(x.float()).to(out_dtype)
-    with fwd:
+        return _normalize(x, norm, out_dtype)
+    kernel = norm.training and x.is_cuda and isinstance(norm, BatchNorm2d)
+    with fwd.set(kernel=int(kernel)):
         x, mark = backward_span("norm.bwd", x,
                                 OFF if recomputing() else fwd)
-        return mark(norm(x.float()).to(out_dtype))
+        return mark(_normalize(x, norm, out_dtype))
 
 
 class ResizeConv2d(Conv2d):

@@ -4,6 +4,10 @@
     python3 chip_smoke.py                 # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal # tiny sizes on the CPU, plain warp
 
+Where a phase counts launches, it also counts the training batch norm's
+kernel calls (``warp_counts``' ``bn`` and ``bn_bwd``): one each way a
+``BatchNorm2d`` a training step, none while serving or validating.
+
 Phases, each fatal on failure:
 
 1. the card: name and power limit from nvidia-smi; TF32 off for the f32
@@ -221,9 +225,23 @@ Phases, each fatal on failure:
    (``CAPACITY`` line); (c) the conditioning probe
    (``cli/probe_conditioning.py``) on (a)'s best/: 4 forwards, 5 launches
    each, a finite report with delta_focal_x1.5_m > 0;
+27. the training batch norm's kernels (``ops/batch_norm.py``, run after
+   26) at the six norm map shapes of each training cell (the flagship
+   at batch 32, the production network at 8), bf16 channels_last:
+   ``batch_norm_train`` and its backward, as the model calls them, held
+   to a float64 evaluation (y, the running statistics, dx, dweight and
+   dbias each no further from it than the plain version on the card,
+   plus one bf16 ulp; ``check_batch_norm``), then the forward and
+   backward kernels' device time a call (3 + 3 launches) beside the
+   bound (10 bytes an element: x read and y written, dy and x read and
+   dx written), the plain version's, and F.batch_norm(training=True)'s
+   forward and backward through autograd (the library's yardstick; the
+   port never calls it);
 24. one JSON line describing every kernel (the two-pass warp's windowed
    launches under ``windowed``, the production maps' under
-   ``production``), the train steps, the Predictors, the
+   ``production``, the batch norm's under ``batch_norm`` with its calls
+   on every training path), the train
+   steps, the Predictors, the
    trainer loop, the device feed, the families, the served checkpoints,
    the data-parallel and the spatial runs; the script's wall time; last,
    the ok line.
@@ -1065,12 +1083,12 @@ def train(device, args, mode: str = "two_pass", steps=None):
         return [step(b) for b in batches], step
 
     # the main path, counted
-    for m in (warp, other):
-        m.launches = m.bwd_launches = m.grad_copies = m.v_stores = 0
+    reset_warp_counts()
     logs, step = run(kernel_warp)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches, bwd_launches = warp.launches, warp.bwd_launches
+    norms = warp_counts()
     grad_copies, v_stores = warp.grad_copies, warp.v_stores
     logs = [{k: float(v) for k, v in x.items()} for x in logs]
     n_pcl = len(pcl_layers(model))
@@ -1087,10 +1105,16 @@ def train(device, args, mode: str = "two_pass", steps=None):
         f"{name} V stores {v_stores} (expected {want_v}); "
         f"{grad_copies} of {n_pcl * steps} backward calls copied "
         "a non-contiguous incoming gradient")
+    want_bn = norm_counts(model, steps, cuda)
+    norms = {k: norms[k] for k in want_bn}
+    log(f"  main path: batch norm kernel calls {norms} (expected "
+        f"{want_bn}: {training_norms(model)} training norms a step)")
     if launches != want or bwd_launches != want_bwd or v_stores != want_v:
         raise AssertionError(f"launch counts {launches}, {bwd_launches}, "
                              f"V stores {v_stores} != {want}, {want_bwd}, "
                              f"{want_v}")
+    if norms != want_bn:
+        raise AssertionError(f"batch norm calls {norms} != {want_bn}")
     if other.launches or other.bwd_launches or other.v_stores:
         raise AssertionError(f"pcl_warp {mode} launched the other warp's "
                              "kernels")
@@ -1156,6 +1180,7 @@ def train(device, args, mode: str = "two_pass", steps=None):
             "bwd_launches": bwd_launches, "per_step": per_step,
             "bwd_per_step": bwd_per_step, "v_stores": v_stores,
             "grad_copies": grad_copies, "logs": logs, "eval": ev,
+            "norm_counts": norms, "norm_calls_per_step": training_norms(model),
             "kernel_vs_plain_rel": plain, "kernel_vs_kernel_rel": again}
 
 
@@ -2530,19 +2555,54 @@ class LoopProbe:
 
 
 def warp_counts():
+    """The kernels' counts since :func:`reset_warp_counts`: the two-pass
+    warp's launches, backward launches and V stores, the fused warp's
+    launches both ways, and the batch norm's calls that ran its kernels
+    forward (``bn``) and backward (``bn_bwd``)."""
+    from cadepth_tpu_torch.ops import batch_norm as bn
     from cadepth_tpu_torch.ops import fused_warp as fw
     from cadepth_tpu_torch.ops import two_pass_warp as tpw
 
     return {"launches": tpw.launches, "bwd_launches": tpw.bwd_launches,
-            "v_stores": tpw.v_stores, "fused": fw.launches + fw.bwd_launches}
+            "v_stores": tpw.v_stores, "fused": fw.launches + fw.bwd_launches,
+            "bn": bn.launches, "bn_bwd": bn.bwd_launches}
 
 
 def reset_warp_counts() -> None:
+    from cadepth_tpu_torch.ops import batch_norm as bn
     from cadepth_tpu_torch.ops import fused_warp as fw
     from cadepth_tpu_torch.ops import two_pass_warp as tpw
 
     for m in (tpw, fw):
         m.launches = m.bwd_launches = m.grad_copies = m.v_stores = 0
+    bn.launches = bn.bwd_launches = 0
+
+
+def training_norms(model) -> int:
+    """The model's batch norms over maps (BatchNorm2d), each called once a
+    forward; in training each runs the batch norm's kernels on the card
+    (FiLM's BatchNorm1d run none)."""
+    from cadepth_tpu_torch.models.layers import BatchNorm2d
+
+    return sum(isinstance(m, BatchNorm2d) for m in model.modules())
+
+
+def norm_counts(model, steps: int, cuda: bool) -> dict:
+    """``warp_counts``' batch norm entries after ``steps`` training steps of
+    ``model`` (or of a model with that many :func:`training_norms`) with
+    no block recomputed: one call each way a training norm a step on the
+    card; none on the CPU (the plain version) or in eval mode."""
+    norms = model if isinstance(model, int) else training_norms(model)
+    n = norms * steps if cuda else 0
+    return {"bn": n, "bn_bwd": n}
+
+
+NO_NORMS = {"bn": 0, "bn_bwd": 0}
+
+
+def bn_calls(counts: dict) -> dict:
+    """The batch norm's entries of ``warp_counts``' ``counts``."""
+    return {"fwd": counts["bn"], "bwd": counts["bn_bwd"]}
 
 
 def batches_equal(device, pipe, loader, batches: int):
@@ -2697,14 +2757,16 @@ def trainer_loop(device, args, card: str, bare_p50, root: pathlib.Path):
     want = {"v_stores": n_pcl * steps if cuda else 0,
             "bwd_launches": 3 * n_pcl * steps if cuda else 0,
             "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
-            "fused": 0}
+            "fused": 0, **norm_counts(trainer.model, steps, cuda)}
     log(f"  two_pass_warp over the run: {counts['launches']} forward "
         f"launches ({counts['v_stores']} storing V: {n_pcl} per train "
         f"step; {counts['launches'] - counts['v_stores']} without: "
         f"{n_pcl} per validation and panel forward, "
         f"{forwards_no_v} forwards), {counts['bwd_launches']} backward "
         f"launches ({3 * n_pcl} per step), fused_warp "
-        f"{counts['fused']}; expected {want}")
+        f"{counts['fused']}; batch norm kernel calls {counts['bn']} + "
+        f"{counts['bn_bwd']} ({training_norms(trainer.model)} each way a "
+        f"train step, none in validation); expected {want}")
     if counts != want:
         raise AssertionError(f"warp launches {counts} != {want}")
 
@@ -3183,7 +3245,7 @@ def feed_train(device, args, card: str, root: pathlib.Path):
     want = {"v_stores": n_pcl * steps if cuda else 0,
             "bwd_launches": 3 * n_pcl * steps if cuda else 0,
             "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
-            "fused": 0}
+            "fused": 0, **norm_counts(trainer.model, steps, cuda)}
     bsz = trainer.cfg.training.batch_size
     log(f"  train CLI on {B32_CONFIG.relative_to(ROOT)}: "
         f"{len(run1.epochs)} epochs of {per_epoch} steps (batch {bsz}, "
@@ -3192,8 +3254,10 @@ def feed_train(device, args, card: str, root: pathlib.Path):
         f"upload, {vis} panels an epoch; two_pass_warp over the run: "
         f"{counts['launches']} forward launches ({counts['v_stores']} "
         f"storing V, {n_pcl} a step), {counts['bwd_launches']} backward "
-        f"launches ({3 * n_pcl} a step), fused_warp {counts['fused']}; "
-        f"expected {want}")
+        f"launches ({3 * n_pcl} a step), fused_warp {counts['fused']}, "
+        f"batch norm kernel calls {counts['bn']} + {counts['bn_bwd']} "
+        f"({training_norms(trainer.model)} each way a step); expected "
+        f"{want}")
     if [ep["steps"] for ep in run1.epochs] != [per_epoch] * 2:
         raise AssertionError(f"epochs ran {run1.epochs} steps")
     if counts != want:
@@ -3475,11 +3539,12 @@ def family_case(device, args, card: str, case: str, experiment):
     logs = [{k: float(v) for k, v in x.items()} for x in logs]
     calls = n_pcl * FAMILY_STEPS if cuda else 0
     want = {"launches": calls, "bwd_launches": 3 * calls, "v_stores": calls,
-            "fused": 0}
+            "fused": 0, **norm_counts(model, FAMILY_STEPS, cuda)}
     losses = [x["total_loss"] for x in logs]
     log(f"  {FAMILY_STEPS} train steps: losses "
         + " ".join(f"{x:.5g}" for x in losses)
-        + f"; two_pass_warp {counts} (expected {want})")
+        + f"; two_pass_warp and batch norm {counts} (expected {want}: "
+        f"{training_norms(model)} training norms a step)")
     if counts != want:
         raise AssertionError(f"{case}: warp counts {counts} != {want}")
     if not all(math.isfinite(v) for x in logs for v in x.values()):
@@ -3511,7 +3576,7 @@ def family_case(device, args, card: str, case: str, experiment):
         depth = pred.predict(req[:b])
         served = warp_counts()
         want = {"launches": n_pcl if cuda else 0, "bwd_launches": 0,
-                "v_stores": 0, "fused": 0}
+                "v_stores": 0, "fused": 0, **NO_NORMS}
         ok = np.isfinite(depth).all() and 0 < depth.min() and \
             depth.max() < m.max_depth
         if not ok or served != want:
@@ -3603,10 +3668,13 @@ def family_cli(device, args, card: str, root: pathlib.Path,
         f"{trainer.cfg.training.batch_size}): exit {rc}, {len(losses)} steps "
         f"in one epoch, losses {losses[0]:.5g} .. {losses[-1]:.5g}, "
         f"{wall:.1f} s with validation; best/ written: {best.exists()}; "
-        f"warp counts {counts}")
+        f"warp and batch norm counts {counts}")
+    want = {"launches": 0, "bwd_launches": 0, "v_stores": 0, "fused": 0,
+            **norm_counts(trainer.model, len(losses), device.type == "cuda")}
     if rc != 0 or not losses or not all(map(math.isfinite, losses)) or \
-            not best.exists() or any(counts.values()):
-        raise AssertionError("the baseline_unet train CLI run")
+            not best.exists() or counts != want:
+        raise AssertionError(f"the baseline_unet train CLI run (counts "
+                             f"{counts}, expected {want})")
     del trainer, run
     out_dir = root / "eval"
     rc = evaluate_cli.main(
@@ -3693,7 +3761,7 @@ def serve_checkpoint(device, args, card: str, root: pathlib.Path,
         counts = warp_counts()
         n_pcl = len(pcl_layers(pred.model))
         want = {"launches": n_pcl if cuda else 0, "bwd_launches": 0,
-                "v_stores": 0, "fused": 0}
+                "v_stores": 0, "fused": 0, **NO_NORMS}
         sd = mgr.restore(mgr.resolve(which))["model"]
         same = np.array_equal(depth, Predictor(cfg, sd, batch_size=b,
                                                device=device)
@@ -3954,7 +4022,7 @@ def dp_group_of_one(device, args, card: str):
     model, _ = ts.build_model_and_loss(cfg, device=device, generator=gen)
     rotate_pcl_heads(model, gen)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    n_pcl = len(pcl_layers(model))
+    n_pcl, n_norms = len(pcl_layers(model)), training_norms(model)
     del model
     rng = np.random.default_rng(args.seed + 24)
     steps = DP_STEPS if cuda else args.train_steps
@@ -3988,13 +4056,15 @@ def dp_group_of_one(device, args, card: str):
     want = {"launches": tpw.LAUNCHES_PER_CALL * n_pcl * steps if cuda else 0,
             "bwd_launches": tpw.BWD_LAUNCHES_PER_CALL * n_pcl * steps
             if cuda else 0,
-            "v_stores": n_pcl * steps if cuda else 0, "fused": 0}
+            "v_stores": n_pcl * steps if cuda else 0, "fused": 0,
+            **norm_counts(n_norms, steps, cuda)}
     log(f"  {backend} group of 1: flagship f={f}, {h}x{w}, batch {bsz}, "
         f"bf16, {steps} steps through the data-parallel path: two_pass_warp "
         f"launches {counts['launches']} (expected {want['launches']}), "
         f"two_pass_warp_bwd launches {counts['bwd_launches']} (expected "
         f"{want['bwd_launches']}), V stores {counts['v_stores']}, fused "
-        f"{counts['fused']}")
+        f"{counts['fused']}, batch norm kernel calls {counts['bn']} + "
+        f"{counts['bn_bwd']} (expected {want['bn']} each way)")
     if counts != want:
         raise AssertionError(f"data-parallel launch counts {counts} != "
                              f"{want}")
@@ -4035,6 +4105,7 @@ def dp_worker(rank: int, port: int, work: pathlib.Path,
     import torch
     import torch.distributed as dist
 
+    from cadepth_tpu_torch.ops import batch_norm as bn
     from cadepth_tpu_torch.ops import two_pass_warp as tpw
     from cadepth_tpu_torch.parallel import (initialize_distributed,
                                             make_mesh, shard_batch)
@@ -4058,6 +4129,7 @@ def dp_worker(rank: int, port: int, work: pathlib.Path,
     out = dp_train(cfg, setup["init"], batches, device, dp)
     del out["step"]
     out["launches"] = (tpw.launches, tpw.bwd_launches)
+    out["norm_launches"] = (bn.launches, bn.bwd_launches)
     out["params"] = {k: v.cpu() for k, v in out["params"].items()}
     out["stats"] = {k: v.cpu() for k, v in out["stats"].items()}
     torch.save(out, work / f"out_{rank}.pt")
@@ -4098,6 +4170,7 @@ def dp_ranks(device, args, card: str, root: pathlib.Path):
     model, _ = ts.build_model_and_loss(cfg, device="cpu", generator=gen)
     rotate_pcl_heads(model, gen)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    want_bn = tuple(norm_counts(model, DP_RANK_STEPS, cuda).values())
     del model
     rng = np.random.default_rng(args.seed + 26)
     batches = [synthetic_batch(rng, bsz, h, w, "cpu")
@@ -4163,16 +4236,23 @@ def dp_ranks(device, args, card: str, root: pathlib.Path):
         f"{over_cap}), max |diff| {p_max:.3g}, median {p_median:.3g} "
         f"(bound {0.02 * bound:.3g}); the ranks' parameters "
         f"equal: {same}; two_pass_warp launches (fwd, bwd) by rank "
-        f"{[x['launches'] for x in outs]}")
+        f"{[x['launches'] for x in outs]}; batch norm kernel calls (fwd, "
+        f"bwd) by rank {[x['norm_launches'] for x in outs]} (expected "
+        f"{want_bn} each)")
     if not (loss_rel <= 1e-5 and norm_rel <= 5e-3
             and over <= over_cap and p_median <= 0.02 * bound and same):
         raise AssertionError(f"{ranks} ranks differ from one process")
+    if any(tuple(x["norm_launches"]) != want_bn for x in outs):
+        raise AssertionError(f"batch norm calls by rank "
+                             f"{[x['norm_launches'] for x in outs]} != "
+                             f"{want_bn}")
     return {"ranks": ranks, "backend": backend, "global_batch": bsz,
             "steps": DP_RANK_STEPS, "total_loss_max_rel": loss_rel,
             "grad_norm_max_rel": norm_rel, "params_max_abs": p_max,
             "params_median_abs": p_median, "sum_lr": bound,
             "params_above_sum_lr": over, "params_above_cap": over_cap,
             "rank_launches": [x["launches"] for x in outs],
+            "rank_norm_launches": [list(x["norm_launches"]) for x in outs],
             "wall_s": wall}
 
 
@@ -4740,7 +4820,7 @@ def sp_ranks(device, args, card: str, root: pathlib.Path,
     model, _ = ts.build_model_and_loss(cfg, device="cpu", generator=gen)
     rotate_pcl_heads(model, gen)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    n_pcl = len(pcl_layers(model))
+    n_pcl, n_norms = len(pcl_layers(model)), training_norms(model)
     del model
     rng = np.random.default_rng(args.seed + 29)
     batches = [synthetic_batch(rng, bsz, h, w, "cpu")
@@ -4850,9 +4930,11 @@ def sp_ranks(device, args, card: str, root: pathlib.Path,
             "v_stores": n_pcl * SP_STEPS, "fused": 0,
             "window_launches": tpw.LAUNCHES_PER_CALL * windowed * SP_STEPS,
             "window_bwd_launches":
-                tpw.BWD_LAUNCHES_PER_CALL * windowed * SP_STEPS} if cuda \
+                tpw.BWD_LAUNCHES_PER_CALL * windowed * SP_STEPS,
+            **norm_counts(n_norms, SP_STEPS, cuda)} if cuda \
         else {k: 0 for k in ("launches", "bwd_launches", "v_stores", "fused",
-                             "window_launches", "window_bwd_launches")}
+                             "window_launches", "window_bwd_launches", "bn",
+                             "bn_bwd")}
     counts = [o["counts"] for o in outs]
     p50 = [float(np.median(o["ms"][1:] or o["ms"])) for o in outs]
     one_p50 = float(np.median(one["ms"][1:] or one["ms"]))
@@ -4883,7 +4965,8 @@ def sp_ranks(device, args, card: str, root: pathlib.Path,
         f"pixels where reordering samples does not: {leaf_over}")
     log(f"  [{card}] launches by rank over {SP_STEPS} steps: {counts} "
         f"(expected {want}: {n_pcl} PCLs a step, {windowed} of them on "
-        f"windows)")
+        f"windows, {n_norms} training norms a step on each rank's "
+        f"bands)")
     held = [o["held_bytes"] for o in outs]
     log(f"  [{card}] device memory a training forward holds for its "
         f"backward (the first batch): "
@@ -4924,6 +5007,14 @@ def sp_ranks(device, args, card: str, root: pathlib.Path,
     if cuda and any(t["counts"]["window_launches"] == 0 for t in trainer):
         raise AssertionError("the Trainer's spatial epoch launched no "
                              "windowed warp")
+    # validation runs the norms in eval mode: the train steps' calls alone
+    if cuda and any(t["counts"]["bn"] != t["counts"]["bn_bwd"]
+                    or not t["counts"]["bn"]
+                    or t["counts"]["bn"] % n_norms for t in trainer):
+        raise AssertionError("the Trainer's spatial epoch ran the batch "
+                             "norm's kernels other than "
+                             f"{n_norms} each way a step: "
+                             f"{[t['counts'] for t in trainer]}")
     return {"ranks": ranks, "bands": ranks, "global_batch": bsz,
             "steps": SP_STEPS, "total_loss_max_rel": loss_rel,
             "params_max_abs": p_max, "params_median_abs": p_median,
@@ -5073,7 +5164,7 @@ def production_train(device, args, card: str, root: pathlib.Path):
     want = {"v_stores": n_pcl * steps if cuda else 0,
             "bwd_launches": 3 * n_pcl * steps if cuda else 0,
             "launches": n_pcl * (steps + forwards_no_v) if cuda else 0,
-            "fused": 0}
+            "fused": 0, **norm_counts(trainer.model, steps, cuda)}
     log(f"  train CLI on {PRODUCTION_CONFIG.relative_to(ROOT)} "
         f"(--set {' '.join(s.split('=')[0] for s in sets)}): "
         f"{cfg.model.architecture} f={cfg.model.init_features} "
@@ -5081,7 +5172,8 @@ def production_train(device, args, card: str, root: pathlib.Path):
         f"{cfg.model.pcl_warp}, batch {cfg.training.batch_size}, "
         f"{len(trainer.train_loader)} train samples, {steps} steps, "
         f"producer {run.epochs[0]['producer']}, {wall:.1f} s; two_pass_warp "
-        f"{counts}; expected {want}")
+        f"and batch norm {counts} ({training_norms(trainer.model)} norm "
+        f"calls each way a step); expected {want}")
     if cfg.training.batch_size != args.prod_batch or steps != 3:
         raise AssertionError(f"{steps} steps at batch "
                              f"{cfg.training.batch_size}")
@@ -5148,6 +5240,213 @@ def production_train(device, args, card: str, root: pathlib.Path):
     return out
 
 
+# the batch norm's kernels, by name, and the training cells' norm maps
+BN_KERNEL_KEYS = ("reduce_kernel", "fwd_finalize_kernel", "apply_kernel",
+                  "bwd_finalize_kernel", "dx_kernel")
+
+
+def norm_map_shapes(batch: int, height: int, width: int, f: int):
+    """[(name, (B, C, H, W))] of the six shapes of the geometry network's
+    22 training norm maps: enc1 .. enc5 (each at two calls a block, and
+    the decoder block of its level at the same shape) and the
+    bottleneck."""
+    shapes, h, w = [], height, width
+    for k in range(6):
+        shapes.append(("bottleneck" if k == 5 else f"level{k + 1}",
+                       (batch, f << k, h, w)))
+        h, w = h // 2, w // 2
+    return shapes
+
+
+def bf16_ulp(t):
+    """One bf16 unit in the last place at each element's magnitude."""
+    import torch
+
+    mag = t.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_batch_norm(bn, x, dy, w, b, state):
+    """The training batch norm as the model calls it (``batch_norm_train``
+    and autograd's backward: the kernels on the card) against its plain
+    version and a float64 evaluation of the same formula: y, the running
+    statistics, dx, dweight and dbias each no further from the float64
+    values than the plain version's, plus one bf16 ulp of each element,
+    taken at no less than 2^-12 of the largest (the rule and its reason:
+    ``tests/test_torch_cuda.py::
+    test_batch_norm_kernels_against_plain_and_float64_on_card``). Raises
+    where one lies outside; returns {output: (max|got - float64|, max|plain
+    - float64|)}."""
+    import torch
+
+    def fresh(dtype=torch.float32):
+        return [t.clone() if t.dtype == torch.long else
+                t.to(dtype, copy=True) for t in state]
+
+    rm, rv, tracked = fresh()
+    xg = x.detach().requires_grad_()
+    wg, bg = w.detach().clone().requires_grad_(), \
+        b.detach().clone().requires_grad_()
+    before = (bn.launches, bn.bwd_launches)
+    y = bn.batch_norm_train(xg, wg, bg, rm, rv, tracked, 1e-5, 0.01)
+    y.backward(dy)
+    if x.is_cuda and (bn.launches - before[0],
+                      bn.bwd_launches - before[1]) != (1, 1):
+        raise AssertionError("batch_norm_train did not run the kernels once "
+                             "each way")
+    got = {"y": y, "running statistics": torch.stack([rm, rv]),
+           "dx": xg.grad, "dweight": wg.grad, "dbias": bg.grad}
+    rm_p, rv_p, tracked_p = fresh()
+    y_p, st_p = bn.forward_plain(x, w, b, rm_p, rv_p, tracked_p, 1e-5, 0.01,
+                                 True)
+    plain = dict(zip(("dx", "dweight", "dbias"),
+                     bn.backward_plain(x, dy, w, st_p)))
+    plain.update(y=y_p, **{"running statistics": torch.stack([rm_p, rv_p])})
+    rm_r, rv_r, tracked_r = fresh(torch.float64)
+    x64, w64 = x.double(), w.double()
+    y_r, st_r = bn.forward_plain(x64, w64, b.double(), rm_r, rv_r, tracked_r,
+                                 1e-5, 0.01, True)
+    exact = dict(zip(("dx", "dweight", "dbias"),
+                     bn.backward_plain(x64, dy.double(), w64, st_r)))
+    exact.update(y=y_r, **{"running statistics": torch.stack([rm_r, rv_r])})
+    del x64
+    if not int(tracked) == int(tracked_p) == int(state[2]) + 1:
+        raise AssertionError("num_batches_tracked did not move once")
+    out = {}
+    for name, k in got.items():
+        p, r = plain[name], exact[name]
+        err_k, err_p = (k.double() - r).abs(), (p.double() - r).abs()
+        ulp = bf16_ulp(r.abs().clamp_min(r.abs().max() * 2.0 ** -12))
+        if k.dtype != p.dtype or not (err_k <= err_p + ulp.double()).all():
+            raise AssertionError(
+                f"batch norm {name} at {tuple(x.shape)}: max|got - float64| "
+                f"{err_k.max().item():.3g} past the plain version's "
+                f"{err_p.max().item():.3g} plus one bf16 ulp")
+        out[name] = (err_k.max().item(), err_p.max().item())
+    return out
+
+
+def batch_norm_kernels(device, args, card: str):
+    """27: the batch norm's kernels at the flagship's and the production
+    network's six norm map shapes: ``batch_norm_train`` and its backward
+    held to float64 by :func:`check_batch_norm`, then device times a call,
+    bound, plain and F.batch_norm's. Returns {configuration: {name:
+    row}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from cadepth_tpu_torch.ops import batch_norm as bn
+
+    cuda = device.type == "cuda"
+    timer = Timer(device)
+    unit = "" if cuda else " [CPU rehearsal ms, not device numbers]"
+    gen = torch.Generator(device=device).manual_seed(args.seed + 27)
+    configs = {"flagship": norm_map_shapes(args.feed_batch, args.height,
+                                           args.width, args.init_features),
+               "production": norm_map_shapes(args.prod_batch, args.prod_h,
+                                             args.prod_w, args.prod_f)}
+    out = {}
+    for config, shapes in configs.items():
+        rows = {}
+        for name, shape in shapes:
+            c = shape[1]
+            x = (torch.randn(shape, device=device, generator=gen) * 1.5
+                 + 2.0).to(torch.bfloat16).contiguous(
+                     memory_format=torch.channels_last)
+            dy = (torch.randn(shape, device=device, generator=gen) * 0.01
+                  ).to(torch.bfloat16).contiguous(
+                      memory_format=torch.channels_last)
+            w = torch.rand(c, device=device, generator=gen) + 0.5
+            b = torch.randn(c, device=device, generator=gen) * 0.3
+            state = [torch.randn(c, device=device, generator=gen) * 0.1,
+                     torch.rand(c, device=device, generator=gen) + 0.5,
+                     torch.zeros((), dtype=torch.long, device=device)]
+            errs = check_batch_norm(bn, x, dy, w, b, state)
+            if cuda:
+                torch.cuda.empty_cache()
+
+            def fwd():
+                return _bn_fwd(bn, x, w, b, state, plain=not cuda)
+
+            def bwd(stats):
+                return _bn_bwd(bn, x, dy, w, stats, plain=not cuda)
+
+            n = x.numel()
+            bound_ms = 10 * n / HBM_BYTES_PER_S * 1e3
+
+            def pair():
+                bwd(fwd()[1])
+
+            def plain():
+                _, st = bn.forward_plain(x, w, b, *state, 1e-5, 0.01, True)
+                bn.backward_plain(x, dy, w, st)
+
+            xl = x.detach().requires_grad_()
+            wl, bl = w.detach().requires_grad_(), b.detach().requires_grad_()
+
+            def library():
+                F.batch_norm(xl, None, None, wl, bl, training=True,
+                             eps=1e-5).backward(dy)
+
+            iters = args.timing_iters
+            row = dict(shape=shape, bound_ms=bound_ms, bytes=10 * n,
+                       err_vs_float64={k: {"got": e[0], "plain": e[1]}
+                                       for k, e in errs.items()})
+            for key, fn in (("kernel", pair), ("plain", plain),
+                            ("library", library)):
+                k = iters if key != "plain" else max(iters // 10, 2)
+                before = bn.launches
+                row[f"{key}_wall_ms"] = timer(fn, k, 2)
+                if key == "kernel" and cuda and bn.launches == before:
+                    raise AssertionError("timing loop did not launch the "
+                                         "batch norm's kernels")
+                expect = dict(kernels=BN_KERNEL_KEYS,
+                              launches=bn.LAUNCHES_PER_CALL
+                              + bn.BWD_LAUNCHES_PER_CALL) \
+                    if key == "kernel" else {}
+                row[f"{key}_ms"] = device_ms(fn, k, **expect)[0] \
+                    if cuda else None
+            rows[name] = row
+
+            def fmt(key):
+                dev = row[f"{key}_ms"]
+                return (f"{dev:.4f} ms device" if dev is not None
+                        else "device not measured") + \
+                    f" / {row[f'{key}_wall_ms']:.4f} ms wall"
+            share = (f", {bound_ms / row['kernel_ms']:.1%} of bound"
+                     if row["kernel_ms"] else "")
+            log(f"  [{card}] {config} {name} {shape} bf16 batch norm "
+                f"forward + backward: kernels {fmt('kernel')}; bound "
+                f"{bound_ms * 1e3:.1f} us (bytes, {10 * n / 1e6:.1f} MB)"
+                f"{share}; plain {fmt('plain')}; F.batch_norm "
+                f"{fmt('library')}; max|x - float64| of batch_norm_train "
+                f"(plain) " + ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3g})"
+                                        for k, e in errs.items())
+                + f", each within the plain's + 1 bf16 ulp{unit}")
+        step = {k: (None if any(r[k] is None for r in rows.values()) else
+                    sum(r[k] * (2 if n == "bottleneck" else 4)
+                        for n, r in rows.items()))
+                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"  [{card}] {config}: the 22 calls of a step (4 at each level's "
+            f"shape, 2 at the bottleneck's): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in step.items() if v is not None)
+            + unit)
+        out[config] = {"levels": rows, "step": step}
+    return out
+
+
+def _bn_fwd(bn, x, w, b, state, plain=False):
+    if plain:
+        return bn.forward_plain(x, w, b, *state, 1e-5, 0.01, True)
+    return bn._forward_card(x, w, b, *state, 1e-5, 0.01, True, None, x.dtype)
+
+
+def _bn_bwd(bn, x, dy, w, stats, plain=False):
+    if plain:
+        return bn.backward_plain(x, dy, w, stats)
+    return bn._backward_card(x, dy, w, stats, None)
+
+
 def production(device, args, card: str, root: pathlib.Path):
     """Phase 26: the production configuration on the card (26a), its
     capacity check (26b) and the conditioning probe on 26a's checkpoint
@@ -5192,7 +5491,7 @@ def production(device, args, card: str, root: pathlib.Path):
     report = probe_conditioning.probe(probe_cfg, "best", 4, device)
     counts = warp_counts()
     want = {"launches": 4 * train["pcls"] if cuda else 0, "bwd_launches": 0,
-            "v_stores": 0, "fused": 0}
+            "v_stores": 0, "fused": 0, **NO_NORMS}
     log(f"  probe report {json.dumps(report)}; two_pass_warp {counts}, "
         f"expected {want} (4 forwards)")
     if counts != want:
@@ -5445,6 +5744,10 @@ def main(argv=None) -> int:
               "480x640, 8 images a card, its capacity check and the "
               "conditioning probe")
         prod = production(device, args, card, roots[26])
+
+        phase("27. the training batch norm's kernels at the training "
+              "cells' norm maps")
+        norms = batch_norm_kernels(device, args, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del weights
@@ -5456,8 +5759,10 @@ def main(argv=None) -> int:
             "is printed")
         return 0
 
+    from cadepth_tpu_torch.ops import batch_norm as bn
     from cadepth_tpu_torch.ops import fused_loss as fl
 
+    bn_launches = bn.LAUNCHES_PER_CALL + bn.BWD_LAUNCHES_PER_CALL
     dec1, bwd_dec1 = rows["dec1"], bwd_rows["dec1"]
     sp_counts = spatial["ranks"]["rank_counts"][0]
     sp_times = spatial["window_times"]
@@ -5835,6 +6140,41 @@ def main(argv=None) -> int:
                                       "per_forward_ms": g_total["fwd_ms"],
                                       "per_step_ms": g_total["fwd_bwd_ms"]}},
         "card": card}
+    kernels["kernels"].append({
+        "name": "batch_norm",
+        "route": "cuda",
+        "source": "cadepth_tpu_torch/csrc/batch_norm.cu",
+        "replaces": "none: flax's nn.BatchNorm, which XLA fuses",
+        "launches_per_call": bn_launches,
+        # calls that ran the kernels (each launches_per_call launches) on
+        # the main paths, forward and backward
+        "calls_per_training_step": tr["norm_calls_per_step"],
+        "calls_in_training": bn_calls(tr["norm_counts"]),
+        "calls_in_trainer_loop": bn_calls(loop["warp_counts"]),
+        "calls_in_device_feed": bn_calls(feed_counts),
+        "calls_in_families": {
+            case: bn_calls(families[case]["train_counts"])
+            for case, _ in FAMILY_CASES},
+        "calls_in_data_parallel": bn_calls(dp["group_of_one"]["warp_counts"]),
+        "calls_in_two_ranks": dp["two_ranks"]["rank_norm_launches"],
+        "calls_in_spatial": bn_calls(sp_counts),
+        "calls_from_checkpoint": {
+            k: bn_calls(v["warp_counts"]) for k, v in served.items()
+            if k.startswith(("best", "latest"))},
+        "production": {"calls_in_training": bn_calls(ptrain["warp_counts"]),
+                       "train_steps": ptrain["steps"],
+                       "calls_in_probe": bn_calls(prod["probe"]
+                                                  ["warp_counts"])},
+        "levels": {config: {name: {k: r[k] for k in (
+            "shape", "kernel_ms", "kernel_wall_ms", "plain_ms", "library_ms",
+            "bound_ms", "err_vs_float64")}
+            for name, r in found["levels"].items()}
+            for config, found in norms.items()},
+        "per_step": {config: found["step"]
+                     for config, found in norms.items()},
+        "library": "F.batch_norm(training=True), forward and backward",
+        "at": "bf16 channels_last, the flagship at batch 32, the "
+              "production network at 8"})
     log(json.dumps(kernels))
     log(card_info())
     print(json.dumps({"ok": True, "device": {

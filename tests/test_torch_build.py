@@ -38,4 +38,5 @@ def test_the_warp_libraries_share_their_header():
                      "fused_warp": ["fused_warp.cu", "warp_common.cuh"],
                      "banded_affine_warp": ["banded_affine_warp.cu",
                                             "warp_common.cuh"],
-                     "fused_loss": ["fused_loss.cu"]}
+                     "fused_loss": ["fused_loss.cu"],
+                     "batch_norm": ["batch_norm.cu"]}

@@ -19,7 +19,10 @@ import torch
 from cadepth_tpu_torch.config import config_from_dict
 from cadepth_tpu_torch.inference import Predictor
 from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
+from _torch_batch_norm_worker import (bf16_ulp, check_ranks,
+                                      ranks_against_one_process)
 from cadepth_tpu_torch.ops import banded_affine_warp as baw
+from cadepth_tpu_torch.ops import batch_norm as bnk
 from cadepth_tpu_torch.ops import fused_loss as fl
 from cadepth_tpu_torch.ops import fused_warp as fw
 from cadepth_tpu_torch.ops import two_pass_warp as warp_mod
@@ -1308,3 +1311,162 @@ def test_capacity_check_on_card():
     assert top[0]["bytes"] >= top[-1]["bytes"]
     assert record["peak_trace"]["peak_bytes"] >= \
         record["peak_trace"]["before_bytes"]
+
+
+# The six training norm map shapes of each training cell: the flagship
+# (f=64, 240x320) at batch 32, the production network (f=96, 480x640) at
+# batch 8; four calls a step at each of the first five (two in an encoder
+# block, two in its decoder block), two at the bottleneck's.
+BN_MAPS = ([(32, 64 << k, 240 >> k, 320 >> k) for k in range(5)]
+           + [(32, 2048, 7, 10)]
+           + [(8, 96 << k, 480 >> k, 640 >> k) for k in range(5)]
+           + [(8, 3072, 15, 20)])
+
+
+def _card_map(shape, dtype, seed, offset):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda") * 1.5 + offset
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _bn_state(c, dtype=torch.float32, seed=1):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.rand(c, generator=g, device="cuda").to(dtype) + 0.5,
+            torch.randn(c, generator=g, device="cuda").to(dtype) * 0.3,
+            torch.randn(c, generator=g, device="cuda").to(dtype) * 0.1,
+            torch.rand(c, generator=g, device="cuda").to(dtype) + 0.5,
+            torch.zeros((), dtype=torch.long, device="cuda"))
+
+
+def _bn_kernels(x, dy, w, b, rm, rv, tracked):
+    y, stats = bnk._forward_card(x, w, b, rm, rv, tracked, 1e-5, 0.01, True,
+                                 None, x.dtype)
+    return (y, stats) + bnk._backward_card(x, dy, w, stats, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [(s, torch.bfloat16) for s in BN_MAPS]
+                         + [((8, 192, 60, 80), torch.float32)])
+def test_batch_norm_kernels_against_plain_and_float64_on_card(shape, dtype):
+    """The kernels at the training cells' norm maps (and a float32 map):
+    y, the running statistics, dx, dweight and dbias each no further
+    from a float64 evaluation of the same formula than the plain version
+    on the card is, plus one bf16 ulp of each element (the two round
+    their float32 values to bf16 apart where those lie about a rounding
+    boundary), that ulp taken at no less than 2^-12 of the largest
+    element: an element near 0 is a difference of terms of the largest
+    one's size, whose float32 round-off (a few float32 ulps of those
+    terms, and the two sides' statistics differ by their summation
+    order) exceeds a bf16 ulp of the element itself; one call each
+    way."""
+    _need_card()
+    c = shape[1]
+    x = _card_map(shape, dtype, 0, 2.0)
+    dy = _card_map(shape, dtype, 1, 0.0) * 0.01
+    w, b, rm, rv, tracked = _bn_state(c)
+    before = (bnk.launches, bnk.bwd_launches)
+    kernel = _bn_kernels(x, dy, w, b, rm, rv, tracked)
+    assert (bnk.launches, bnk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    w, b, rm_p, rv_p, tracked_p = _bn_state(c)
+    y_p, stats_p = bnk.forward_plain(x, w, b, rm_p, rv_p, tracked_p, 1e-5,
+                                     0.01, True)
+    plain = (y_p, stats_p) + bnk.backward_plain(x, dy, w, stats_p)
+    w64, b64, rm_r, rv_r, tracked_r = _bn_state(c, torch.float64)
+    y_r, stats_r = bnk.forward_plain(x.double(), w64, b64, rm_r, rv_r,
+                                     tracked_r, 1e-5, 0.01, True)
+    exact = (y_r, stats_r) + bnk.backward_plain(x.double(), dy.double(), w64,
+                                                stats_r)
+    assert int(tracked) == int(tracked_p) == 1
+    outputs = {"y": (kernel[0], plain[0], exact[0]),
+               "running statistics": tuple(torch.stack(t) for t in (
+                   (rm, rv), (rm_p, rv_p), (rm_r, rv_r)))}
+    for i, name in enumerate(("dx", "dweight", "dbias"), 2):
+        outputs[name] = (kernel[i], plain[i], exact[i])
+    for name, (k, p, r) in outputs.items():
+        assert k.dtype == p.dtype, name
+        err_k = (k.double() - r).abs()
+        err_p = (p.double() - r).abs()
+        ulp = bf16_ulp(r.abs().clamp_min(r.abs().max() * 2.0 ** -12))
+        assert (err_k <= err_p + ulp.double()).all(), \
+            (name, err_k.max().item(), err_p.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [BN_MAPS[0], BN_MAPS[6], BN_MAPS[11]])
+def test_batch_norm_kernels_repeat_bit_for_bit(shape):
+    """Two runs of the kernels from the same state give the same bits:
+    the partial sums' order is the plan's, with no atomics."""
+    _need_card()
+    x = _card_map(shape, torch.bfloat16, 2, 2.0)
+    dy = _card_map(shape, torch.bfloat16, 3, 0.0) * 0.01
+    runs = []
+    for _ in range(2):
+        w, b, rm, rv, tracked = _bn_state(shape[1])
+        runs.append(_bn_kernels(x, dy, w, b, rm, rv, tracked) + (rm, rv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_refuse_what_they_do_not_take():
+    """An NCHW-contiguous map, a 2-D input and a float16 map raise before
+    any launch."""
+    _need_card()
+    w, b, rm, rv, tracked = _bn_state(16)
+    before = bnk.launches
+    nchw = torch.randn(2, 16, 4, 5, device="cuda")
+    for x, match in ((nchw, "channels_last"),
+                     (torch.randn(4, 16, device="cuda"), "2-D"),
+                     (_card_map((2, 16, 4, 5), torch.float16, 0, 0.0),
+                      "bf16 or float32")):
+        with pytest.raises(ValueError, match=match):
+            bnk.batch_norm_train(x, w, b, rm, rv, tracked, 1e-5, 0.01)
+    assert bnk.launches == before and int(tracked) == 0
+
+
+@pytest.mark.cuda
+def test_flagship_step_runs_every_training_norm_through_the_kernels():
+    """One flagship training step (f=64, 240x320, bf16) at batch 2 under a
+    profiler: 22 forward and 22 backward calls of the kernels, and every
+    ``norm.fwd`` span carries ``kernel`` 1 (no map reached them other
+    than channels_last, which they would refuse)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cadepth_tpu_torch.utils import profiling
+
+    _need_card()
+    cfg = config_from_dict({
+        "model": {"architecture": "geometry_aware", "init_features": 64},
+        "data": {"input_height": 240, "input_width": 320},
+        "training": {"use_amp": True, "batch_size": 2}})
+    model, loss_fn = ts.build_model_and_loss(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(5))
+    opt = ts.build_optimizer(cfg.optimization, model.parameters())
+    step = ts.make_train_step(cfg, model, loss_fn, opt,
+                              build_lr_schedule(cfg.optimization, 10, 5))
+    batch = {k: torch.from_numpy(a).cuda() for k, a in
+             _train_batch(np.random.default_rng(7), 2, 240, 320).items()}
+    step(batch)
+    bnk.launches = bnk.bwd_launches = 0
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        logs = step(batch)
+        torch.cuda.synchronize()
+    assert np.isfinite(float(logs["total_loss"]))
+    assert (bnk.launches, bnk.bwd_launches) == (22, 22)
+    fwd = [s for s in profiling.recorded_spans() if s["name"] == "norm.fwd"]
+    assert len(fwd) == 22
+    assert all(s["attrs"].get("kernel") == 1 for s in fwd)
+
+
+@pytest.mark.cuda
+def test_batch_norm_two_gloo_ranks_on_card_match_one_process(tmp_path):
+    """Two processes on the card over Gloo (CUDA tensors), each with half
+    the batch under ``dp``: the statistics all-reduced between the
+    forward's kernels and the gradient sums between the backward's,
+    against one process with the whole batch on the card (the tolerances
+    of ``check_ranks``)."""
+    _need_card()
+    ranks, one = ranks_against_one_process(tmp_path, "cuda", torch.bfloat16,
+                                           (4, 64, 24, 32))
+    check_ranks(ranks, one, torch.bfloat16)
