@@ -42,7 +42,8 @@ import torch
 
 from cadepth_tpu_torch.config import Config
 from cadepth_tpu_torch.data.sunrgbd import SunRGBDLoader
-from cadepth_tpu_torch.models.factory import create_model, resolve_device
+from cadepth_tpu_torch.models.factory import (check_input_size,
+                                              create_model, resolve_device)
 from cadepth_tpu_torch.training.train_state import _inputs, make_predict_fn
 from cadepth_tpu_torch.utils.profiling import span
 
@@ -127,6 +128,7 @@ class Predictor:
         self.height = height or cfg.data.input_height
         self.width = width or cfg.data.input_width
         self.architecture = cfg.model.architecture
+        check_input_size(self.architecture, self.height, self.width)
         m = cfg.model
         # with a state_dict, the model is laid out on the meta device and
         # filled from it: no weights are drawn only to be replaced

@@ -9,6 +9,16 @@ Perspective3DTransformer's translation head at zero, and norm scales at
 one with zero biases. Weights are drawn on the CPU from an explicit
 ``torch.Generator`` and then moved, so one seed gives the same model on
 every device.
+
+``depth_anything_v2`` (Depth Anything V2-Large, metric; ``dinov2.py``
+and ``dpt.py``) has no flax counterpart: its convolutions and dense
+layers take the same lecun-normal draw, its LayerNorms and LayerScales
+keep their construction's ones and zeros (upstream's LayerScale
+``init_values`` 1.0), the cls token is normal(1e-6) and the position
+table normal(0.02), as DINOv2 initialises them. Its widths are
+:data:`DAV2_VARIANTS`' ``vitl`` entry, chosen by ``model.variant``, and
+its inputs' height and width must be multiples of 14
+(:func:`check_input_size`).
 """
 
 from __future__ import annotations
@@ -20,6 +30,8 @@ import torch
 from torch import nn
 
 from cadepth_tpu_torch.models.baseline_unet import BaselineUNet
+from cadepth_tpu_torch.models.dinov2 import DinoVisionTransformer
+from cadepth_tpu_torch.models.dpt import DepthAnythingV2, check_grid
 from cadepth_tpu_torch.models.film import FiLMLayer
 from cadepth_tpu_torch.models.geometry_aware import (
     GeometryAwareNetwork, LightweightGeometryNetwork)
@@ -34,7 +46,16 @@ ARCHITECTURES = (
     "intrinsics_attention_unet",
     "geometry_aware",
     "geometry_aware_lightweight",
+    "depth_anything_v2",
 )
+
+# Depth Anything V2's encoder sizes (``model.variant``) at upstream's
+# published widths: ViT-L/14 and its DPT head
+DAV2_VARIANTS = {
+    "vitl": dict(embed_dim=1024, depth=24, num_heads=16,
+                 taps=(4, 11, 17, 23), features=256,
+                 out_channels=(256, 512, 1024, 1024)),
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -76,6 +97,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.fc_gamma.bias.fill_(1.0)
             nn.init.normal_(m.fc_beta.weight, 0.0, 0.01, generator=generator)
             m.fc_beta.bias.zero_()
+        elif isinstance(m, DinoVisionTransformer):
+            nn.init.normal_(m.cls_token, 0.0, 1e-6, generator=generator)
+            nn.init.trunc_normal_(m.pos_embed, 0.0, 0.02,
+                                  generator=generator)
         elif isinstance(m, PerspectiveCorrectionLayer):
             m.fc_transform.weight.zero_()
             m.fc_transform.bias.copy_(
@@ -107,7 +132,9 @@ def create_model(
     the CBAM variant (``intrinsics_attention_unet`` an alias), and
     ``geometry_aware`` with ``variant: lightweight`` (or
     ``geometry_aware_lightweight``) the 4-level network at
-    ``min(init_features, 32)``.
+    ``min(init_features, 32)``. ``depth_anything_v2`` takes its widths
+    from ``DAV2_VARIANTS[variant]`` and its output scale from
+    ``max_depth``; the U-Net options do not apply to it.
 
     ``generator`` (a CPU ``torch.Generator``) draws the weights; without
     one, seed 0 is used. The model is returned on ``device``.
@@ -129,6 +156,12 @@ def create_model(
         model = LightweightGeometryNetwork(
             init_features=min(init_features, 32), camera_dim=camera_dim,
             pcl_warp=pcl_warp, **att_kw)
+    elif architecture == "depth_anything_v2":
+        if variant not in DAV2_VARIANTS:
+            raise ValueError(f"depth_anything_v2 has variants "
+                             f"{sorted(DAV2_VARIANTS)}, got {variant!r}")
+        model = DepthAnythingV2(max_depth=max_depth, dtype=dtype,
+                                **DAV2_VARIANTS[variant])
     elif architecture == "geometry_aware":
         model = GeometryAwareNetwork(
             init_features=init_features, camera_dim=camera_dim,
@@ -147,13 +180,21 @@ def model_inputs(architecture: str,
                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Positional model arguments for a batch dict with keys 'rgb'
     (B,H,W,3), 'rays' (B,H,W,3) and 'k4' (B,4)."""
-    if architecture == "baseline_unet":
+    if architecture in ("baseline_unet", "depth_anything_v2"):
         return (batch["rgb"],)
     if architecture in ("intrinsics_unet", "intrinsics_attention_unet"):
         return (batch["rgb"], batch["k4"])
     if architecture in ("geometry_aware", "geometry_aware_lightweight"):
         return (batch["rgb"], batch["rays"], batch["k4"])
     raise ValueError(f"Unknown architecture '{architecture}'")
+
+
+def check_input_size(architecture: str, height: int, width: int) -> None:
+    """Raise where ``architecture`` cannot take images of this size:
+    ``depth_anything_v2`` needs multiples of its 14-pixel patch (the
+    U-Nets take any size)."""
+    if architecture == "depth_anything_v2":
+        check_grid(height, width)
 
 
 def count_parameters(model: nn.Module) -> int:

@@ -47,7 +47,8 @@ from cadepth_tpu_torch.config import Config, OptimizationConfig
 from cadepth_tpu_torch.geometry.rays import ray_grid_batch
 from cadepth_tpu_torch.losses.depth_loss import CombinedDepthLoss
 from cadepth_tpu_torch.metrics.depth_metrics import compute_depth_metrics
-from cadepth_tpu_torch.models.factory import create_model, model_inputs
+from cadepth_tpu_torch.models.factory import (check_input_size,
+                                              create_model, model_inputs)
 from cadepth_tpu_torch.models.layers import sync_batch_norms
 from cadepth_tpu_torch.parallel.mesh import DataParallel
 from cadepth_tpu_torch.utils.profiling import span
@@ -91,8 +92,11 @@ def build_model_and_loss(cfg: Config, device="cuda",
     parameters when ``training.use_amp`` is set, else float32; with
     ``dp``, batch norms and losses over the group's global batch, and
     under its ``space`` a model and a loss that take bands of the
-    images."""
+    images. Raises where the architecture cannot take
+    ``data.input_height`` x ``data.input_width`` images."""
     m = cfg.model
+    check_input_size(m.architecture, cfg.data.input_height,
+                     cfg.data.input_width)
     model = create_model(
         m.architecture, in_channels=m.in_channels,
         init_features=m.init_features, camera_dim=m.camera_dim,
@@ -271,7 +275,8 @@ class TrainStep:
     ``train.loss``, ``train.backward`` (with the zero gradients of unused
     parameters) and ``train.update`` (the gradient's statistics, clipping
     and the optimizer), each with the card's time on a card; a
-    data-parallel all-reduce lies in the step, outside the four.
+    data-parallel all-reduce of the gradients lies in the step, outside
+    the four, as span ``train.allreduce``.
 
     Under ``loss_fn.dp`` the logs are the global batch's: the losses, and
     with k = 1 the gradient's norm, max and min (with k > 1 the gradient
@@ -312,7 +317,8 @@ class TrainStep:
             reduce = None
             if self.dp is not None:
                 if self.optimizer.accum_steps == 1:
-                    self.dp.all_reduce_(grads)
+                    with span("train.allreduce", device=device):
+                        self.dp.all_reduce_(grads)
                 else:
                     reduce = self.dp.all_reduce_
             with span("train.update", device=device):

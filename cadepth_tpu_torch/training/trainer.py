@@ -181,8 +181,13 @@ def data_parallel_group(cfg: Config, device: torch.device
 
 def _flat_jax(named: Dict[str, torch.Tensor]):
     """(flax path, numpy array in the flax layout) of each parameter, in
-    JAX's order (sorted paths)."""
-    params, _ = to_jax(named)
+    JAX's order (sorted paths); for a network with no flax layout
+    (``depth_anything_v2``), its own names with ``/`` for ``.``."""
+    try:
+        params, _ = to_jax(named)
+    except KeyError:
+        return [(k.replace(".", "/"), v.detach().float().cpu().numpy())
+                for k, v in sorted(named.items())]
 
     def walk(tree, prefix=()):
         for key in sorted(tree):

@@ -358,21 +358,29 @@ def clear_spans() -> None:
 
 
 class _Mark(torch.autograd.Function):
-    """The identity, whose backward opens (on an output) or closes (on an
-    input) a backward span."""
+    """The identity on one or more tensors, whose backward opens (on
+    outputs) or closes (on inputs) a backward span once the gradients of
+    them all have arrived."""
 
     @staticmethod
-    def forward(ctx, x, holder, opens):
+    def forward(ctx, holder, opens, *xs):
         ctx.holder, ctx.opens = holder, opens
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         if ctx.opens:
             ctx.holder.open()
         else:
             ctx.holder.close()
-        return grad, None, None
+        return (None, None) + grads
+
+
+def _marked(holder, opens: bool, x):
+    """``x`` (a tensor, or a tuple or list of them) through one mark."""
+    if isinstance(x, torch.Tensor):
+        return _Mark.apply(holder, opens, x)[0]
+    return type(x)(_Mark.apply(holder, opens, *x))
 
 
 class _BackwardSpan:
@@ -391,16 +399,20 @@ def _same(y):
     return y
 
 
-def backward_span(name: str, x: torch.Tensor, within: Span):
+def backward_span(name: str, x, within: Span):
     """(x', mark): where a gradient flows back through ``x``, the
     backward from ``mark(y)``'s gradient down to ``x``'s, for a ``y``
     computed from ``x'``, is span ``name`` (trace id ``within``'s, its
-    parent the innermost span open on the thread that runs it). Two
-    identity nodes in the autograd graph; outside grad mode, where ``x``
-    needs no gradient, or where ``within`` is :data:`OFF`: ``x`` and the
-    identity, with nothing added."""
-    if within is OFF or not (torch.is_grad_enabled() and x.requires_grad):
+    parent the innermost span open on the thread that runs it). ``x`` and
+    ``y`` are each a tensor or a tuple or list of tensors (returned in
+    kind): the span opens once the gradients of all of ``y`` have
+    arrived and closes once those of all of ``x`` are computed. Two
+    identity nodes in the autograd graph; outside grad mode, where no
+    tensor of ``x`` needs a gradient, or where ``within`` is :data:`OFF`:
+    ``x`` and the identity, with nothing added."""
+    xs = (x,) if isinstance(x, torch.Tensor) else x
+    if within is OFF or not (torch.is_grad_enabled()
+                             and any(t.requires_grad for t in xs)):
         return x, _same
-    holder = _BackwardSpan(name, x.device, within.trace)
-    return _Mark.apply(x, holder, False), \
-        lambda y: _Mark.apply(y, holder, True)
+    holder = _BackwardSpan(name, xs[0].device, within.trace)
+    return _marked(holder, False, x), lambda y: _marked(holder, True, y)

@@ -237,6 +237,16 @@ Phases, each fatal on failure:
    dx written), the plain version's, and F.batch_norm(training=True)'s
    forward and backward through autograd (the library's yardstick; the
    port never calls it);
+28. Depth Anything V2-Large (metric, ``models/dinov2.py`` and
+   ``models/dpt.py``) through the port's TrainStep at 8 frames of
+   518x686, bf16 over float32 parameters: the step's time, its images
+   a second, the peak, the SDPA backend that ran (by its kernels' names
+   in a profiled step) and the attention's card time (its kernels', and
+   the port's ``attn.fwd`` + ``attn.bwd`` spans), then the port against
+   the plain float32 reference (``tests/reference_dav2.py``, TF32 off)
+   at batch 2: in float32 within DAV2_F32_RTOL of the depth, in bf16
+   within DAV2_BF16_DEV of the depths' own variation. ``--phase 28``
+   runs phases 1, 2 and this one alone;
 24. one JSON line describing every kernel (the two-pass warp's windowed
    launches under ``windowed``, the production maps' under
    ``production``, the batch norm's under ``batch_norm`` with its calls
@@ -254,6 +264,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -5505,12 +5516,174 @@ def production(device, args, card: str, root: pathlib.Path):
             "probe": dict(report, warp_counts=counts)}
 
 
+
+# phase 28: the attention kernels' names (substrings) by SDPA backend
+SDPA_BACKENDS = (("flash", ("flash_fwd", "flash_bwd", "pytorch_flash")),
+                 ("cudnn", ("cudnn_generated", "sdpa_cudnn", "fmha_sm90",
+                            "cudnn::fusion")),
+                 ("efficient", ("fmha_cutlass", "efficient_attention",
+                                "mem_efficient")))
+# phase 28: the f32 port against the f32 reference, depth in metres
+# relative (SDPA's fused softmax and the LayerNorm's fused statistics
+# against the materialised ones, over 24 blocks and 1,814 tokens)
+DAV2_F32_RTOL = 1e-3
+# the bf16 port against the f32 reference: ||d - r|| / ||r - mean(r)||
+# a frame, the benchmark cell's limit on depth_dev_first
+DAV2_BF16_DEV = 0.15
+DAV2_STEPS = 10
+
+
+def depth_anything(device, args, card: str) -> dict:
+    """28: Depth Anything V2-Large (metric) through the port's TrainStep at
+    batch ``args.dav2_batch`` of ``args.dav2_h`` x ``args.dav2_w`` frames,
+    bf16 over float32 parameters: the step's time (CUDA events over
+    DAV2_STEPS steps after 3), the peak, the SDPA backend that ran (by its
+    kernels' names in a profiled step) and the attention's card time (its
+    kernels' device time, and the port's spans ``attn.fwd`` + ``attn.bwd``),
+    then the port against the plain float32 reference
+    (``tests/reference_dav2.py``) on the card at batch 2: the port in
+    float32 and in bf16."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from reference_dav2 import DepthAnythingV2Ref
+
+    from cadepth_tpu_torch.config import config_from_dict
+    from cadepth_tpu_torch.models import factory
+    from cadepth_tpu_torch.training.train_state import (
+        build_model_and_loss, build_optimizer, make_train_step)
+    from cadepth_tpu_torch.utils import profiling
+
+    cuda = device.type == "cuda"
+    widths = factory.DAV2_VARIANTS["vitl"]
+    if not cuda:
+        widths = dict(embed_dim=64, depth=4, num_heads=4, taps=(0, 1, 2, 3),
+                      features=32, out_channels=(32, 64, 64, 64))
+    b, h, w = args.dav2_batch, args.dav2_h, args.dav2_w
+    saved = factory.DAV2_VARIANTS["vitl"]
+    factory.DAV2_VARIANTS["vitl"] = widths
+    try:
+        cfg = config_from_dict({
+            "model": {"architecture": "depth_anything_v2", "variant": "vitl",
+                      "max_depth": 20.0},
+            "data": {"input_height": h, "input_width": w},
+            "optimization": {"optimizer": "adamw", "learning_rate": 1e-5,
+                             "lr_scheduler": "none", "lr_warmup_epochs": 0},
+            "training": {"batch_size": b, "use_amp": True}})
+        model, loss_fn = build_model_and_loss(
+            cfg, device=device, generator=torch.Generator().manual_seed(28))
+    finally:
+        factory.DAV2_VARIANTS["vitl"] = saved
+    params = factory.count_parameters(model)
+    opt = build_optimizer(cfg.optimization, model.parameters())
+    step = make_train_step(cfg, model, loss_fn, opt, lambda i: 1e-5)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 28)
+    k = torch.eye(3, device=device).repeat(b, 1, 1)
+    k[:, 0, 0], k[:, 1, 1] = 0.8 * w, 0.8 * w
+    k[:, 0, 2], k[:, 1, 2] = w / 2.0, h / 2.0
+    batch = {"rgb": torch.rand(b, h, w, 3, device=device, generator=gen),
+             "depth": 0.5 + 9.0 * torch.rand(b, h, w, 1, device=device,
+                                             generator=gen),
+             "intrinsics": k}
+    batch["k4"] = torch.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2],
+                               k[:, 1, 2]], -1)
+    for _ in range(3):
+        logs = step(batch)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    steps = DAV2_STEPS if cuda else 2
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logs = step(batch)
+    loss = float(logs["total_loss"])
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    if not math.isfinite(loss):
+        raise AssertionError(f"DA-V2's training loss is {loss}")
+    log(f"  DA-V2-L ({params:,} parameters) at batch {b}, {h}x{w}, bf16: "
+        f"step {step_ms:.2f} ms ({1e3 * b / step_ms:.2f} images/s), peak "
+        f"{peak:.2f} GiB, loss {loss:.4f}")
+
+    profiling.clear_spans()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        step(batch)
+        if cuda:
+            torch.cuda.synchronize()
+    spans = profiling.recorded_spans()
+    span_ms = {n: sum(s["device_ms"] or 0.0 for s in spans if s["name"] == n)
+               for n in ("attn.fwd", "attn.bwd", "vit.encoder",
+                         "vit.encoder.bwd", "dpt.head", "dpt.head.bwd",
+                         "train.step")}
+    profiling.clear_spans()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() * 1e-3
+    backend, attn_ms, names = None, 0.0, []
+    for name, keys in SDPA_BACKENDS:
+        hits = {n: t for n, t in kernels.items()
+                if any(key in n for key in keys)}
+        if hits:
+            backend = backend or name
+            attn_ms += sum(hits.values())
+            names += sorted(hits)
+    if cuda and backend is None:
+        top = sorted(kernels.items(), key=lambda x: -x[1])[:12]
+        raise AssertionError(f"no SDPA kernel found among {top}")
+    log(f"  SDPA backend: {backend} ({names}); attention kernels "
+        f"{attn_ms:.2f} ms a step; spans (card ms): "
+        + ", ".join(f"{n} {v:.2f}" for n, v in span_ms.items()))
+    del opt, step, logs
+    gc.collect()
+
+    # the port against the reference, float32 (TF32 off) and bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = DepthAnythingV2Ref(max_depth=20.0, **widths).to(device)
+    ref.load_state_dict(model.state_dict())
+    rgb = batch["rgb"][:2]
+    with torch.no_grad():
+        want = ref(rgb).double()
+        got16 = model(rgb).double()
+        f32 = factory.DepthAnythingV2(max_depth=20.0, dtype=torch.float32,
+                                      **widths).to(device)
+        f32.load_state_dict(model.state_dict())
+        got32 = f32(rgb).double()
+    rel = float(((got32 - want).abs() / want.abs()).max())
+    flat_w, flat_g = want.reshape(2, -1), got16.reshape(2, -1)
+    dev = ((flat_g - flat_w).norm(dim=1)
+           / (flat_w - flat_w.mean(1, keepdim=True)).norm(dim=1)).tolist()
+    log(f"  port against the reference at batch 2: float32 max relative "
+        f"{rel:.3e} (limit {DAV2_F32_RTOL}), bf16 deviation {dev} (limit "
+        f"{DAV2_BF16_DEV}); reference depth {float(want.mean()):.3f} +- "
+        f"{float(want.std()):.3f} m")
+    if not rel < DAV2_F32_RTOL or not max(dev) < DAV2_BF16_DEV:
+        raise AssertionError("DA-V2's port is off the reference")
+    del ref, f32, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"params": params, "batch": b, "size": [h, w], "step_ms": step_ms,
+            "images_per_s": 1e3 * b / step_ms, "peak_gib": peak,
+            "sdpa_backend": backend, "sdpa_kernels": names,
+            "attention_kernel_ms": attn_ms, "span_ms": span_ms,
+            "f32_max_rel": rel, "bf16_dev": dev}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at a tiny size with the "
                          "plain warp; prints no result")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", type=int, choices=(28,),
+                    help="run phases 1, 2 and this one alone")
     ap.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--sp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
@@ -5542,6 +5715,8 @@ def main(argv=None) -> int:
         # phase 26: the production file at f=8, 64x64 (its batch of 8)
         args.prod_batch, args.prod_f, args.prod_h, args.prod_w = 8, 8, 64, 64
         args.prod_iters, args.prod_steps = 3, 3
+        # phase 28: the tiny DA-V2 at 28x42
+        args.dav2_batch, args.dav2_h, args.dav2_w = 2, 28, 42
         card = "cpu rehearsal"
     else:
         if not torch.cuda.is_available():
@@ -5565,6 +5740,8 @@ def main(argv=None) -> int:
         args.prod_batch, args.prod_f, args.prod_h, args.prod_w = \
             8, 96, 480, 640
         args.prod_iters, args.prod_steps = 20, PROD_TIMED_STEPS
+        # phase 28: DA-V2-L at a card's 8 of 518x686 frames
+        args.dav2_batch, args.dav2_h, args.dav2_w = 8, 518, 686
         card = card_info()
     sys.path.insert(0, str(ROOT))
     import cadepth_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -5586,6 +5763,14 @@ def main(argv=None) -> int:
         libs = _build.build_all()
         log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
             f"into {_build.BUILD_DIR.relative_to(ROOT)}/")
+
+    if args.phase == 28:
+        phase("28. Depth Anything V2-Large (metric) at the cell's batch")
+        dav2 = depth_anything(device, args, card)
+        log(card_info() if not rehearsal else card)
+        print(json.dumps({"ok": True, "depth_anything_v2": dav2}),
+              flush=True)
+        return 0
 
     # serving runs without autograd, as Predictor does
     with torch.no_grad():
@@ -5748,6 +5933,9 @@ def main(argv=None) -> int:
         phase("27. the training batch norm's kernels at the training "
               "cells' norm maps")
         norms = batch_norm_kernels(device, args, card)
+
+        phase("28. Depth Anything V2-Large (metric) at the cell's batch")
+        depth_anything(device, args, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del weights

@@ -1470,3 +1470,44 @@ def test_batch_norm_two_gloo_ranks_on_card_match_one_process(tmp_path):
     ranks, one = ranks_against_one_process(tmp_path, "cuda", torch.bfloat16,
                                            (4, 64, 24, 32))
     check_ranks(ranks, one, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_depth_anything_on_card_matches_the_reference_and_the_cpu():
+    """The tiny DA-V2 (4 blocks, width 64, 4 heads, DPT features 32) at
+    28x42: in float32 on the card (TF32 off) against the plain reference
+    and against itself on the CPU, depth within 1e-4 relative (SDPA's
+    fused softmax and cuDNN's convolutions against the materialised
+    ones), and its gradients through a mean within 1e-3 of the largest
+    entry of each leaf."""
+    _need_card()
+    from reference_dav2 import DepthAnythingV2Ref
+
+    from cadepth_tpu_torch.models import factory
+    from cadepth_tpu_torch.models.dpt import DepthAnythingV2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = dict(embed_dim=64, depth=4, num_heads=4, taps=(0, 1, 2, 3),
+                features=32, out_channels=(32, 64, 64, 64), max_depth=20.0)
+    cpu = DepthAnythingV2(dtype=torch.float32, **tiny)
+    factory.init_weights(cpu, torch.Generator().manual_seed(5))
+    card = DepthAnythingV2(dtype=torch.float32, **tiny).cuda()
+    card.load_state_dict(cpu.state_dict())
+    ref = DepthAnythingV2Ref(**tiny).cuda()
+    ref.load_state_dict(cpu.state_dict())
+    rgb = torch.rand(2, 28, 42, 3, generator=torch.Generator().manual_seed(6))
+    got = card(rgb.cuda())
+    want = ref(rgb.cuda())
+    here = cpu(rgb)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got.cpu(), here, rtol=1e-4, atol=0.0)
+    got.mean().backward()
+    want.mean().backward()
+    mine = dict(card.named_parameters())
+    for name, p in ref.named_parameters():
+        if p.grad is None:
+            continue
+        err = (mine[name].grad - p.grad).abs().max() / \
+            p.grad.abs().max().clamp_min(1e-30)
+        assert float(err) < 1e-3, name

@@ -105,9 +105,10 @@ def test_lightweight_pcl_max_rot_matches_jax_intermediates():
     assert min(got) > 0.01
 
 
-# (architecture, use_attention, variant) of JAX's dispatch table
+# (architecture, use_attention, variant) of JAX's dispatch table (the
+# port's families that the JAX package has)
 DISPATCH = [(arch, att, var)
-            for arch in factory.ARCHITECTURES
+            for arch in jax_factory.ARCHITECTURES
             for att in (True, False) for var in ("full", "lightweight")]
 
 
